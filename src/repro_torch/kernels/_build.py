@@ -61,6 +61,24 @@ LIBRARIES = {
             "filter_match_launch": [_P, _I, _P, _I, _LL, _P, _P],
         },
     ),
+    "filter_count": (
+        "filter_count.cu",
+        {
+            # rows_sk, lanes, query, n_queries, n, counts, stream
+            "filter_count_launch": [_P, _I, _P, _I, _LL, _P, _P],
+        },
+    ),
+    "flash_attention": (
+        "flash_attention.cu",
+        {
+            # q, k, v, out, B, H, S, T, d, dv, q strides (b, s, h),
+            # k strides, v strides, causal, window, is_bf16, stream
+            "flash_attention_launch": [
+                _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _P,
+            ],
+        },
+    ),
 }
 
 NVCC_FLAGS = [

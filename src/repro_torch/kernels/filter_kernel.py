@@ -1,10 +1,12 @@
 """Super-key row filter (paper §6.3): wrappers of the hand-written CUDA kernels.
 
-Three launches, each the port of one Pallas kernel of
+Four launches, each the port of one Pallas kernel of
 ``repro.kernels.filter_kernel``:
 
   * ``filter_match``      (B.4) — the int8 ``[n, q]`` subsumption matrix
     (``csrc/filter_match.cu``);
+  * ``filter_count``      (B.5) — per-query counts of rows passing the
+    filter, ``int32[q]`` (``csrc/filter_count.cu``);
   * ``filter_table_counts`` (B.1) — fused subsumption ∧ eligibility, row-
     reduced ('sum' or 'any') and scattered into per-table counts, plus
     per-key counts; the n×q matrix never exists (``csrc/filter_counts.cu``);
@@ -112,6 +114,54 @@ def filter_match(row_sk: torch.Tensor, query_sk: torch.Tensor) -> torch.Tensor:
 
 
 filter_match.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B.5 — per-query counts
+# ---------------------------------------------------------------------------
+
+def filter_count_plain(row_sk: torch.Tensor, query_sk: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``filter_count``: int32[q] on the inputs' device."""
+    q = query_sk.shape[0]
+    counts = torch.zeros(q, dtype=torch.int64, device=row_sk.device)
+    step = _plain_rows(q, query_sk.shape[1])
+    for s in range(0, row_sk.shape[0], step):
+        counts += subsumes(query_sk[None], row_sk[s : s + step, None]).sum(dim=0)
+    return counts.to(torch.int32)
+
+
+def filter_count(row_sk: torch.Tensor, query_sk: torch.Tensor) -> torch.Tensor:
+    """Per-query count of rows that pass the filter.
+
+    Args:
+      row_sk:   int32[n, lanes] row super keys.
+      query_sk: int32[q, lanes] query-key super keys.
+    Returns:
+      int32[q] — rows whose super key subsumes each query key; an all-zero
+      query counts every row.
+    """
+    if row_sk.shape[1:] != query_sk.shape[1:]:
+        raise ValueError(f"lane counts differ: rows {tuple(row_sk.shape)}, queries {tuple(query_sk.shape)}")
+    if row_sk.device.type == "cpu":
+        return filter_count_plain(row_sk, query_sk)
+    dev = row_sk.device
+    _check_cuda("filter_count", dev, row_sk=(row_sk, (torch.int32,)),
+                query_sk=(query_sk, (torch.int32,)))
+    n, q = row_sk.shape[0], query_sk.shape[0]
+    counts = torch.zeros(q, dtype=torch.int32, device=dev)
+    if n == 0 or q == 0:
+        return counts
+    lib = _build.load("filter_count")
+    err = lib.filter_count_launch(
+        row_sk.data_ptr(), row_sk.shape[1], query_sk.data_ptr(), q, n,
+        counts.data_ptr(), _stream(row_sk),
+    )
+    _build.check(err, "filter_count")
+    filter_count.launches += 1
+    return counts
+
+
+filter_count.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,11 @@
-"""Public wrappers around the port's filter kernels: numpy in, numpy out.
+"""Public wrappers around the port's kernels (port of ``repro.kernels.ops``).
 
-Port of the filter half of ``repro.kernels.ops``.  These functions turn the
-engines' host arrays (uint32 superkeys, bool eligibility, int32 table ids)
-into device tensors, dispatch on the resolved backend (``kernels.registry``)
-and return host counts.  The reference's padding to block multiples and
-shape buckets is gone: the CUDA kernels mask their own ragged edges and
-PyTorch compiles nothing per shape.
+The filter wrappers take the engines' host arrays (uint32 superkeys, bool
+eligibility, int32 table ids), move them to the device, dispatch on the
+resolved backend (``kernels.registry``) and return host arrays.  ``flash_attention`` takes and returns tensors, on
+the reference's ``[B, S, H, d]`` layout.  The reference's padding to block
+multiples and shape buckets is gone: the CUDA kernels mask their own ragged
+edges and PyTorch compiles nothing per shape.
 
 The demotion ladder is the reference's, unchanged:
 
@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.core.xash import lanes_to_numpy, lanes_to_torch
 from repro_torch.device import resolve_device
-from repro_torch.kernels import filter_kernel, registry
+from repro_torch.kernels import filter_kernel, flash_kernel, registry
 from repro_torch.kernels.registry import Backend
 
 # below this many (row × key) probes, numpy beats a device dispatch
@@ -39,6 +39,10 @@ _FUSED_MAX_TABLES = filter_kernel.FUSED_MAX_TABLES
 # device superkey stores above this size stay host-resident and the
 # fused-gather backend demotes to the host-gather fused launch
 GATHER_STORE_MAX_BYTES = 2 << 30
+
+# the reference's flash block (block_q = block_kv): it pads S and T to it,
+# which is only sound for causal calls, so it asserts alignment otherwise
+FLASH_ALIGN = 128
 
 
 def _check_fused_block_n(block_n: int) -> None:
@@ -62,6 +66,34 @@ def _int32_t(a: np.ndarray, device) -> torch.Tensor:
     if a.size and (a.min() < -(2**31) or a.max() >= 2**31):
         raise ValueError("values do not fit the kernels' int32 offsets / table ids")
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Flash attention (kernel B.6) on [B, S, H, d] layouts:
+    q [B, S, H, d], k [B, T, H, d], v [B, T, H, dv] -> [B, S, H, dv].
+
+    Heads must already be repeated to full count (layers.repeat_kv).  Like
+    the reference, a non-causal call needs S and T aligned to its block.
+    """
+    s, t = q.shape[1], k.shape[1]
+    if not causal and (s % FLASH_ALIGN or t % FLASH_ALIGN):
+        raise ValueError(f"non-causal flash attention needs S and T multiples of {FLASH_ALIGN}, got {s}, {t}")
+    return flash_kernel.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def filter_count(row_sk: np.ndarray, query_sk: np.ndarray, *, device=None) -> np.ndarray:
+    """Fused per-query candidate count (kernel B.5): (uint32[n, lanes],
+    uint32[q, lanes]) -> int32[q] on the host.
+
+    The kernel pads nothing, so unlike the reference there is no padding
+    to correct; an all-zero (empty-string) query matches every row under
+    any filter (vacuous truth), as in the reference.  The reference's
+    ``block_n`` / ``block_q`` are left out: the kernel sizes its own blocks.
+    """
+    dev = resolve_device(device)
+    counts = filter_kernel.filter_count(lanes_to_torch(row_sk, dev), lanes_to_torch(query_sk, dev))
+    return counts.cpu().numpy()
 
 
 def subsume_np(row_sk: np.ndarray, query_sk: np.ndarray) -> np.ndarray:
