@@ -6,27 +6,33 @@
 Phases, each printing one JSON line:
 
 1. environment — the card, ``torch.version.cuda``, nvcc's release, and the
-   seconds the kernel build took (one nvcc per source, all six in parallel);
+   seconds the kernel build took (one nvcc per source, all six in
+   parallel), then each library's ``ptxas`` registers and spills;
 2. kernels — each hand-written kernel runs on the card at the shapes its
    path gives it at scale and is held against its plain PyTorch version on
-   the same inputs: B.1 filter_table_counts, B.2 gather_filter_table_counts,
-   B.3 xash_superkey, B.4 filter_match and B.5 filter_count exactly
-   (integer outputs: max_abs_err must be 0); B.6 flash_attention at
-   qwen1.5-0.5b's prefill shape [4, 2048, 16, 64] in bf16, causal and with a
-   512 window (max_abs_err < 2e-2), and at [2, 512, 2, d 128, dv 64] in f32
-   (< 1e-5).  CUDA-event times of kernel and plain version, the bound (the
-   least time the card could take: the larger of bytes over 3.35 TB/s and
-   the operations this run's data needs over the peak rate of their type —
-   67 T op/s for 32-bit integer and float32, 989 TFLOP/s for bf16 tensor
-   cores), and for B.6 the time of ``scaled_dot_product_attention`` on the
-   same inputs (``library_ms``; the port never calls it);
+   the same inputs: B.1 filter_table_counts, B.2 gather_filter_table_counts
+   (512 and 128 bits, a lane prefix, and the main path's shapes: q = 30, a
+   block-diagonal q = 240, q = 300, no elig), B.3 xash_superkey, B.4
+   filter_match and B.5 filter_count exactly (integer outputs: max_abs_err
+   must be 0); B.6 flash_attention at qwen1.5-0.5b's prefill shape
+   [4, 2048, 16, 64] in bf16, causal and with a 512 window, ragged
+   S = T = 1,000, strided views of one fused QKV projection, d 128 with
+   dv 64, S != T (max_abs_err < 2e-2), and at [2, 512, 2, d 128, dv 64] in
+   f32 (< 1e-5).  CUDA-event times of kernel and plain version, the bound
+   (the least time the card could take: the larger of bytes over 3.35 TB/s
+   and the operations this run's data needs over the peak rate of their
+   type — 67 T op/s for 32-bit integer and float32, 989 TFLOP/s for bf16
+   tensor cores; ``flash_work`` and ``gather_bytes`` count them), and for B.6
+   the time of ``scaled_dot_product_attention`` on the same inputs
+   (``library_ms``; the port never calls it);
 3. main path — ``synthetic.make_corpus`` → ``MateSession.build`` (default
    ``DiscoveryConfig``: 128 bits, rank='quality', profile gate on, backend
    resolved on CUDA to 'fused-gather') → ``discover`` on ground-truth
    queries and one ``discover_many`` group, every result held identical
    under 'fused-gather', 'fused', 'pallas' and 'numpy' and against the
    brute-force oracle, then one §5.4 ``update_cell`` and one more
-   ``discover``;
+   ``discover``; the ``main_path`` line gives a histogram of the shapes
+   (candidate rows, query keys, lanes) of its B.2 launches;
 4. ops path — ``ops.filter_count`` over the session's superkeys against the
    ground-truth queries' keys, equal to the column sums of the match matrix
    (``ops.filter_match_auto`` on the 'pallas' backend, kernel B.4);
@@ -51,6 +57,8 @@ CUDA device and the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -76,11 +84,23 @@ REPS = 10  # timed launches per kernel
 # main path: planted ground-truth queries, and one discover_many group
 N_TRUTH = 4
 GROUP = 8
-# B.6 shapes: (B, S, H, d, dv, window, dtype, tolerance)
+# B.6 shapes, all causal: (B, S, T, H, d, dv, window, dtype, tolerance,
+# q/k/v as views of one fused [B, S, 3·H·d] projection)
 FLASH_SHAPES = [
-    (4, 2048, 16, 64, 64, 0, torch.bfloat16, 2e-2),  # qwen1.5-0.5b prefill
-    (4, 2048, 16, 64, 64, 512, torch.bfloat16, 2e-2),
-    (2, 512, 2, 128, 64, 0, torch.float32, 1e-5),
+    (4, 2048, 2048, 16, 64, 64, 0, torch.bfloat16, 2e-2, False),  # qwen1.5-0.5b prefill
+    (4, 2048, 2048, 16, 64, 64, 512, torch.bfloat16, 2e-2, False),
+    (2, 512, 512, 2, 128, 64, 0, torch.float32, 1e-5, False),
+    (4, 1000, 1000, 16, 64, 64, 0, torch.bfloat16, 2e-2, False),  # ragged
+    (4, 2048, 2048, 16, 64, 64, 0, torch.bfloat16, 2e-2, True),  # fused projection
+    (4, 2048, 2048, 16, 128, 64, 0, torch.bfloat16, 2e-2, False),
+    (4, 2048, 1000, 16, 64, 64, 0, torch.bfloat16, 2e-2, False),  # S != T
+]
+# B.2 shapes of the main path at scale, 128 bits: (label, keys, elig kind)
+GATHER_MAIN_SHAPES = [
+    ("q=30 (one discover)", 30, "random"),
+    ("q=240 block-diagonal, 8 blocks (one discover_many group)", 240, "block-diagonal"),
+    ("q=300 (two query tiles)", 300, "random"),
+    ("q=256 elig=None", 256, None),
 ]
 # serve phase
 SERVE_ARCH = "qwen1.5-0.5b"
@@ -98,6 +118,25 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def sass_count(lib, mnemonic: str) -> dict[str, int] | None:
+    """Instructions named ``mnemonic`` in each kernel of a built library
+    (``cuobjdump -sass``), for the kernels that have any; None without
+    cuobjdump."""
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True).stdout
+    counts, fn = collections.Counter(), None
+    for ln in sass.splitlines():
+        if "Function : " in ln:
+            fn = ln.split("Function : ")[1].strip()
+        elif fn and mnemonic in ln:
+            counts[fn] += 1
+    return dict(counts)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -142,21 +181,58 @@ def make_filter_inputs(rng, dev, n_store, lanes, n, q, n_tables):
     del raw
     seg = torch.from_numpy(np.sort(rng.integers(0, n_tables, size=n)).astype(np.int32)).to(dev)
     rows = torch.from_numpy(rng.integers(0, n_store, size=n).astype(np.int32)).to(dev)
-    pick = torch.from_numpy(rng.integers(0, n, size=q)).to(dev)
-    keep = torch.from_numpy(
-        rng.integers(0, 2**32, size=(q, lanes), dtype=np.uint32).view(np.int32)
-    ).to(dev)
-    query = (store[rows[pick].long()] & keep & keep.roll(1, 0)).contiguous()
-    elig = torch.from_numpy(rng.integers(0, 4, size=(n, q), dtype=np.uint8) == 0).to(dev)
+    query = make_queries(rng, store, rows, q)
+    elig = make_elig(rng, dev, n, q, "random")
     return store, rows, query, elig, seg
 
 
-def flash_work(b, s, h, d, dv, window, elem) -> tuple[int, int]:
-    """(bytes, FLOPs) of one causal flash call: q, k, v read once, out written
-    once; 2·d + 2·dv FLOPs per admissible (query, key) pair — i - window < j
-    <= i — counted for this shape."""
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
-    return b * h * (s * d + s * d + s * dv + s * dv) * elem, b * h * pairs * 2 * (d + dv)
+def make_queries(rng, store, rows, q):
+    """q query keys, each a random bit subset of a candidate row."""
+    pick = torch.from_numpy(rng.integers(0, rows.shape[0], size=q)).to(store.device)
+    keep = torch.from_numpy(
+        rng.integers(0, 2**32, size=(q, store.shape[1]), dtype=np.uint32).view(np.int32)
+    ).to(store.device)
+    return (store[rows[pick].long()] & keep & keep.roll(1, 0)).contiguous()
+
+
+def make_elig(rng, dev, n, q, kind, blocks: int = 8):
+    """bool[n, q]: 1-in-4 eligible ("random"), or that within ``blocks``
+    diagonal blocks and none outside them ("block-diagonal": the rows of
+    each query of a ``discover_many`` group are eligible only for its keys)."""
+    elig = torch.from_numpy(rng.integers(0, 4, size=(n, q), dtype=np.uint8) == 0).to(dev)
+    if kind == "block-diagonal":
+        row_blk = torch.arange(n, device=dev) * blocks // n
+        key_blk = torch.arange(q, device=dev) * blocks // q
+        elig &= row_blk[:, None] == key_blk[None, :]
+    return elig
+
+
+def flash_work(b, s, t, h, d, dv, window, elem, causal: bool = True) -> tuple[int, int]:
+    """(bytes, FLOPs) of one flash call: q, k, v read once and out written
+    once; 2·d + 2·dv FLOPs per admissible (query i, key j) pair — j < t,
+    j <= i when causal, i - j < window when window > 0 — counted for this
+    shape."""
+    i = np.arange(s, dtype=np.int64)
+    hi = np.minimum(i, t - 1) if causal else np.full(s, t - 1, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(s, dtype=np.int64)
+    pairs = int(np.maximum(hi - lo + 1, 0).sum())
+    return b * h * (s * d + t * d + t * dv + s * dv) * elem, b * h * pairs * 2 * (d + dv)
+
+
+def gather_bytes(rows, store_stride: int, lanes: int, q: int, n_tables: int,
+                 has_elig: bool) -> int:
+    """Bytes one B.2 launch must move: each row offset, table id and elig
+    row read once, each distinct 32-byte sector of the store that the
+    candidates' probed lanes touch read once (a sector is the least a gather
+    reads), the query keys read and the counts written once."""
+    n = rows.shape[0]
+    start = rows.long() * store_stride * 4
+    first, last = start // 32, (start + lanes * 4 - 1) // 32
+    # a row's sectors first..last; past its last, `first` stands in (counted already)
+    spans = [torch.where(first + k <= last, first + k, first)
+             for k in range(int((last - first).max()) + 1 if n else 0)]
+    n_sectors = int(torch.unique(torch.cat(spans)).numel()) if n else 0
+    return n * 4 + 32 * n_sectors + (n * q if has_elig else 0) + n * 4 + q * lanes * 4 + n_tables * 4
 
 
 def kernel_phase(seed, corpus) -> dict[str, dict]:
@@ -189,11 +265,16 @@ def kernel_phase(seed, corpus) -> dict[str, dict]:
             }
 
     # B.6 flash_attention at the serving path's prefill shape, then the
-    # window and the f32 dv != d shapes; SDPA on the same inputs as yardstick
-    for b, s, h, d, dv, window, dtype, tol in FLASH_SHAPES:
+    # window, the f32 dv != d shape and the bf16 edge shapes; SDPA on the same
+    # inputs as yardstick
+    for b, s, t, h, d, dv, window, dtype, tol, fused in FLASH_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        qkv = [torch.randn(b, s, h, e, generator=gen, device=dev, dtype=torch.float32).to(dtype)
-               for e in (d, d, dv)]
+        if fused:  # q, k, v: strided views of one [B, S, 3·H·d] projection
+            qkv = torch.randn(b, s, 3 * h * d, generator=gen, device=dev).to(dtype)
+            qkv = [qkv[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d)) for i in range(3)]
+        else:
+            qkv = [torch.randn(b, n, h, e, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+                   for n, e in ((s, d), (t, d), (t, dv))]
         got = flk.flash_attention(*qkv, causal=True, window=window)
         want = flk.flash_attention_plain(*qkv, causal=True, window=window)
         err = float((got.float() - want.float()).abs().max().item())
@@ -201,18 +282,19 @@ def kernel_phase(seed, corpus) -> dict[str, dict]:
         plain_ms = cuda_ms(lambda: flk.flash_attention_plain(*qkv, causal=True, window=window), 1)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in qkv)
         if window:
-            mask = flk._admissible(s, s, True, window, dev)
+            mask = flk._admissible(s, t, True, window, dev)
             sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
         else:
             sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         lib_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max().item())
         library_ms = cuda_ms(sdpa, REPS)
-        nbytes, flops = flash_work(b, s, h, d, dv, window, qkv[0].element_size())
+        nbytes, flops = flash_work(b, s, t, h, d, dv, window, qkv[0].element_size())
         rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
         record("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
                "src/repro/kernels/flash_kernel.py:101", err, tol, ms, plain_ms, nbytes, flops,
-               f"[{b},{s},{h},d={d},dv={dv}] {str(dtype)[6:]} causal window={window}"
-               f" (sdpa max_abs_err {lib_err:.3g})", rate, library_ms)
+               f"[{b},S={s},T={t},{h},d={d},dv={dv}] {str(dtype)[6:]} causal window={window}"
+               f"{' fused-qkv views' if fused else ''} (sdpa max_abs_err {lib_err:.3g})",
+               rate, library_ms)
         del qkv, got, want, qt, kt, vt
     torch.cuda.empty_cache()
 
@@ -222,20 +304,28 @@ def kernel_phase(seed, corpus) -> dict[str, dict]:
     torch.cuda.synchronize()
 
     # B.2 gather_filter_table_counts: 512-bit store, then 128-bit store, then
-    # the lane-prefix degrade (4 lanes probed over the 16-lane store)
+    # the lane-prefix degrade (4 lanes probed over the 16-lane store), then
+    # the main path's shapes on the 128-bit store
     store4 = store16[:, :4].contiguous()
     query4 = query16[:, :4].contiguous()
-    for label, st, qs in (("512-bit", store16, query16), ("128-bit", store4, query4),
-                          ("4 of 16 lanes", store16, query4)):
-        lanes = qs.shape[1]
-        got = fk.gather_filter_table_counts(rows, st, qs, elig, seg, n_tables=tb)
-        want = fk.gather_filter_table_counts_plain(rows, st, qs, elig, seg, tb, q)
-        ms = cuda_ms(lambda: fk.gather_filter_table_counts(rows, st, qs, elig, seg, n_tables=tb), REPS)
-        plain_ms = cuda_ms(lambda: fk.gather_filter_table_counts_plain(rows, st, qs, elig, seg, tb, q), 1)
-        nbytes = n * 4 + n * max(32, lanes * 4) + n * q + n * 4 + q * lanes * 4 + tb * 4
-        record("gather_filter_table_counts", "src/repro_torch/kernels/csrc/filter_counts.cu",
+    gather_cases = [("512-bit", store16, query16, elig), ("128-bit", store4, query4, elig),
+                    ("4 of 16 lanes", store16, query4, elig)]
+    for label, keys, kind in GATHER_MAIN_SHAPES:
+        qs = query4 if keys == q else make_queries(rng, store4, rows, keys)
+        el = None if kind is None else make_elig(rng, dev, n, keys, kind)
+        gather_cases.append((f"128-bit {label}", store4, qs, el))
+    for label, st, qs, el in gather_cases:
+        lanes, keys = qs.shape[1], qs.shape[0]
+        got = fk.gather_filter_table_counts(rows, st, qs, el, seg, n_tables=tb)
+        want = fk.gather_filter_table_counts_plain(rows, st, qs, el, seg, tb, keys)
+        ms = cuda_ms(lambda: fk.gather_filter_table_counts(rows, st, qs, el, seg, n_tables=tb), REPS)
+        plain_ms = cuda_ms(lambda: fk.gather_filter_table_counts_plain(rows, st, qs, el, seg, tb, keys), 1)
+        nbytes = gather_bytes(rows, st.shape[1], lanes, keys, tb, el is not None)
+        nops = int(el.sum()) if el is not None else n * keys  # pairs that need a test
+        record("gather_filter_table_counts", "src/repro_torch/kernels/csrc/gather_counts.cu",
                "src/repro/kernels/filter_kernel.py:447", max_abs_err(got, want), 0, ms, plain_ms,
-               nbytes, n * q, f"{label} store [{st.shape[0]},{st.shape[1]}], n={n}, q={q}, tables={tb}")
+               nbytes, nops, f"{label} store [{st.shape[0]},{st.shape[1]}], n={n}, q={keys}, tables={tb}")
+    del gather_cases
 
     # B.1 filter_table_counts on host-gathered rows, 'sum' and 'any'
     for label, qs, mode in (("512-bit sum", query16, "sum"), ("128-bit sum", query4, "sum"),
@@ -330,7 +420,7 @@ def counters() -> dict:
     from repro_torch.kernels import flash_kernel as flk
     from repro_torch.kernels import xash_kernel as xk
 
-    return {
+    wrappers = {
         "filter_table_counts": fk.filter_table_counts,
         "gather_filter_table_counts": fk.gather_filter_table_counts,
         "xash_superkey": xk.xash_superkey,
@@ -338,6 +428,42 @@ def counters() -> dict:
         "filter_count": fk.filter_count,
         "flash_attention": flk.flash_attention,
     }
+    return wrappers
+
+
+@contextlib.contextmanager
+def record_gather_shapes():
+    """While active, every B.2 launch through ``kernels.ops`` appends its
+    (candidate rows, query keys, lanes) to the yielded list.  The wrapper
+    counts its launches on the function its module name is bound to, so the
+    recorder carries the count while installed and hands it back after."""
+    from repro_torch.kernels import filter_kernel as fk
+
+    wrapper, shapes = fk.gather_filter_table_counts, []
+
+    def recording(rows, store, query_sk, elig, seg_ids, *, n_tables, n_queries=None):
+        keys = query_sk.shape[0] if n_queries is None else n_queries
+        shapes.append((int(rows.shape[0]), int(keys), int(query_sk.shape[1])))
+        return wrapper(rows, store, query_sk, elig, seg_ids, n_tables=n_tables, n_queries=n_queries)
+
+    recording.launches = wrapper.launches
+    fk.gather_filter_table_counts = recording
+    try:
+        yield shapes
+    finally:
+        wrapper.launches = recording.launches
+        fk.gather_filter_table_counts = wrapper
+
+
+def shape_histogram(shapes) -> dict:
+    """Launch counts by candidate rows (powers of two), query keys and lanes."""
+    def hist(values):
+        return dict(sorted(collections.Counter(values).items()))
+
+    rows = [n for n, _, _ in shapes]
+    return {"launches": len(shapes), "rows_total": sum(rows), "rows_max": max(rows, default=0),
+            "rows_le_pow2": hist(1 << max(n - 1, 0).bit_length() for n in rows),
+            "keys": hist(k for _, k, _ in shapes), "lanes": hist(l for _, _, l in shapes)}
 
 
 def zero_counts() -> None:
@@ -358,7 +484,7 @@ MAIN_PATH_KERNELS = ("filter_table_counts", "gather_filter_table_counts", "xash_
                      "filter_match")
 
 
-def main_path_phase(corpus, truth, mixed):
+def main_path_phase(corpus, truth, mixed, b2_shapes):
     from repro_torch.core import discovery
     from repro_torch.core.session import DiscoveryConfig, MateSession
 
@@ -457,6 +583,7 @@ def main_path_phase(corpus, truth, mixed):
     launches = snapshot()
     emit({"phase": "main_path", "queries": len(truth), "group": len(group),
           "wall_s": wall, "session_stats": vars(session.stats), "launches": launches,
+          "b2_launch_shapes": shape_histogram(b2_shapes),
           "top1": [key(r[:1]) for r in results]})
     return read_counts(MAIN_PATH_KERNELS, "main path"), session
 
@@ -617,7 +744,9 @@ def main() -> int:
           "build_s": build_s, "build_wall_s": time.perf_counter() - t0})
     for name, log in _build.build_log.items():
         emit({"phase": "ptxas", "library": name,
-              "report": [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]})
+              "report": [ln.strip() for ln in log.splitlines()
+                         if "entry function" in ln or "registers" in ln or "spill" in ln],
+              "sass_wgmma": sass_count(_build._lib_path(name), "HGMMA")})
 
     t0 = time.perf_counter()
     corpus = synthetic.make_corpus(synthetic.SyntheticSpec(n_tables=args.n_tables, seed=args.seed))
@@ -633,7 +762,8 @@ def main() -> int:
           "cells": int((corpus.cell_value_ids >= 0).sum()), "wall_s": time.perf_counter() - t0})
 
     rows = kernel_phase(args.seed, corpus)
-    launches, session = main_path_phase(corpus, truth, mixed)
+    with record_gather_shapes() as b2_shapes:
+        launches, session = main_path_phase(corpus, truth, mixed, b2_shapes)
     launches.update(ops_phase(session, truth))
     del session
     launches.update(serve_phase(args.seed))

@@ -1,24 +1,18 @@
-// Fused §6.3 row filter + per-table counts, hand-written for Hopper (sm_90a).
-// One source, two kernels of the reference:
+// Fused §6.3 row filter + per-table counts (ROADMAP B.1), hand-written for
+// Hopper (sm_90a).
 //
-//   ROADMAP B.1 — replaces src/repro/kernels/filter_kernel.py :
-//     filter_table_counts (_table_counts_kernel).  Candidate-row superkeys
-//     come host-gathered as int32[n, lanes]; outputs per-table counts
-//     ('sum': eligible (row, key) hits, or 'any': rows with >= 1 hit) and
-//     per-key counts.
-//   ROADMAP B.2 — replaces filter_kernel.py : gather_filter_table_counts
-//     (_gather_counts_kernel).  The same 'sum' counts, but each candidate row
-//     is read in place from the device-resident superkey store
-//     store[rows[i], :lanes]; only the first `lanes` of a store row are
-//     probed (lanes < store width is the serving tier's lane-prefix degrade).
+// Replaces: src/repro/kernels/filter_kernel.py : filter_table_counts
+// (_table_counts_kernel).  Candidate-row superkeys come host-gathered as
+// int32[n, lanes]; outputs per-table counts ('sum': eligible (row, key)
+// hits, or 'any': rows with >= 1 hit) and per-key counts.  (The gather
+// variant, B.2, has its own kernel: gather_counts.cu.)
 //
 // Per (row i, query j): (q_j & ~r_i) == 0 on every probed lane, AND elig[i,j]
 // (when given), AND j < n_queries, AND seg[i] >= 0.  The n x q match matrix
 // never exists in device memory.
 //
 // What bounds it on this card: bytes.  Per candidate row it reads one
-// superkey (16..64 B, or one 4 B offset plus a gathered 32 B sector per
-// row for B.2), its int32 table id and its q elig bytes; the elig matrix
+// superkey (16..64 B), its int32 table id and its q elig bytes; the elig matrix
 // dominates at q = 256.  The subsumption tests are a few integer ops per
 // (row, query) pair and mostly stop at the first lane.
 // What the design does about it: one WARP per row, its 32 threads striding
@@ -41,10 +35,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerChunk = 64;  // rows a block carries across all query tiles
 constexpr int kQueryTile = 256;    // queries staged in shared memory at a time
 
-template <int MAXL, bool GATHER, bool HAS_ELIG, bool ANY>
+template <int MAXL, bool HAS_ELIG, bool ANY>
 __global__ void __launch_bounds__(kThreads)
-filter_counts_kernel(const uint32_t* __restrict__ rows_sk,
-                     const int32_t* __restrict__ row_idx, int row_stride, int lanes,
+filter_counts_kernel(const uint32_t* __restrict__ rows_sk, int row_stride, int lanes,
                      const uint32_t* __restrict__ query, int n_queries,
                      const int8_t* __restrict__ elig, int elig_stride,
                      const int32_t* __restrict__ seg, long long n, int n_tables,
@@ -79,8 +72,7 @@ filter_counts_kernel(const uint32_t* __restrict__ rows_sk,
         const long long i = base + r;
         if (i >= n) break;  // warp-uniform
         if (seg[i] < 0) continue;  // padding rows count nothing
-        const uint32_t* rp =
-            GATHER ? rows_sk + (size_t)row_idx[i] * row_stride : rows_sk + (size_t)i * row_stride;
+        const uint32_t* rp = rows_sk + (size_t)i * row_stride;
         uint32_t rr[MAXL];
 #pragma unroll
         for (int l = 0; l < MAXL; ++l) rr[l] = (l < lanes) ? __ldg(rp + l) : 0u;
@@ -118,7 +110,6 @@ filter_counts_kernel(const uint32_t* __restrict__ rows_sk,
 
 struct Args {
   const uint32_t* rows_sk;
-  const int32_t* row_idx;
   int row_stride, lanes;
   const uint32_t* query;
   int n_queries;
@@ -131,9 +122,9 @@ struct Args {
   int32_t* key_counts;
 };
 
-template <int MAXL, bool GATHER, bool HAS_ELIG, bool ANY>
+template <int MAXL, bool HAS_ELIG, bool ANY>
 cudaError_t launch(const Args& a, cudaStream_t s) {
-  auto kernel = filter_counts_kernel<MAXL, GATHER, HAS_ELIG, ANY>;
+  auto kernel = filter_counts_kernel<MAXL, HAS_ELIG, ANY>;
   const size_t smem = (size_t)(a.n_tables + kRowsPerChunk) * sizeof(int) +
                       (size_t)a.lanes * kQueryTile * sizeof(uint32_t);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -146,7 +137,7 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
   const long long chunks = (a.n + kRowsPerChunk - 1) / kRowsPerChunk;
   const long long cap = (long long)per_sm * repro::sm_count();
   const int grid = (int)(chunks < cap ? chunks : cap);
-  kernel<<<grid, kThreads, smem, s>>>(a.rows_sk, a.row_idx, a.row_stride, a.lanes, a.query,
+  kernel<<<grid, kThreads, smem, s>>>(a.rows_sk, a.row_stride, a.lanes, a.query,
                                       a.n_queries, a.elig, a.elig_stride, a.seg, a.n,
                                       a.n_tables, a.counts, a.key_counts);
   return cudaGetLastError();
@@ -154,34 +145,25 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
 
 template <int MAXL>
 cudaError_t dispatch(const Args& a, bool any_mode, cudaStream_t s) {
-  const bool gather = a.row_idx != nullptr, has_elig = a.elig != nullptr;
-  if (gather) {  // B.2: 'sum' only
-    return has_elig ? launch<MAXL, true, true, false>(a, s) : launch<MAXL, true, false, false>(a, s);
-  }
-  if (has_elig)
-    return any_mode ? launch<MAXL, false, true, true>(a, s) : launch<MAXL, false, true, false>(a, s);
-  return any_mode ? launch<MAXL, false, false, true>(a, s) : launch<MAXL, false, false, false>(a, s);
+  if (a.elig != nullptr)
+    return any_mode ? launch<MAXL, true, true>(a, s) : launch<MAXL, true, false>(a, s);
+  return any_mode ? launch<MAXL, false, true>(a, s) : launch<MAXL, false, false>(a, s);
 }
 
 }  // namespace
 
-// rows_sk: int32[n, row_stride] rows (B.1, row_idx == NULL) or the store
-//          int32[N, row_stride] (B.2, row_idx = int32[n] offsets into it);
-// query: int32[>= n_queries, lanes]; elig: int8[n, elig_stride] or NULL;
-// seg: int32[n]; counts: int32[n_tables] and key_counts: int32[n_queries]
+// rows_sk: int32[n, row_stride] rows; query: int32[>= n_queries, lanes];
+// elig: int8[n, elig_stride] or NULL; seg: int32[n]; counts: int32[n_tables] and key_counts: int32[n_queries]
 // (or NULL) must be zeroed by the caller — the kernel adds into them.
-REPRO_API int filter_counts_launch(const void* rows_sk, const void* row_idx, int row_stride,
-                                   int lanes, const void* query, int n_queries,
-                                   const void* elig, int elig_stride, const void* seg,
+REPRO_API int filter_counts_launch(const void* rows_sk, int row_stride, int lanes,
+                                   const void* query, int n_queries, const void* elig, int elig_stride, const void* seg,
                                    long long n, int n_tables, void* counts, void* key_counts,
                                    int any_mode, void* stream) {
   if (n <= 0 || n_queries <= 0 || n_tables <= 0) return 0;
   if (lanes < 1 || lanes > repro::kMaxLanes || lanes > row_stride)
     return (int)cudaErrorInvalidValue;
-  if (row_idx != nullptr && any_mode) return (int)cudaErrorInvalidValue;
-  Args a{static_cast<const uint32_t*>(rows_sk), static_cast<const int32_t*>(row_idx),
-         row_stride, lanes, static_cast<const uint32_t*>(query), n_queries,
-         static_cast<const int8_t*>(elig), elig_stride, static_cast<const int32_t*>(seg), n,
+  Args a{static_cast<const uint32_t*>(rows_sk), row_stride, lanes,
+         static_cast<const uint32_t*>(query), n_queries, static_cast<const int8_t*>(elig), elig_stride, static_cast<const int32_t*>(seg), n,
          n_tables, static_cast<int32_t*>(counts), static_cast<int32_t*>(key_counts)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

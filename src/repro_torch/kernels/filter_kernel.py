@@ -12,7 +12,7 @@ Four launches, each the port of one Pallas kernel of
     per-key counts; the n×q matrix never exists (``csrc/filter_counts.cu``);
   * ``gather_filter_table_counts`` (B.2) — the same 'sum' counts with the
     candidate rows read in place from the device-resident superkey store
-    (``csrc/filter_counts.cu``, gather variant).
+    (``csrc/gather_counts.cu``).
 
 Layout: row-major ``int32[n, lanes]`` superkeys (uint32 bit patterns) — one
 row's lanes are one 16–64-byte load.  The Pallas kernels' transposed
@@ -257,7 +257,7 @@ def filter_table_counts(
     lib = _build.load("filter_counts")
     lanes = row_sk.shape[1]
     err = lib.filter_counts_launch(
-        row_sk.data_ptr(), None, lanes, lanes, query_sk.data_ptr(), n_queries,
+        row_sk.data_ptr(), lanes, lanes, query_sk.data_ptr(), n_queries,
         _build.ptr(elig), q, seg_ids.data_ptr(), n, n_tables,
         counts.data_ptr(), keys.data_ptr(), int(mode == "any"), _stream(row_sk),
     )
@@ -312,6 +312,11 @@ def gather_filter_table_counts(
       n_queries: number of REAL queries (≤ q).
     Returns:
       counts int32[n_tables] — the only output ('sum' semantics).
+
+    On CUDA the kernel copies each row's lanes in 16-byte groups: the probed
+    lanes and the store's width must be multiples of 4 (128, 256 or 512
+    bits, every width a session takes) and the store 16-byte aligned; it
+    raises ``ValueError`` on anything else.
     """
     n, q = rows.shape[0], query_sk.shape[0]
     n_queries = q if n_queries is None else n_queries
@@ -329,14 +334,21 @@ def gather_filter_table_counts(
     _check_cuda("gather_filter_table_counts", dev, rows=(rows, (torch.int32,)),
                 store=(store, (torch.int32,)), query_sk=(query_sk, (torch.int32,)),
                 elig=(elig, (torch.int8,)), seg_ids=(seg_ids, (torch.int32,)))
+    lanes = query_sk.shape[1]
+    if lanes % 4 or store.shape[1] % 4 or store.data_ptr() % 16:
+        raise ValueError(
+            "gather_filter_table_counts: the kernel copies 16-byte lane groups; probed lanes"
+            f" ({lanes}) and store width ({store.shape[1]}) must be multiples of 4 and the"
+            " store 16-byte aligned"
+        )
     counts = torch.zeros(n_tables, dtype=torch.int32, device=dev)
     if n == 0 or n_queries == 0 or n_tables == 0:
         return counts
-    lib = _build.load("filter_counts")
-    err = lib.filter_counts_launch(
-        store.data_ptr(), rows.data_ptr(), store.shape[1], query_sk.shape[1],
-        query_sk.data_ptr(), n_queries, _build.ptr(elig), q, seg_ids.data_ptr(),
-        n, n_tables, counts.data_ptr(), None, 0, _stream(store),
+    lib = _build.load("gather_counts")
+    err = lib.gather_counts_launch(
+        store.data_ptr(), store.shape[1], lanes, rows.data_ptr(), query_sk.data_ptr(),
+        n_queries, _build.ptr(elig), q, seg_ids.data_ptr(), n, n_tables,
+        counts.data_ptr(), _stream(store),
     )
     _build.check(err, "gather_filter_table_counts")
     gather_filter_table_counts.launches += 1

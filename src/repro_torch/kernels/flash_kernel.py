@@ -3,7 +3,8 @@
 ``flash_attention`` computes causal / sliding-window softmax attention on
 the reference's ``[B, S, H, d]`` layout.  On CUDA tensors it launches
 ``csrc/flash_attention.cu``, the port of the Pallas
-``repro.kernels.flash_kernel.flash_attention``; on CPU tensors it runs the
+``repro.kernels.flash_kernel.flash_attention`` — its tensor-core kernel for
+bfloat16, its float32 FMA kernel for float32; on CPU tensors it runs the
 plain PyTorch version below, and only there.  It counts its launches in
 ``flash_attention.launches``.
 
@@ -63,6 +64,24 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0) -> t
     return out
 
 
+def _strides(x: torch.Tensor, bf16: bool) -> tuple[int, int, int]:
+    """Element strides of dims 0-2 of ``x`` for the kernel.  The bf16
+    kernel reads through a tensor map: its base and every stride in bytes
+    must be a multiple of 16, and ``d`` (``x.shape[3]``) a multiple of 16.
+    A dim of extent 1 is never stepped, so its stride is set to 8 elements."""
+    if not bf16:
+        return x.stride(0), x.stride(1), x.stride(2)
+    if x.shape[3] % 16:
+        raise ValueError(f"bf16 flash_attention takes head dims that are multiples of 16, got {x.shape[3]}")
+    strides = tuple(x.stride(i) if x.shape[i] > 1 else 8 for i in range(3))
+    if x.data_ptr() % 16 or any(st % 8 for st in strides):
+        raise ValueError(
+            "bf16 flash_attention reads through tensor maps: base pointers and the strides of"
+            f" dims longer than 1 must be multiples of 16 bytes, got strides {x.stride()}"
+        )
+    return strides
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
     """Blocked online-softmax attention forward.
 
@@ -70,6 +89,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.T
       q: [B, S, H, d]; k: [B, T, H, d]; v: [B, T, H, dv] — float32 or
          bfloat16, one dtype, heads already repeated to full count; the last
          dim must be contiguous (other strides are free), d, dv <= 128.
+         On CUDA in bfloat16 (the tensor-core kernel, whose tiles are
+         copied through tensor maps) d and dv must be multiples of 16, and
+         the base pointers and the strides of dims longer than 1 multiples
+         of 16 bytes: q, k and v may be strided views of one fused
+         projection.
     Returns:
       [B, S, H, dv] in the inputs' dtype, contiguous.
     """
@@ -94,6 +118,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.T
         raise ValueError(f"head dims d={d}, dv={dv} outside [1, {MAX_HEAD_DIM}]")
     if any(x.stride(3) != 1 for x in (q, k, v)):
         raise ValueError("the last dim of q, k and v must be contiguous")
+    bf16 = q.dtype == torch.bfloat16
+    strides = [_strides(x, bf16) for x in (q, k, v)]
     out = torch.empty(b, s, h, dv, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -102,11 +128,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.T
     lib = _build.load("flash_attention")
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, s, t, d, dv,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        int(causal), window, int(q.dtype == torch.bfloat16),
+        b, h, s, t, d, dv, *strides[0], *strides[1], *strides[2],
+        int(causal), window, int(bf16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_attention")

@@ -93,6 +93,25 @@ def test_table_counts_sum_and_keys(bits, n, q, n_tables):
 
 
 @pytest.mark.parametrize("bits", ALL_BITS)
+@pytest.mark.parametrize("n,q,n_tables", SHAPES)
+@pytest.mark.parametrize("elig_kind", ["block-diagonal", None])
+def test_gather_counts_block_diagonal_and_without_elig(bits, n, q, n_tables, elig_kind):
+    """B.2's plain version with the eligibility of a ``discover_many`` group
+    (8 diagonal blocks: each query's rows see only its keys) and with none."""
+    store, rows, q_sk, elig, seg = _rand_case(LANES[bits], n, q, n_tables, seed=bits + n + 1)
+    if elig_kind is None:
+        elig = None
+    else:
+        elig &= (np.arange(n)[:, None] * 8 // n) == (np.arange(q)[None, :] * 8 // q)
+    got = fk.gather_filter_table_counts(
+        torch.from_numpy(rows.astype(np.int32)), _t(store), _t(q_sk),
+        None if elig is None else torch.from_numpy(elig), torch.from_numpy(seg), n_tables=n_tables,
+    )
+    want = _ref_counts(store[rows], q_sk, np.ones((n, q), bool) if elig is None else elig, seg, n_tables)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bits", ALL_BITS)
 def test_table_counts_any_mode(bits):
     store, rows, q_sk, elig, seg = _rand_case(LANES[bits], 900, 300, 11, seed=bits)
     row_sk = store[rows]
