@@ -6,13 +6,21 @@
 Phases, each printing one JSON line:
 
 1. environment — the card, ``torch.version.cuda``, nvcc's release, and the
-   seconds the kernel build took (one nvcc per source, all six in
+   seconds the kernel build took (one nvcc per source, all five in
    parallel), then each library's ``ptxas`` registers and spills;
 2. kernels — each hand-written kernel runs on the card at the shapes its
    path gives it at scale and is held against its plain PyTorch version on
-   the same inputs: B.1 filter_table_counts, B.2 gather_filter_table_counts
-   (512 and 128 bits, a lane prefix, and the main path's shapes: q = 30, a
-   block-diagonal q = 240, q = 300, no elig), B.3 xash_superkey, B.4
+   the same inputs: B.2 gather_filter_table_counts (512 and 128 bits, a
+   lane prefix, and the main path's shapes: q = 30, a block-diagonal q =
+   240, q = 300, no elig), B.1 filter_table_counts (its headline shapes,
+   then at 128 bits the same main-path shapes, 'any' over one and two query
+   tiles, phantom columns past n_queries, padding rows with seg = -1; table
+   and key counts), B.3 xash_superkey (the corpus's values and rows, then
+   edge inputs at 128/256/512 bits under all 8 combinations of the ablation
+   flags: one character repeated over the full width, all 37 characters,
+   codes above 37, empty cells inside rows, n not a multiple of the block,
+   the main path's query-key shape [30, 3, 48], widths of 20 and 80 bytes,
+   and more picks than the kernel keeps in registers), B.4
    filter_match and B.5 filter_count exactly (integer outputs: max_abs_err
    must be 0); B.6 flash_attention at qwen1.5-0.5b's prefill shape
    [4, 2048, 16, 64] in bf16, causal and with a 512 window, ragged
@@ -22,7 +30,8 @@ Phases, each printing one JSON line:
    (the least time the card could take: the larger of bytes over 3.35 TB/s
    and the operations this run's data needs over the peak rate of their
    type — 67 T op/s for 32-bit integer and float32, 989 TFLOP/s for bf16
-   tensor cores; ``flash_work`` and ``gather_bytes`` count them), and for B.6
+   tensor cores; ``flash_work``, ``gather_bytes``, ``counts_work`` and
+   ``xash_work`` count them), and for B.6
    the time of ``scaled_dot_product_attention`` on the same inputs
    (``library_ms``; the port never calls it);
 3. main path — ``synthetic.make_corpus`` → ``MateSession.build`` (default
@@ -31,8 +40,9 @@ Phases, each printing one JSON line:
    queries and one ``discover_many`` group, every result held identical
    under 'fused-gather', 'fused', 'pallas' and 'numpy' and against the
    brute-force oracle, then one §5.4 ``update_cell`` and one more
-   ``discover``; the ``main_path`` line gives a histogram of the shapes
-   (candidate rows, query keys, lanes) of its B.2 launches;
+   ``discover``; the ``main_path`` line gives histograms of the shapes
+   of its B.2 launches (candidate rows, query keys, lanes) and of its B.3
+   launches (rows, cells per row, lanes);
 4. ops path — ``ops.filter_count`` over the session's superkeys against the
    ground-truth queries' keys, equal to the column sums of the match matrix
    (``ops.filter_match_auto`` on the 'pallas' backend, kernel B.4);
@@ -235,6 +245,62 @@ def gather_bytes(rows, store_stride: int, lanes: int, q: int, n_tables: int,
     return n * 4 + 32 * n_sectors + (n * q if has_elig else 0) + n * 4 + q * lanes * 4 + n_tables * 4
 
 
+def counts_work(n: int, lanes: int, n_queries: int, q: int, n_tables: int, elig, seg) -> tuple[int, int]:
+    """(bytes, operations) of one B.1 launch: each row's lanes, its table id
+    and its elig bytes for the real queries read once, the real query keys
+    read once, the table counts and the q key counts written once; one test
+    per (row, real query) pair that needs one: the row is not padding
+    (seg >= 0) and the pair is eligible."""
+    live = seg >= 0
+    if elig is None:
+        pairs = int(live.sum()) * n_queries
+    else:
+        pairs = int((elig[:, :n_queries] & live[:, None]).sum())
+    nbytes = (n * lanes * 4 + n * 4 + (n * n_queries if elig is not None else 0)
+              + n_queries * lanes * 4 + n_tables * 4 + q * 4)
+    return nbytes, pairs
+
+
+def xash_work(enc: torch.Tensor, cfg) -> tuple[int, int]:
+    """(bytes, operations) of one B.3 launch: the encoded cells read once and
+    the lanes written once; one test per byte, two counter updates per
+    character of the alphabet, and one score per (present character, pick)
+    of each cell — a pick for each of the min(present, n_char_bits) chosen."""
+    n_rows, max_len = enc.shape[0], enc.shape[-1]
+    codes = enc.reshape(-1, max_len).long().clamp(max=38)  # 38: outside the alphabet
+    cnt = torch.zeros(codes.shape[0], 39, dtype=torch.int64, device=enc.device)
+    cnt.scatter_add_(1, codes, torch.ones_like(codes))
+    present = (cnt[:, 1:38] > 0).sum(dim=1)
+    n_chars = int(cnt[:, 1:38].sum().item())
+    picks = int((present * present.clamp(max=cfg.n_char_bits)).sum().item())
+    return enc.numel() + n_rows * cfg.lanes * 4, enc.numel() + 2 * n_chars + picks
+
+
+def xash_edge_inputs(rng, uniq: np.ndarray, n: int, max_len: int) -> np.ndarray:
+    """uint8[n, 3, max_len] rows of the corpus's values, with edge cells: one
+    character repeated over the full width, all 37 characters (shuffled),
+    random codes 0..255 over the full width (codes above 37, zeros inside),
+    empty first, middle or last cells, and whole empty rows."""
+    from repro_torch.core import encoding
+
+    a = encoding.ALPHABET_SIZE
+    enc = np.zeros((n, 3, max_len), dtype=np.uint8)
+    w = min(max_len, uniq.shape[1])
+    enc[:, :, :w] = uniq[rng.integers(0, uniq.shape[0], size=n * 3)].reshape(n, 3, -1)[:, :, :w]
+    for i in range(a):  # rows 0..36: char i + 1 over the whole width, in each column
+        enc[i, i % 3] = i + 1
+    for i in range(a, a + 12):  # all 37 characters
+        enc[i, i % 3] = 0
+        perm = rng.permutation(a) + 1
+        enc[i, i % 3, :min(a, max_len)] = perm[:max_len]
+    enc[a + 12:a + 40, 1] = rng.integers(0, 256, size=(28, max_len))  # codes above 37
+    enc[::5, 1] = 0  # empty middle cells
+    enc[3::7, 0] = 0
+    enc[3::7, 2] = 0  # only the middle cell
+    enc[11::13] = 0  # empty rows
+    return enc
+
+
 def kernel_phase(seed, corpus) -> dict[str, dict]:
     from repro_torch.core import encoding, xash
     from repro_torch.kernels import filter_kernel as fk
@@ -310,9 +376,11 @@ def kernel_phase(seed, corpus) -> dict[str, dict]:
     query4 = query16[:, :4].contiguous()
     gather_cases = [("512-bit", store16, query16, elig), ("128-bit", store4, query4, elig),
                     ("4 of 16 lanes", store16, query4, elig)]
+    main_shapes = []  # (label, query keys, elig) at 128 bits, for B.2 and B.1
     for label, keys, kind in GATHER_MAIN_SHAPES:
         qs = query4 if keys == q else make_queries(rng, store4, rows, keys)
         el = None if kind is None else make_elig(rng, dev, n, keys, kind)
+        main_shapes.append((label, qs, el))
         gather_cases.append((f"128-bit {label}", store4, qs, el))
     for label, st, qs, el in gather_cases:
         lanes, keys = qs.shape[1], qs.shape[0]
@@ -322,25 +390,42 @@ def kernel_phase(seed, corpus) -> dict[str, dict]:
         plain_ms = cuda_ms(lambda: fk.gather_filter_table_counts_plain(rows, st, qs, el, seg, tb, keys), 1)
         nbytes = gather_bytes(rows, st.shape[1], lanes, keys, tb, el is not None)
         nops = int(el.sum()) if el is not None else n * keys  # pairs that need a test
-        record("gather_filter_table_counts", "src/repro_torch/kernels/csrc/gather_counts.cu",
+        record("gather_filter_table_counts", "src/repro_torch/kernels/csrc/filter_counts.cu",
                "src/repro/kernels/filter_kernel.py:447", max_abs_err(got, want), 0, ms, plain_ms,
                nbytes, nops, f"{label} store [{st.shape[0]},{st.shape[1]}], n={n}, q={keys}, tables={tb}")
     del gather_cases
 
-    # B.1 filter_table_counts on host-gathered rows, 'sum' and 'any'
-    for label, qs, mode in (("512-bit sum", query16, "sum"), ("128-bit sum", query4, "sum"),
-                            ("512-bit any", query16, "any")):
-        lanes = qs.shape[1]
-        row_sk = store16[rows.long(), :lanes].contiguous()
-        got = torch.cat(fk.filter_table_counts(row_sk, qs, elig, seg, n_tables=tb, mode=mode))
-        want = torch.cat(fk.filter_table_counts_plain(row_sk, qs, elig, seg, tb, q, mode))
-        ms = cuda_ms(lambda: fk.filter_table_counts(row_sk, qs, elig, seg, n_tables=tb, mode=mode), REPS)
-        plain_ms = cuda_ms(lambda: fk.filter_table_counts_plain(row_sk, qs, elig, seg, tb, q, mode), 1)
-        nbytes = n * lanes * 4 + n * q + n * 4 + q * lanes * 4 + tb * 4 + q * 4
+    # B.1 filter_table_counts on host-gathered rows: its headline shapes
+    # ('sum' at 512 and 128 bits, 'any' at 512), then at 128 bits the main
+    # path's shapes, 'any' over one and over two query tiles, phantom
+    # columns past n_queries, and padding rows; table and key counts exact
+    seg_pad = seg.clone()
+    seg_pad[::8] = -1
+    q300, el300 = next((qs, el) for label, qs, el in main_shapes if qs.shape[0] == 300)
+    b1_cases = [("512-bit sum", query16, elig, seg, q, "sum"), ("128-bit sum", query4, elig, seg, q, "sum"),
+                ("512-bit any", query16, elig, seg, q, "any")]
+    b1_cases += [(f"128-bit sum {label}", qs, el, seg, qs.shape[0], "sum") for label, qs, el in main_shapes]
+    b1_cases += [("128-bit any", query4, elig, seg, q, "any"),
+                 ("128-bit any q=300 (two query tiles)", q300, el300, seg, 300, "any"),
+                 ("128-bit sum n_queries=200 of q=256 (phantom columns)", query4, elig, seg, 200, "sum"),
+                 ("128-bit sum seg=-1 on every 8th row", query4, elig, seg_pad, q, "sum"),
+                 ("128-bit any q=300 n_queries=290 seg=-1 on every 8th row", q300, el300, seg_pad, 290, "any")]
+    row_sk = {16: store16[rows.long()].contiguous()}
+    row_sk[4] = row_sk[16][:, :4].contiguous()
+    for label, qs, el, sg, nq, mode in b1_cases:
+        lanes, keys = qs.shape[1], qs.shape[0]
+        rs = row_sk[lanes]
+        call = lambda: fk.filter_table_counts(rs, qs, el, sg, n_tables=tb, n_queries=nq, mode=mode)
+        plain = lambda: fk.filter_table_counts_plain(rs, qs, el, sg, tb, nq, mode)
+        got, want = call(), plain()
+        err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+        ms = cuda_ms(call, REPS)
+        plain_ms = cuda_ms(plain, 1)
+        nbytes, nops = counts_work(n, lanes, nq, keys, tb, el, sg)
         record("filter_table_counts", "src/repro_torch/kernels/csrc/filter_counts.cu",
-               "src/repro/kernels/filter_kernel.py:248", max_abs_err(got, want), 0, ms, plain_ms,
-               nbytes, n * q, f"{label}, n={n}, q={q}, tables={tb}")
-        del row_sk
+               "src/repro/kernels/filter_kernel.py:248", err, 0, ms, plain_ms,
+               nbytes, nops, f"{label}, n={n}, q={keys}, n_queries={nq}, tables={tb}")
+    del row_sk, main_shapes, q300, el300, seg_pad
 
     # B.4 filter_match and B.5 filter_count on the same rows
     for label, qs in (("512-bit", query16), ("128-bit", query4)):
@@ -368,32 +453,46 @@ def kernel_phase(seed, corpus) -> dict[str, dict]:
     torch.cuda.empty_cache()
 
     # B.3 xash_superkey on the corpus's own values, with its rank vector
-    uniq = torch.from_numpy(corpus.unique_enc).to(dev)
+    uniq_np = corpus.unique_enc
+    uniq = torch.from_numpy(uniq_np).to(dev)
     freq = tuple(corpus.char_frequencies().tolist())
     for label, n_rows, n_cols in (("values", 1 << (LOG_N + 2), 1), ("rows", n, 4)):
         pick = torch.from_numpy(rng.integers(0, uniq.shape[0], size=n_rows * n_cols)).to(dev)
         enc = uniq[pick].reshape(n_rows, n_cols, encoding.MAX_LEN).contiguous()
-        # operations this data needs: one test per byte, two counter updates
-        # per character, one score per (present char, pick) of each cell
-        codes = enc.reshape(-1, encoding.MAX_LEN).long()
-        cnt = torch.zeros(codes.shape[0], encoding.ALPHABET_SIZE + 1, dtype=torch.int64, device=dev)
-        cnt.scatter_add_(1, codes, torch.ones_like(codes))
-        present = (cnt[:, 1:] > 0).sum(dim=1)
-        n_chars = int((codes > 0).sum().item())
-        del codes, cnt
         for bits in (128, 512):
             cfg = xash.XashConfig(bits=bits, char_freq=freq)
-            picks = int((present * present.clamp(max=cfg.n_char_bits)).sum().item())
             got = xk.xash_superkey(enc, cfg)
             want = xk.xash_superkey_plain(enc, cfg)
             ms = cuda_ms(lambda: xk.xash_superkey(enc, cfg), REPS)
             plain_ms = cuda_ms(lambda: xk.xash_superkey_plain(enc, cfg), 1)
-            nbytes = enc.numel() + n_rows * cfg.lanes * 4
-            nops = enc.numel() + 2 * n_chars + picks
+            nbytes, nops = xash_work(enc, cfg)
             record("xash_superkey", "src/repro_torch/kernels/csrc/xash_superkey.cu",
                    "src/repro/kernels/xash_kernel.py:123", max_abs_err(got, want), 0, ms, plain_ms,
                    nbytes, nops, f"{label} [{n_rows},{n_cols},{encoding.MAX_LEN}] at {bits} bits")
-        del enc, pick, present
+        del enc, pick
+
+    # B.3 edge inputs, each held exactly at 128/256/512 bits under all 8
+    # combinations of the ablation flags (and n_char_bits = 11, past the
+    # kernel's register selection), one check line per input
+    edge = xash_edge_inputs(rng, uniq_np, 1001, encoding.MAX_LEN)
+    edge_cases = [("edge rows [1001,3,48]", edge),
+                  ("query keys [30,3,48]", edge[rng.permutation(1001)[:30]]),
+                  ("edge rows, width 20 [1001,3,20]", xash_edge_inputs(rng, uniq_np, 1001, 20)),
+                  ("edge rows, width 80 [1001,3,80]", xash_edge_inputs(rng, uniq_np, 1001, 80)),
+                  ("one row [1,3,48]", edge[:1])]
+    cfgs = [xash.XashConfig(bits=bits, char_freq=freq, use_location=bool(f & 1),
+                            use_length=bool(f & 2), use_rotation=bool(f & 4))
+            for bits in (128, 256, 512) for f in range(8)]
+    cfgs.append(xash.XashConfig(bits=128, char_freq=freq, n_ones=12))
+    for label, arr in edge_cases:
+        enc = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+        err = max(max_abs_err(xk.xash_superkey(enc, cfg), xk.xash_superkey_plain(enc, cfg)) for cfg in cfgs)
+        checks.append({"kernel": "xash_superkey", "shape": f"{label}, {len(cfgs)} configs",
+                       "max_abs_err": err, "tolerance": 0})
+        if err:
+            raise AssertionError(f"xash_superkey {label}: kernel disagrees with its plain version "
+                                 f"(max_abs_err={err})")
+    del uniq
     torch.cuda.synchronize()
     emit({"phase": "kernels", "checks": checks})
     return results
@@ -432,38 +531,50 @@ def counters() -> dict:
 
 
 @contextlib.contextmanager
-def record_gather_shapes():
-    """While active, every B.2 launch through ``kernels.ops`` appends its
-    (candidate rows, query keys, lanes) to the yielded list.  The wrapper
-    counts its launches on the function its module name is bound to, so the
-    recorder carries the count while installed and hands it back after."""
-    from repro_torch.kernels import filter_kernel as fk
+def record_shapes(module, name: str, shape_of):
+    """While active, every call of the kernel wrapper ``module.name`` that
+    launches appends ``shape_of(*args)`` (None: no launch) to the yielded
+    list.  The wrapper counts its launches on the function its module name is
+    bound to, so the recorder carries the count while installed and hands it
+    back after."""
+    wrapper, shapes = getattr(module, name), []
 
-    wrapper, shapes = fk.gather_filter_table_counts, []
-
-    def recording(rows, store, query_sk, elig, seg_ids, *, n_tables, n_queries=None):
-        keys = query_sk.shape[0] if n_queries is None else n_queries
-        shapes.append((int(rows.shape[0]), int(keys), int(query_sk.shape[1])))
-        return wrapper(rows, store, query_sk, elig, seg_ids, n_tables=n_tables, n_queries=n_queries)
+    def recording(*args, **kwargs):
+        shape = shape_of(*args, **kwargs)
+        if shape is not None:
+            shapes.append(shape)
+        return wrapper(*args, **kwargs)
 
     recording.launches = wrapper.launches
-    fk.gather_filter_table_counts = recording
+    setattr(module, name, recording)
     try:
         yield shapes
     finally:
         wrapper.launches = recording.launches
-        fk.gather_filter_table_counts = wrapper
+        setattr(module, name, wrapper)
 
 
-def shape_histogram(shapes) -> dict:
-    """Launch counts by candidate rows (powers of two), query keys and lanes."""
+def b2_shape(rows, store, query_sk, elig, seg_ids, *, n_tables, n_queries=None):
+    """(candidate rows, query keys, lanes) of one B.2 launch."""
+    keys = query_sk.shape[0] if n_queries is None else n_queries
+    return int(rows.shape[0]), int(keys), int(query_sk.shape[1])
+
+
+def b3_shape(enc, cfg):
+    """(rows, cells per row, lanes) of one B.3 launch; None when it launches nothing."""
+    return (int(enc.shape[0]), int(enc.shape[1]), cfg.lanes) if enc.shape[0] else None
+
+
+def shape_histogram(shapes, second: str = "keys") -> dict:
+    """Launch counts by rows (powers of two), the second dimension (query
+    keys of B.2, cells per row of B.3) and lanes."""
     def hist(values):
         return dict(sorted(collections.Counter(values).items()))
 
     rows = [n for n, _, _ in shapes]
     return {"launches": len(shapes), "rows_total": sum(rows), "rows_max": max(rows, default=0),
             "rows_le_pow2": hist(1 << max(n - 1, 0).bit_length() for n in rows),
-            "keys": hist(k for _, k, _ in shapes), "lanes": hist(l for _, _, l in shapes)}
+            second: hist(k for _, k, _ in shapes), "lanes": hist(l for _, _, l in shapes)}
 
 
 def zero_counts() -> None:
@@ -484,7 +595,7 @@ MAIN_PATH_KERNELS = ("filter_table_counts", "gather_filter_table_counts", "xash_
                      "filter_match")
 
 
-def main_path_phase(corpus, truth, mixed, b2_shapes):
+def main_path_phase(corpus, truth, mixed, b2_shapes, b3_shapes):
     from repro_torch.core import discovery
     from repro_torch.core.session import DiscoveryConfig, MateSession
 
@@ -584,6 +695,7 @@ def main_path_phase(corpus, truth, mixed, b2_shapes):
     emit({"phase": "main_path", "queries": len(truth), "group": len(group),
           "wall_s": wall, "session_stats": vars(session.stats), "launches": launches,
           "b2_launch_shapes": shape_histogram(b2_shapes),
+          "b3_launch_shapes": shape_histogram(b3_shapes, "cells_per_row"),
           "top1": [key(r[:1]) for r in results]})
     return read_counts(MAIN_PATH_KERNELS, "main path"), session
 
@@ -762,8 +874,12 @@ def main() -> int:
           "cells": int((corpus.cell_value_ids >= 0).sum()), "wall_s": time.perf_counter() - t0})
 
     rows = kernel_phase(args.seed, corpus)
-    with record_gather_shapes() as b2_shapes:
-        launches, session = main_path_phase(corpus, truth, mixed, b2_shapes)
+    from repro_torch.kernels import filter_kernel as fk
+    from repro_torch.kernels import xash_kernel as xk
+
+    with record_shapes(fk, "gather_filter_table_counts", b2_shape) as b2_shapes, \
+            record_shapes(xk, "xash_superkey", b3_shape) as b3_shapes:
+        launches, session = main_path_phase(corpus, truth, mixed, b2_shapes, b3_shapes)
     launches.update(ops_phase(session, truth))
     del session
     launches.update(serve_phase(args.seed))

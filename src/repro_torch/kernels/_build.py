@@ -48,15 +48,10 @@ LIBRARIES = {
         "filter_counts.cu",
         {
             # rows_sk, row_stride, lanes, query, n_queries, elig, elig_stride,
-            # seg, n, n_tables, counts, key_counts, any_mode, stream
+            # seg, n, n_tables, counts, key_counts, any_mode, row_hit, stream
             "filter_counts_launch": [
-                _P, _I, _I, _P, _I, _P, _I, _P, _LL, _I, _P, _P, _I, _P,
+                _P, _I, _I, _P, _I, _P, _LL, _P, _LL, _I, _P, _P, _I, _P, _P,
             ],
-        },
-    ),
-    "gather_counts": (
-        "gather_counts.cu",
-        {
             # store, row_stride, lanes, rows, query, n_queries, elig,
             # elig_stride, seg, n, n_tables, counts, stream
             "gather_counts_launch": [

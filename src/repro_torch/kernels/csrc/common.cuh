@@ -17,6 +17,15 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;  // valid in lane 0
 }
 
+// bit k set iff byte k of w is nonzero
+__device__ __forceinline__ uint32_t nonzero_bytes(uint64_t w) {
+  w |= w >> 4;
+  w |= w >> 2;
+  w |= w >> 1;
+  w &= 0x0101010101010101ull;
+  return (uint32_t)((w * 0x0102040810204080ull) >> 56);
+}
+
 // streaming multiprocessors of the current device (cached per process)
 inline int sm_count() {
   static int sms = 0;

@@ -9,10 +9,11 @@ Four launches, each the port of one Pallas kernel of
     filter, ``int32[q]`` (``csrc/filter_count.cu``);
   * ``filter_table_counts`` (B.1) — fused subsumption ∧ eligibility, row-
     reduced ('sum' or 'any') and scattered into per-table counts, plus
-    per-key counts; the n×q matrix never exists (``csrc/filter_counts.cu``);
+    per-key counts; the n×q matrix never exists;
   * ``gather_filter_table_counts`` (B.2) — the same 'sum' counts with the
-    candidate rows read in place from the device-resident superkey store
-    (``csrc/gather_counts.cu``).
+    candidate rows read in place from the device-resident superkey store.
+    B.1 and B.2 are one templated CUDA body (``csrc/filter_counts.cu``),
+    with one entry point each.
 
 Layout: row-major ``int32[n, lanes]`` superkeys (uint32 bit patterns) — one
 row's lanes are one 16–64-byte load.  The Pallas kernels' transposed
@@ -256,10 +257,13 @@ def filter_table_counts(
         return counts, keys
     lib = _build.load("filter_counts")
     lanes = row_sk.shape[1]
+    # 'any' over several query tiles marks each row's hits here first
+    row_hit = torch.zeros(n, dtype=torch.uint8, device=dev) if mode == "any" else None
     err = lib.filter_counts_launch(
         row_sk.data_ptr(), lanes, lanes, query_sk.data_ptr(), n_queries,
         _build.ptr(elig), q, seg_ids.data_ptr(), n, n_tables,
-        counts.data_ptr(), keys.data_ptr(), int(mode == "any"), _stream(row_sk),
+        counts.data_ptr(), keys.data_ptr(), int(mode == "any"), _build.ptr(row_hit),
+        _stream(row_sk),
     )
     _build.check(err, "filter_table_counts")
     filter_table_counts.launches += 1
@@ -344,7 +348,7 @@ def gather_filter_table_counts(
     counts = torch.zeros(n_tables, dtype=torch.int32, device=dev)
     if n == 0 or n_queries == 0 or n_tables == 0:
         return counts
-    lib = _build.load("gather_counts")
+    lib = _build.load("filter_counts")
     err = lib.gather_counts_launch(
         store.data_ptr(), store.shape[1], lanes, rows.data_ptr(), query_sk.data_ptr(),
         n_queries, _build.ptr(elig), q, seg_ids.data_ptr(), n, n_tables,

@@ -337,3 +337,52 @@ def test_table_cap_demotes_engines(lake, monkeypatch, bits):
     assert st.filter_matrix_bytes > 0
     many = batched.discover_many(port.index, [(pq, q_cols)] * 2, k=10, backend="fused-gather")
     assert [_key(e) for e, _ in many] == [_key(want)] * 2
+
+
+# ---------------------------------------------------------------------------
+# B.1 on the edge inputs chip_smoke.py holds its CUDA kernel to, through the
+# plain version, against the reference numpy backend: the main path's key
+# counts (30, a block-diagonal 240, 300 over two query tiles), 'any' over two
+# tiles, phantom columns past n_queries, padding rows (seg = -1), the
+# 8192-table cap, no eligibility.  Table counts and key counts.
+# ---------------------------------------------------------------------------
+
+B1_EDGES = {  # name: (q, n_queries, mode, elig kind, pad rows, n_tables)
+    "q30": (30, 30, "sum", "random", False, 13),
+    "q240-block-diagonal": (240, 240, "sum", "block-diagonal", False, 13),
+    "q300-two-tiles": (300, 300, "sum", "random", False, 13),
+    "q300-any": (300, 300, "any", "random", False, 13),
+    "phantom-columns": (256, 200, "sum", "random", False, 13),
+    "padding-rows": (256, 256, "sum", "random", True, 13),
+    "any-phantom-padding": (300, 290, "any", "random", True, 13),
+    "table-cap": (64, 64, "sum", "random", False, fk.FUSED_MAX_TABLES),
+    "no-elig": (64, 64, "sum", None, False, 13),
+}
+
+
+@pytest.mark.parametrize("edge", list(B1_EDGES))
+@pytest.mark.parametrize("bits", ALL_BITS)
+def test_table_counts_edge_inputs_match_reference(bits, edge):
+    q, nq, mode, kind, pad, n_tables = B1_EDGES[edge]
+    n = 700
+    store, rows, q_sk, elig, seg = _rand_case(LANES[bits], n, q, n_tables, seed=bits + q + nq)
+    if kind == "block-diagonal":
+        elig &= (np.arange(n)[:, None] * 8 // n) == (np.arange(q)[None, :] * 8 // q)
+    if pad:
+        seg[::8] = -1
+    row_sk = store[rows]
+    counts, keys = fk.filter_table_counts(
+        _t(row_sk), _t(q_sk), None if kind is None else torch.from_numpy(elig),
+        torch.from_numpy(seg), n_tables=n_tables, n_queries=nq, mode=mode,
+    )
+    live = seg >= 0
+    el = np.ones((n, q), bool) if kind is None else elig
+    hits = ref_ops.subsume_np(row_sk, q_sk) & el
+    hits[:, nq:] = False
+    hits &= live[:, None]
+    assert np.array_equal(keys.numpy(), hits.sum(axis=0).astype(np.int32))
+    if mode == "sum":  # the reference's fused-count oracle, on the real queries and rows
+        want = _ref_counts(row_sk[live], q_sk[:nq], el[live][:, :nq], seg[live], n_tables)
+    else:
+        want = np.bincount(seg[live], weights=hits[live].any(axis=1), minlength=n_tables).astype(np.int32)
+    assert np.array_equal(counts.numpy(), want)

@@ -70,3 +70,74 @@ def test_gather_bytes_match_brute_force(store_stride, lanes, n_store, has_elig):
 
 def test_gather_bytes_of_no_rows():
     assert chip_smoke.gather_bytes(torch.zeros(0, dtype=torch.int32), 4, 4, 3, 5, True) == 3 * 16 + 20
+
+
+def _seg_and_elig(rng, n, q, kind):
+    seg = rng.integers(-1, 5, size=n).astype(np.int32)  # -1: padding rows
+    elig = None if kind is None else rng.random((n, q)) < 0.3
+    return seg, elig
+
+
+@pytest.mark.parametrize("n,lanes,n_queries,q", [
+    (50, 4, 30, 30),
+    (64, 16, 200, 256),  # phantom columns past n_queries
+    (33, 8, 300, 300),  # two query tiles
+    (1, 4, 1, 7),
+])
+@pytest.mark.parametrize("kind", ["random", None])
+def test_counts_work_matches_brute_force(n, lanes, n_queries, q, kind):
+    rng = np.random.default_rng(n * 1000 + q)
+    n_tables = 17
+    seg, elig = _seg_and_elig(rng, n, q, kind)
+    pairs = sum(1 for i in range(n) for j in range(n_queries)
+                if seg[i] >= 0 and (elig is None or elig[i, j]))
+    tensors = [torch.empty(n, lanes, dtype=torch.int32), torch.empty(n, dtype=torch.int32),
+               torch.empty(n_queries, lanes, dtype=torch.int32),  # inputs: rows, seg, real queries
+               torch.empty(n_tables, dtype=torch.int32), torch.empty(q, dtype=torch.int32)]  # outputs
+    if elig is not None:
+        tensors.append(torch.empty(n, n_queries, dtype=torch.int8))  # the real queries' elig
+    want = (sum(x.numel() * x.element_size() for x in tensors), pairs)
+    got = chip_smoke.counts_work(n, lanes, n_queries, q, n_tables,
+                                 None if elig is None else torch.from_numpy(elig),
+                                 torch.from_numpy(seg))
+    assert got == want
+
+
+def _xash_work_brute(enc: np.ndarray, lanes: int, n_char_bits: int) -> tuple[int, int]:
+    n_chars = picks = 0
+    for cell in enc.reshape(-1, enc.shape[-1]):
+        chars = [int(x) for x in cell if 1 <= x <= 37]
+        n_chars += len(chars)
+        present = len(set(chars))
+        picks += present * min(present, n_char_bits)
+    return enc.size + enc.shape[0] * lanes * 4, enc.size + 2 * n_chars + picks
+
+
+@pytest.mark.parametrize("bits,max_len", [(128, 48), (256, 20), (512, 80)])
+def test_xash_work_matches_brute_force(bits, max_len):
+    from repro_torch.core import xash
+
+    rng = np.random.default_rng(bits)
+    uniq = rng.integers(0, 38, size=(40, 48)).astype(np.uint8)
+    uniq[::3, 20:] = 0
+    enc = chip_smoke.xash_edge_inputs(rng, uniq, 90, max_len)
+    cfg = xash.XashConfig(bits=bits)
+    want = _xash_work_brute(enc, cfg.lanes, cfg.n_char_bits)
+    assert chip_smoke.xash_work(torch.from_numpy(enc), cfg) == want
+
+
+@pytest.mark.parametrize("max_len", [48, 20, 80])
+def test_xash_edge_inputs_hold_their_edges(max_len):
+    rng = np.random.default_rng(max_len)
+    uniq = rng.integers(1, 38, size=(40, 48)).astype(np.uint8)
+    enc = chip_smoke.xash_edge_inputs(rng, uniq, 1001, max_len)
+    assert enc.shape == (1001, 3, max_len) and enc.dtype == np.uint8
+    cells = enc.reshape(-1, max_len)
+    repeated = {int(c[0]) for c in cells if c[0] and (c == c[0]).all()}
+    assert len(repeated) >= 30  # one character over the full width (a few cells are emptied after)
+    full = [c for c in cells if len(set(c[c > 0].tolist())) == min(37, max_len)]
+    assert full  # all 37 characters (or as many as the width holds)
+    assert (enc > 37).any()  # codes above the alphabet
+    cells_empty = (enc == 0).all(axis=2)
+    assert (cells_empty[:, 1] & ~cells_empty[:, 0] & ~cells_empty[:, 2]).any()  # empty middle cells
+    assert cells_empty.all(axis=1).any()  # empty rows

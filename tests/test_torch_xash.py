@@ -151,3 +151,52 @@ def test_wrapper_rejects_bad_input():
         xash_kernel.xash_superkey(torch.zeros(2, 4, dtype=torch.uint8), xash.XashConfig())
     with pytest.raises(ValueError):
         xash_kernel.xash_superkey(torch.zeros(2, 1, 4, dtype=torch.int32), xash.XashConfig())
+
+
+# ---------------------------------------------------------------------------
+# The edge inputs that chip_smoke.py holds the CUDA kernel to, here through
+# the kernel's plain version against the reference's XLA superkey: one
+# character over the full width, all 37 characters, codes above 37, empty
+# cells inside rows and empty rows, at widths 48 (the encoder's), 20 and 80
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    )
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _edge_rows(max_len, n=101):
+    rng = np.random.default_rng(max_len)
+    uniq = ref_encoding.encode_values(VALUES, 48)
+    return _chip_smoke().xash_edge_inputs(rng, uniq, n, max_len)
+
+
+EDGE_CASES = [(bits, f, 48) for bits in ALL_BITS for f in range(8)] + [
+    (128, 7, 20), (128, 7, 80), (512, 5, 80),
+]
+
+
+@pytest.mark.parametrize("bits,flags,max_len", EDGE_CASES)
+def test_superkey_edge_inputs_bit_identical_to_reference(bits, flags, max_len):
+    rc, pc = _cfgs(bits, flags, max_len=max_len)
+    enc = _edge_rows(max_len)
+    want = np.asarray(ref_xash.superkey(enc, rc))
+    got = xash.lanes_to_numpy(xash_kernel.xash_superkey(torch.from_numpy(enc), pc))
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_ones", [9, 12])
+def test_superkey_edge_inputs_with_many_char_bits(n_ones):
+    """More chosen characters than the CUDA kernel's register selection keeps."""
+    rc, pc = _cfgs(128, 7, n_ones=n_ones)
+    enc = _edge_rows(48)[:30]  # the main path's query-key shape [30, 3, 48]
+    want = np.asarray(ref_xash.superkey(enc, rc))
+    got = xash.lanes_to_numpy(xash_kernel.xash_superkey(torch.from_numpy(enc), pc))
+    assert np.array_equal(got, want)
