@@ -6,7 +6,7 @@
 Phases, each printing one JSON line:
 
 1. environment — the card, ``torch.version.cuda``, nvcc's release, and the
-   seconds the kernel build took (one nvcc per source, all five in
+   seconds the kernel build took (one nvcc per source, all three in
    parallel), then each library's ``ptxas`` registers and spills;
 2. kernels — each hand-written kernel runs on the card at the shapes its
    path gives it at scale and is held against its plain PyTorch version on
@@ -22,7 +22,10 @@ Phases, each printing one JSON line:
    the main path's query-key shape [30, 3, 48], widths of 20 and 80 bytes,
    and more picks than the kernel keeps in registers), B.4
    filter_match and B.5 filter_count exactly (integer outputs: max_abs_err
-   must be 0); B.6 flash_attention at qwen1.5-0.5b's prefill shape
+   must be 0) at 512 and 128 bits, then at every combination of the edge
+   shapes ``EDGE_N`` x ``EDGE_Q`` x ``EDGE_LANES`` (with all-ones and zero
+   rows, an all-zero and an all-ones query) and B.4 with n·q past 2^31;
+   B.6 flash_attention at qwen1.5-0.5b's prefill shape
    [4, 2048, 16, 64] in bf16, causal and with a 512 window, ragged
    S = T = 1,000, strided views of one fused QKV projection, d 128 with
    dv 64, S != T (max_abs_err < 2e-2), and at [2, 512, 2, d 128, dv 64] in
@@ -30,8 +33,8 @@ Phases, each printing one JSON line:
    (the least time the card could take: the larger of bytes over 3.35 TB/s
    and the operations this run's data needs over the peak rate of their
    type — 67 T op/s for 32-bit integer and float32, 989 TFLOP/s for bf16
-   tensor cores; ``flash_work``, ``gather_bytes``, ``counts_work`` and
-   ``xash_work`` count them), and for B.6
+   tensor cores; ``flash_work``, ``gather_bytes``, ``counts_work``,
+   ``match_work``, ``count_work`` and ``xash_work`` count them), and for B.6
    the time of ``scaled_dot_product_attention`` on the same inputs
    (``library_ms``; the port never calls it);
 3. main path — ``synthetic.make_corpus`` → ``MateSession.build`` (default
@@ -41,11 +44,12 @@ Phases, each printing one JSON line:
    under 'fused-gather', 'fused', 'pallas' and 'numpy' and against the
    brute-force oracle, then one §5.4 ``update_cell`` and one more
    ``discover``; the ``main_path`` line gives histograms of the shapes
-   of its B.2 launches (candidate rows, query keys, lanes) and of its B.3
-   launches (rows, cells per row, lanes);
+   of its B.2 and B.4 launches (candidate rows, query keys, lanes) and of
+   its B.3 launches (rows, cells per row, lanes);
 4. ops path — ``ops.filter_count`` over the session's superkeys against the
    ground-truth queries' keys, equal to the column sums of the match matrix
-   (``ops.filter_match_auto`` on the 'pallas' backend, kernel B.4);
+   (``ops.filter_match_auto`` on the 'pallas' backend, kernel B.4), then
+   B.5 timed at that shape beside its plain version and its bound;
 5. serve — full-width qwen1.5-0.5b (24 layers, random weights from
    ``--seed``) serves 8 requests (prompts of 512–2048 tokens drawn from
    ``--seed``, 32 new tokens each) in slot batches of 4, twice (greedy: the
@@ -112,6 +116,12 @@ GATHER_MAIN_SHAPES = [
     ("q=300 (two query tiles)", 300, "random"),
     ("q=256 elig=None", 256, None),
 ]
+# B.4 and B.5 edge shapes, every combination held exactly: rows, queries
+# (one tile, its ragged edge, two tiles) and lanes
+EDGE_N = (1, 31, 257, (1 << LOG_N) + 3)
+EDGE_Q = (1, 7, 9, 30, 240, 256, 257, 300)
+EDGE_LANES = (4, 8, 16)
+BIG_MATCH = ((1 << 23) + 5, 257)  # B.4 rows and queries with n·q past 2^31
 # serve phase
 SERVE_ARCH = "qwen1.5-0.5b"
 SERVE_REQUESTS, SERVE_BATCH, SERVE_NEW, SERVE_MAX_SEQ = 8, 4, 32, 2080
@@ -170,9 +180,11 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float = INT32_OPS_PER_S) -> t
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.shape != b.shape:
         raise AssertionError(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
-    if a.numel() == 0:
+    if a.numel() == 0 or torch.equal(a, b):
         return 0
-    return int((a.long() - b.long()).abs().max().item())
+    a, b, step = a.reshape(-1), b.reshape(-1), 1 << 26
+    return max(int((a[i:i + step].long() - b[i:i + step].long()).abs().max().item())
+               for i in range(0, a.numel(), step))
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +271,44 @@ def counts_work(n: int, lanes: int, n_queries: int, q: int, n_tables: int, elig,
     nbytes = (n * lanes * 4 + n * 4 + (n * n_queries if elig is not None else 0)
               + n_queries * lanes * 4 + n_tables * 4 + q * 4)
     return nbytes, pairs
+
+
+def match_work(n: int, lanes: int, q: int) -> tuple[int, int]:
+    """(bytes, operations) of one B.4 launch: the rows and the queries read
+    once, the n x q int8 matrix written once; one test per (row, query)."""
+    return n * lanes * 4 + q * lanes * 4 + n * q, n * q
+
+
+def count_work(n: int, lanes: int, q: int) -> tuple[int, int]:
+    """(bytes, operations) of one B.5 launch: the rows and the queries read
+    once, the q int32 counts written once; one test per (row, query)."""
+    return n * lanes * 4 + q * lanes * 4 + q * 4, n * q
+
+
+def edge_rows(rng, dev, n: int, lanes: int) -> torch.Tensor:
+    """int32[n, lanes] rows of realistic popcount (as ``make_filter_inputs``)
+    with all-ones rows (i % 97 == 5) and zero rows (i % 89 == 3)."""
+    raw = rng.integers(0, 2**32, size=(n + 3, lanes), dtype=np.uint32)
+    rows = torch.from_numpy((raw[:-3] & raw[1:-2] & raw[2:-1] & raw[3:]).view(np.int32)).to(dev)
+    i = torch.arange(n, device=dev)
+    rows[i % 97 == 5] = -1
+    rows[i % 89 == 3] = 0
+    return rows
+
+
+def edge_queries(rng, rows: torch.Tensor, q: int) -> torch.Tensor:
+    """q query keys, each a random bit subset of a row, with an all-zero
+    query at q // 2 (q >= 2) and an all-ones one last (q >= 3)."""
+    pick = torch.from_numpy(rng.integers(0, rows.shape[0], size=q)).to(rows.device)
+    keep = torch.from_numpy(
+        rng.integers(0, 2**32, size=(q, rows.shape[1]), dtype=np.uint32).view(np.int32)
+    ).to(rows.device)
+    qs = rows[pick] & keep & keep.roll(1, 0)
+    if q >= 2:
+        qs[q // 2] = 0
+    if q >= 3:
+        qs[-1] = -1
+    return qs.contiguous()
 
 
 def xash_work(enc: torch.Tensor, cfg) -> tuple[int, int]:
@@ -428,28 +478,55 @@ def kernel_phase(seed, corpus) -> dict[str, dict]:
     del row_sk, main_shapes, q300, el300, seg_pad
 
     # B.4 filter_match and B.5 filter_count on the same rows
+    b4 = ("filter_match", "src/repro_torch/kernels/csrc/filter_counts.cu",
+          "src/repro/kernels/filter_kernel.py:103")
+    b5 = ("filter_count", "src/repro_torch/kernels/csrc/filter_counts.cu",
+          "src/repro/kernels/filter_kernel.py:477")
     for label, qs in (("512-bit", query16), ("128-bit", query4)):
         lanes = qs.shape[1]
         row_sk = store16[rows.long(), :lanes].contiguous()
-        got = fk.filter_match(row_sk, qs)
-        want = fk.filter_match_plain(row_sk, qs)
-        ms = cuda_ms(lambda: fk.filter_match(row_sk, qs), REPS)
-        plain_ms = cuda_ms(lambda: fk.filter_match_plain(row_sk, qs), 1)
-        nbytes = n * lanes * 4 + q * lanes * 4 + n * q
-        record("filter_match", "src/repro_torch/kernels/csrc/filter_match.cu",
-               "src/repro/kernels/filter_kernel.py:103", max_abs_err(got, want), 0, ms, plain_ms,
-               nbytes, n * q, f"{label}, n={n}, q={q}")
-        del got, want
-        got = fk.filter_count(row_sk, qs)
-        want = fk.filter_count_plain(row_sk, qs)
-        ms = cuda_ms(lambda: fk.filter_count(row_sk, qs), REPS)
-        plain_ms = cuda_ms(lambda: fk.filter_count_plain(row_sk, qs), 1)
-        nbytes = n * lanes * 4 + q * lanes * 4 + q * 4
-        record("filter_count", "src/repro_torch/kernels/csrc/filter_count.cu",
-               "src/repro/kernels/filter_kernel.py:477", max_abs_err(got, want), 0, ms, plain_ms,
-               nbytes, n * q, f"{label}, n={n}, q={q}")
-        del row_sk, got, want
+        for (name, source, replaces), call, plain, work in (
+                (b4, fk.filter_match, fk.filter_match_plain, match_work),
+                (b5, fk.filter_count, fk.filter_count_plain, count_work)):
+            err = max_abs_err(call(row_sk, qs), plain(row_sk, qs))
+            ms = cuda_ms(lambda: call(row_sk, qs), REPS)
+            plain_ms = cuda_ms(lambda: plain(row_sk, qs), 1)
+            record(name, source, replaces, err, 0, ms, plain_ms, *work(n, lanes, q),
+                   f"{label}, n={n}, q={q}")
+        del row_sk
     del store16, store4, rows, elig, seg
+    torch.cuda.empty_cache()
+
+    # B.4 and B.5 at every edge shape, exactly; one check line per kernel
+    # and lane count
+    for lanes in EDGE_LANES:
+        all_rows = edge_rows(rng, dev, max(EDGE_N), lanes)
+        errs = {"filter_match": 0, "filter_count": 0}
+        for nr in EDGE_N:
+            rs = all_rows[:nr]
+            for nq in EDGE_Q:
+                qs = edge_queries(rng, rs, nq)
+                for name, call, plain in (("filter_match", fk.filter_match, fk.filter_match_plain),
+                                          ("filter_count", fk.filter_count, fk.filter_count_plain)):
+                    err = max_abs_err(call(rs, qs), plain(rs, qs))
+                    if err:
+                        raise AssertionError(f"{name} n={nr} q={nq} lanes={lanes}: kernel disagrees "
+                                             f"with its plain version (max_abs_err={err})")
+                    errs[name] = max(errs[name], err)
+        for name, err in errs.items():
+            checks.append({"kernel": name, "shape": f"edge shapes n {list(EDGE_N)} x q {list(EDGE_Q)}, "
+                           f"{lanes} lanes, all-ones and zero rows, all-zero and all-ones queries",
+                           "max_abs_err": err, "tolerance": 0})
+        del all_rows
+    nr, nq = BIG_MATCH
+    rs = edge_rows(rng, dev, nr, 4)
+    qs = edge_queries(rng, rs, nq)
+    err = max_abs_err(fk.filter_match(rs, qs), fk.filter_match_plain(rs, qs))
+    checks.append({"kernel": "filter_match", "shape": f"n={nr}, q={nq}, 4 lanes (n·q = {nr * nq})",
+                   "max_abs_err": err, "tolerance": 0})
+    if err:
+        raise AssertionError(f"filter_match n={nr} q={nq}: kernel disagrees with its plain version")
+    del rs, qs
     torch.cuda.empty_cache()
 
     # B.3 xash_superkey on the corpus's own values, with its rank vector
@@ -560,6 +637,12 @@ def b2_shape(rows, store, query_sk, elig, seg_ids, *, n_tables, n_queries=None):
     return int(rows.shape[0]), int(keys), int(query_sk.shape[1])
 
 
+def b4_shape(row_sk, query_sk):
+    """(rows, query keys, lanes) of one B.4 launch; None when it launches nothing."""
+    n, q = int(row_sk.shape[0]), int(query_sk.shape[0])
+    return (n, q, int(row_sk.shape[1])) if n and q else None
+
+
 def b3_shape(enc, cfg):
     """(rows, cells per row, lanes) of one B.3 launch; None when it launches nothing."""
     return (int(enc.shape[0]), int(enc.shape[1]), cfg.lanes) if enc.shape[0] else None
@@ -567,7 +650,7 @@ def b3_shape(enc, cfg):
 
 def shape_histogram(shapes, second: str = "keys") -> dict:
     """Launch counts by rows (powers of two), the second dimension (query
-    keys of B.2, cells per row of B.3) and lanes."""
+    keys of B.2 and B.4, cells per row of B.3) and lanes."""
     def hist(values):
         return dict(sorted(collections.Counter(values).items()))
 
@@ -595,7 +678,7 @@ MAIN_PATH_KERNELS = ("filter_table_counts", "gather_filter_table_counts", "xash_
                      "filter_match")
 
 
-def main_path_phase(corpus, truth, mixed, b2_shapes, b3_shapes):
+def main_path_phase(corpus, truth, mixed, b2_shapes, b3_shapes, b4_shapes):
     from repro_torch.core import discovery
     from repro_torch.core.session import DiscoveryConfig, MateSession
 
@@ -696,6 +779,7 @@ def main_path_phase(corpus, truth, mixed, b2_shapes, b3_shapes):
           "wall_s": wall, "session_stats": vars(session.stats), "launches": launches,
           "b2_launch_shapes": shape_histogram(b2_shapes),
           "b3_launch_shapes": shape_histogram(b3_shapes, "cells_per_row"),
+          "b4_launch_shapes": shape_histogram(b4_shapes),
           "top1": [key(r[:1]) for r in results]})
     return read_counts(MAIN_PATH_KERNELS, "main path"), session
 
@@ -705,6 +789,8 @@ def main_path_phase(corpus, truth, mixed, b2_shapes, b3_shapes):
 # ---------------------------------------------------------------------------
 
 def ops_phase(session, truth) -> dict[str, int]:
+    from repro_torch.core.xash import lanes_to_torch
+    from repro_torch.kernels import filter_kernel as fk
     from repro_torch.kernels import ops
 
     keys = [tuple(row[c] for c in q_cols) for query, q_cols, _ in truth for row in query.cells]
@@ -719,9 +805,18 @@ def ops_phase(session, truth) -> dict[str, int]:
     match_sum = ops.filter_match_auto(rows, q_sk, "pallas", device=dev).sum(axis=0, dtype=np.int32)
     if not np.array_equal(counts, match_sum):
         raise AssertionError("ops.filter_count differs from the match matrix's column sums")
+    # B.5 at this path's own shape
+    rt, qt = lanes_to_torch(rows, dev), lanes_to_torch(q_sk, dev)
+    err = max_abs_err(fk.filter_count(rt, qt), fk.filter_count_plain(rt, qt))
+    if err:
+        raise AssertionError(f"filter_count at the ops path's shape: max_abs_err={err}")
+    b_ms, b_by = bound(*count_work(rt.shape[0], rt.shape[1], qt.shape[0]))
     emit({"phase": "ops_path", "rows": int(rows.shape[0]), "lanes": int(rows.shape[1]),
           "query_keys": int(q_sk.shape[0]), "counts_min": int(counts.min()),
-          "counts_max": int(counts.max()), "wall_s": wall, "launches": launches})
+          "counts_max": int(counts.max()), "wall_s": wall, "launches": launches,
+          "filter_count": {"max_abs_err": err, "ms": cuda_ms(lambda: fk.filter_count(rt, qt), REPS),
+                           "plain_ms": cuda_ms(lambda: fk.filter_count_plain(rt, qt), 1),
+                           "bound_ms": b_ms, "bound_by": b_by}})
     return launches
 
 
@@ -878,8 +973,9 @@ def main() -> int:
     from repro_torch.kernels import xash_kernel as xk
 
     with record_shapes(fk, "gather_filter_table_counts", b2_shape) as b2_shapes, \
-            record_shapes(xk, "xash_superkey", b3_shape) as b3_shapes:
-        launches, session = main_path_phase(corpus, truth, mixed, b2_shapes, b3_shapes)
+            record_shapes(xk, "xash_superkey", b3_shape) as b3_shapes, \
+            record_shapes(fk, "filter_match", b4_shape) as b4_shapes:
+        launches, session = main_path_phase(corpus, truth, mixed, b2_shapes, b3_shapes, b4_shapes)
     launches.update(ops_phase(session, truth))
     del session
     launches.update(serve_phase(args.seed))

@@ -57,18 +57,8 @@ LIBRARIES = {
             "gather_counts_launch": [
                 _P, _I, _I, _P, _P, _I, _P, _LL, _P, _LL, _I, _P, _P,
             ],
-        },
-    ),
-    "filter_match": (
-        "filter_match.cu",
-        {
             # rows_sk, lanes, query, n_queries, n, out, stream
             "filter_match_launch": [_P, _I, _P, _I, _LL, _P, _P],
-        },
-    ),
-    "filter_count": (
-        "filter_count.cu",
-        {
             # rows_sk, lanes, query, n_queries, n, counts, stream
             "filter_count_launch": [_P, _I, _P, _I, _LL, _P, _P],
         },

@@ -3,17 +3,17 @@
 Four launches, each the port of one Pallas kernel of
 ``repro.kernels.filter_kernel``:
 
-  * ``filter_match``      (B.4) — the int8 ``[n, q]`` subsumption matrix
-    (``csrc/filter_match.cu``);
+  * ``filter_match``      (B.4) — the int8 ``[n, q]`` subsumption matrix;
   * ``filter_count``      (B.5) — per-query counts of rows passing the
-    filter, ``int32[q]`` (``csrc/filter_count.cu``);
+    filter, ``int32[q]``;
   * ``filter_table_counts`` (B.1) — fused subsumption ∧ eligibility, row-
     reduced ('sum' or 'any') and scattered into per-table counts, plus
     per-key counts; the n×q matrix never exists;
   * ``gather_filter_table_counts`` (B.2) — the same 'sum' counts with the
     candidate rows read in place from the device-resident superkey store.
-    B.1 and B.2 are one templated CUDA body (``csrc/filter_counts.cu``),
-    with one entry point each.
+
+All four are one templated CUDA body (``csrc/filter_counts.cu``), with one
+entry point each.
 
 Layout: row-major ``int32[n, lanes]`` superkeys (uint32 bit patterns) — one
 row's lanes are one 16–64-byte load.  The Pallas kernels' transposed
@@ -104,7 +104,7 @@ def filter_match(row_sk: torch.Tensor, query_sk: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n, q, dtype=torch.int8, device=dev)
     if n == 0 or q == 0:
         return out
-    lib = _build.load("filter_match")
+    lib = _build.load("filter_counts")
     err = lib.filter_match_launch(
         row_sk.data_ptr(), row_sk.shape[1], query_sk.data_ptr(), q, n,
         out.data_ptr(), _stream(row_sk),
@@ -152,7 +152,7 @@ def filter_count(row_sk: torch.Tensor, query_sk: torch.Tensor) -> torch.Tensor:
     counts = torch.zeros(q, dtype=torch.int32, device=dev)
     if n == 0 or q == 0:
         return counts
-    lib = _build.load("filter_count")
+    lib = _build.load("filter_counts")
     err = lib.filter_count_launch(
         row_sk.data_ptr(), row_sk.shape[1], query_sk.data_ptr(), q, n,
         counts.data_ptr(), _stream(row_sk),

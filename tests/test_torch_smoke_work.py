@@ -141,3 +141,33 @@ def test_xash_edge_inputs_hold_their_edges(max_len):
     cells_empty = (enc == 0).all(axis=2)
     assert (cells_empty[:, 1] & ~cells_empty[:, 0] & ~cells_empty[:, 2]).any()  # empty middle cells
     assert cells_empty.all(axis=1).any()  # empty rows
+
+
+@pytest.mark.parametrize("n,lanes,q", [(1, 4, 1), (31, 8, 7), (257, 16, 300), (1027, 4, 256)])
+def test_match_and_count_work_match_brute_force(n, lanes, q):
+    """B.4 and B.5 read every row and query once and test every pair; B.4
+    writes the int8 matrix, B.5 the int32 counts."""
+    rows, queries = torch.empty(n, lanes, dtype=torch.int32), torch.empty(q, lanes, dtype=torch.int32)
+    read = sum(x.numel() * x.element_size() for x in (rows, queries))
+    pairs = sum(1 for _ in range(n) for _ in range(q))
+    matrix, counts = torch.empty(n, q, dtype=torch.int8), torch.empty(q, dtype=torch.int32)
+    assert chip_smoke.match_work(n, lanes, q) == (read + matrix.numel() * matrix.element_size(), pairs)
+    assert chip_smoke.count_work(n, lanes, q) == (read + counts.numel() * counts.element_size(), pairs)
+
+
+@pytest.mark.parametrize("n,lanes,q", [(1, 4, 1), (200, 8, 3), (1000, 16, 30)])
+def test_edge_rows_and_queries_hold_their_edges(n, lanes, q):
+    rng = np.random.default_rng(n + q)
+    rows = chip_smoke.edge_rows(rng, torch.device("cpu"), n, lanes)
+    qs = chip_smoke.edge_queries(rng, rows, q)
+    assert rows.shape == (n, lanes) and qs.shape == (q, lanes)
+    assert rows.dtype == qs.dtype == torch.int32 and qs.is_contiguous()
+    i = np.arange(n)
+    assert bool((rows[torch.from_numpy(i % 97 == 5)] == -1).all())
+    assert bool((rows[torch.from_numpy(i % 89 == 3)] == 0).all())
+    if q >= 3:
+        assert bool((qs[q // 2] == 0).all()) and bool((qs[-1] == -1).all())
+    # every other query is a bit subset of some row
+    others = [j for j in range(q) if q < 3 or j not in (q // 2, q - 1)]
+    sub = ((qs[others, None] & ~rows[None]) == 0).all(dim=-1).any(dim=1)
+    assert bool(sub.all())

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Ablations of the port's redesigned kernels on one GPU: B.6 (bf16 flash
-attention, ``csrc/flash_attention.cu``), B.2 and B.1 (filter counts,
-``csrc/filter_counts.cu``) and B.3 (XASH superkeys, ``csrc/xash_superkey.cu``).
+attention, ``csrc/flash_attention.cu``), B.2, B.1, B.4 and B.5 (the row
+filter, ``csrc/filter_counts.cu``) and B.3 (XASH superkeys,
+``csrc/xash_superkey.cu``).
 
-    python3 tools/kernel_ablations.py [--only flash_attention filter_counts xash_superkey]
+    python3 tools/kernel_ablations.py [--only flash_attention filter_counts match_count xash_superkey]
 
-Builds each source as checked in and variants of it made by text
-substitution (every substitution must apply, or the script fails), loads
-them with ctypes beside each other, and times every variant at the kernel
-phase's headline shapes of ``chip_smoke.py`` with CUDA events, in turns
-(forward order, then reverse; two numbers per variant).  Each result is held
-against the kernel's plain version, except the "no softmax" skeleton, which
-computes something else.  Prints one JSON line per shape, then the card's
+Builds each source as checked in, variants of it made by text substitution
+(every substitution must apply, or the script fails) and the former bodies
+of B.4 and B.5 (before their redesign), loads them with ctypes beside each
+other, and times each kernel's variants at the kernel phase's headline
+shapes of ``chip_smoke.py`` (and B.4/B.5 at the main and ops paths' shapes)
+with CUDA events, in turns (forward order, then reverse; two numbers per
+variant).  Each result is held against the kernel's plain version, except
+the "no softmax" skeleton and "no key counts", which compute something
+else.  Prints one JSON line per shape, then the card's
 name and power limit.  Needs a CUDA device and ``nvcc``.
 """
 
@@ -55,6 +58,136 @@ def _sub(text: str, old: str, new: str) -> str:
 
 
 FLASH = (CSRC / "flash_attention.cu").read_text()
+# B.4 before its redesign: one thread per output byte over a flat index
+OLD_MATCH = """#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <int MAXL, typename Index>
+__global__ void __launch_bounds__(kThreads)
+filter_match_kernel(const uint32_t* __restrict__ rows_sk, int lanes,
+                    const uint32_t* __restrict__ query, int n_queries, Index total,
+                    int8_t* __restrict__ out) {
+  const Index q = (Index)n_queries;
+  for (Index e = (Index)blockIdx.x * kThreads + threadIdx.x; e < total;
+       e += (Index)gridDim.x * kThreads) {
+    const Index i = e / q;
+    const Index j = e - i * q;
+    const uint32_t* rp = rows_sk + (size_t)i * lanes;
+    const uint32_t* qp = query + (size_t)j * lanes;
+    bool ok = true;
+#pragma unroll
+    for (int l = 0; l < MAXL; ++l)
+      if (l < lanes) ok = ok && ((__ldg(qp + l) & ~__ldg(rp + l)) == 0u);
+    out[e] = ok ? 1 : 0;
+  }
+}
+
+template <int MAXL>
+void launch(const uint32_t* rows, int lanes, const uint32_t* query, int n_queries,
+            long long total, int8_t* out, cudaStream_t s) {
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  const long long cap = (long long)repro::sm_count() * 16;
+  const int grid = (int)(blocks < cap ? blocks : cap);
+  if (total < (1ll << 31))
+    filter_match_kernel<MAXL, unsigned int>
+        <<<grid, kThreads, 0, s>>>(rows, lanes, query, n_queries, (unsigned int)total, out);
+  else
+    filter_match_kernel<MAXL, unsigned long long><<<grid, kThreads, 0, s>>>(
+        rows, lanes, query, n_queries, (unsigned long long)total, out);
+}
+
+}  // namespace
+
+REPRO_API int filter_match_launch(const void* rows_sk, int lanes, const void* query,
+                                  int n_queries, long long n, void* out, void* stream) {
+  if (n <= 0 || n_queries <= 0) return 0;
+  if (lanes < 1 || lanes > repro::kMaxLanes) return (int)cudaErrorInvalidValue;
+  const uint32_t* r = static_cast<const uint32_t*>(rows_sk);
+  const uint32_t* q = static_cast<const uint32_t*>(query);
+  int8_t* o = static_cast<int8_t*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long total = n * (long long)n_queries;
+  if (lanes <= 4)
+    launch<4>(r, lanes, q, n_queries, total, o, s);
+  else if (lanes <= 8)
+    launch<8>(r, lanes, q, n_queries, total, o, s);
+  else
+    launch<16>(r, lanes, q, n_queries, total, o, s);
+  return (int)cudaGetLastError();
+}
+"""
+# B.5 before its redesign: one thread per row, each query of a 256-query
+# tile tested in turn, a ballot and one shared atomic per (warp, query)
+OLD_COUNT = """#include "common.cuh"
+namespace {
+constexpr int kThreads = 256, kWarps = kThreads / 32, kQueryTile = 256;
+template <int MAXL>
+__global__ void __launch_bounds__(kThreads)
+filter_count_kernel(const uint32_t* __restrict__ rows_sk, int lanes, const uint32_t* __restrict__ query,
+                    int n_queries, long long n, int32_t* __restrict__ counts) {
+  __shared__ uint32_t s_q[MAXL * kQueryTile];
+  __shared__ int s_cnt[kQueryTile];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.y * kQueryTile, qn = min(kQueryTile, n_queries - q0);
+  for (int e = tid; e < qn * lanes; e += kThreads) {
+    const int j = e / lanes, l = e - j * lanes;
+    s_q[l * kQueryTile + j] = query[(size_t)(q0 + j) * lanes + l];
+  }
+  for (int j = tid; j < kQueryTile; j += kThreads) s_cnt[j] = 0;
+  __syncthreads();
+  for (long long base = ((long long)blockIdx.x * kWarps + warp) * 32; base < n;
+       base += (long long)gridDim.x * kWarps * 32) {
+    const long long i = base + lane;
+    const bool real = i < n;
+    uint32_t nr[MAXL];
+#pragma unroll
+    for (int l = 0; l < MAXL; ++l) nr[l] = (real && l < lanes) ? ~__ldg(rows_sk + (size_t)i * lanes + l) : 0u;
+    for (int j = 0; j < qn; ++j) {
+      bool ok = real;
+#pragma unroll
+      for (int l = 0; l < MAXL; ++l)
+        if (l < lanes) ok = ok && ((s_q[l * kQueryTile + j] & nr[l]) == 0u);
+      const unsigned hits = __ballot_sync(0xffffffffu, ok);
+      if (lane == 0 && hits) atomicAdd(s_cnt + j, __popc(hits));
+    }
+  }
+  __syncthreads();
+  for (int j = tid; j < qn; j += kThreads) {
+    const int v = s_cnt[j];
+    if (v) atomicAdd(counts + q0 + j, v);
+  }
+}
+template <int MAXL>
+cudaError_t launch(const uint32_t* rows, int lanes, const uint32_t* query, int n_queries, long long n,
+                   int32_t* counts, cudaStream_t s) {
+  auto kernel = filter_count_kernel<MAXL>;
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  const int q_tiles = (n_queries + kQueryTile - 1) / kQueryTile;
+  const long long chunks = (n + kThreads - 1) / kThreads;
+  long long cap = (long long)(per_sm < 1 ? 1 : per_sm) * repro::sm_count() / q_tiles;
+  if (cap < 1) cap = 1;
+  kernel<<<dim3((unsigned)(chunks < cap ? chunks : cap), q_tiles), kThreads, 0, s>>>(
+      rows, lanes, query, n_queries, n, counts);
+  return cudaGetLastError();
+}
+}  // namespace
+REPRO_API int filter_count_launch(const void* rows_sk, int lanes, const void* query, int n_queries,
+                                  long long n, void* counts, void* stream) {
+  if (n <= 0 || n_queries <= 0) return 0;
+  const uint32_t* r = static_cast<const uint32_t*>(rows_sk);
+  const uint32_t* q = static_cast<const uint32_t*>(query);
+  int32_t* c = static_cast<int32_t*>(counts);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes <= 4) return (int)launch<4>(r, lanes, q, n_queries, n, c, s);
+  if (lanes <= 8) return (int)launch<8>(r, lanes, q, n_queries, n, c, s);
+  return (int)launch<16>(r, lanes, q, n_queries, n, c, s);
+}
+"""
 COUNTS = (CSRC / "filter_counts.cu").read_text()
 XASH = (CSRC / "xash_superkey.cu").read_text()
 # B.3's counters as two words per char: count|rank|char, and the position sum
@@ -78,14 +211,15 @@ XASH_TWO_COUNTERS = _cut(
     return v;
   }
 """)
-# B.1's key counts: bytes in registers (as built), or an atomic per hit
-KEY_BYTES = """        if (KEYS && al) {  // spread each nibble's 4 bits to 4 bytes and add
-          kb[0] += ((al & 0xfu) * 0x00204081u) & 0x01010101u;
-          kb[1] += ((al >> 4) * 0x00204081u) & 0x01010101u;
+# key counts (B.1, B.5): bytes in registers (as built), or an atomic per hit
+KEY_BYTES = """        if (KEYS) {  // one byte per owned query
+          const uint2 b = mask_bytes(al[u]);
+          kb[0] += b.x;
+          kb[1] += b.y;
         }
 """
 KEY_ATOMIC = """        if (KEYS)
-          for (uint32_t h = al; h; h &= h - 1) atomicAdd({} + __ffs(h) - 1, 1);
+          for (uint32_t h = al[u]; h; h &= h - 1) atomicAdd({} + __ffs(h) - 1, 1);
 """
 VARIANTS = {
     "flash_attention": {
@@ -105,16 +239,28 @@ VARIANTS = {
         "as built": COUNTS,
         "one row's elig in flight per warp": _sub(
             COUNTS, "constexpr int kUnroll = 4;", "constexpr int kUnroll = 1;"),
-        "B.1 key counts: a shared atomic per hit": _sub(COUNTS, KEY_BYTES, KEY_ATOMIC.format("s_keys + jb")),
+        "key counts: a shared atomic per hit": _sub(COUNTS, KEY_BYTES, KEY_ATOMIC.format("s_keys + jb")),
         "B.1 key counts: a global atomic per hit": _sub(
             COUNTS, KEY_BYTES, KEY_ATOMIC.format("a.key_counts + q0 + jb")),
         "B.1 key counts: eight 32-bit counters in registers": _sub(_sub(_sub(
             COUNTS, KEY_BYTES, "        if (KEYS && al)\n#pragma unroll\n"
-                               "          for (int k = 0; k < kQpt; ++k) kc[k] += (al >> k) & 1u;\n"),
+                               "          for (int k = 0; k < kQpt; ++k) kc[k] += (al[u] >> k) & 1u;\n"),
             "  long long c = blockIdx.x;\n", "  uint32_t kc[kQpt] = {};\n  long long c = blockIdx.x;\n"),
             "  if (KEYS) flush_keys();\n",
             "  if (KEYS)\n    for (int k = 0; k < kQpt; ++k)\n      if (kc[k]) atomicAdd(s_keys + jb + k, (int)kc[k]);\n"),
         "no key counts (B.1's keys wrong)": _sub(COUNTS, KEY_BYTES, ""),
+        "B.4: staged through shared memory at q % 8 == 0 too": _sub(
+            COUNTS, "n_queries % 8 ? dispatch<kMatchOdd>(a, s) : dispatch<kMatch>(a, s)", "dispatch<kMatchOdd>(a, s)"),
+        "no G-packing (32 threads per row at any q)": _sub(
+            COUNTS, "while (G * kQpt < qn) G <<= 1, ++lg;", "G = 32, lg = 5;"),
+        "512 bits: lanes 0-3 in place of the fold": _sub(_sub(_sub(
+            COUNTS, "if (k < nvalid && l < lanes) qf[k][l % kReg] |=",
+            "if (k < nvalid && l < lanes && l < kReg) qf[k][l % kReg] |="),
+            "if (l < lanes) f[l & 3] |= own[l];", "if (l < lanes && l < 4) f[l & 3] |= own[l];"),
+            "if (kFull && !(qf[k][0] | qf[k][1] | qf[k][2] | qf[k][3])) zero_q |= 1u << k;",
+            "if (false) zero_q |= 1u << k;"),
+        "B.5: the one-row-per-thread body (PR 12)": OLD_COUNT,
+        "B.4: the one-thread-per-byte body (PR 11)": OLD_MATCH,
     },
     "xash_superkey": {
         "as built": XASH,
@@ -128,6 +274,20 @@ VARIANTS = {
             XASH, "  if (vec && p.max_len > 0", "  if (false && vec && p.max_len > 0"),
     },
 }
+
+
+# variants of filter_counts.cu timed for each of its kernels
+B12_VARIANTS = ("as built", "one row's elig in flight per warp", "key counts: a shared atomic per hit",
+                "B.1 key counts: a global atomic per hit", "B.1 key counts: eight 32-bit counters in registers",
+                "no key counts (B.1's keys wrong)", "512 bits: lanes 0-3 in place of the fold")
+B4_VARIANTS = ("as built", "B.4: staged through shared memory at q % 8 == 0 too",
+               "no G-packing (32 threads per row at any q)", "512 bits: lanes 0-3 in place of the fold",
+               "B.4: the one-thread-per-byte body (PR 11)")
+B5_VARIANTS = ("as built", "key counts: a shared atomic per hit", "no G-packing (32 threads per row at any q)",
+               "512 bits: lanes 0-3 in place of the fold", "B.5: the one-row-per-thread body (PR 12)")
+# --only sections and the library whose variants each times
+SECTIONS = {"flash_attention": "flash_attention", "filter_counts": "filter_counts",
+            "match_count": "filter_counts", "xash_superkey": "xash_superkey"}
 
 
 def build(only) -> dict[str, dict[str, ctypes.CDLL]]:
@@ -147,6 +307,8 @@ def build(only) -> dict[str, dict[str, ctypes.CDLL]]:
             raise RuntimeError(f"{lib} / {name}: nvcc exit {proc.returncode}\n{log}")
         handle = ctypes.CDLL(str(so))
         for fn, argtypes in _build.LIBRARIES[lib][1].items():
+            if not hasattr(handle, fn):  # B.5's former body has only its own entry point
+                continue
             getattr(handle, fn).argtypes = argtypes
             getattr(handle, fn).restype = ctypes.c_int
         libs[lib][name] = handle
@@ -172,16 +334,17 @@ def in_turns(variants: dict, run, want) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", nargs="+", choices=list(VARIANTS), default=list(VARIANTS),
-                    help="libraries whose variants are built and timed")
+    ap.add_argument("--only", nargs="+", choices=list(SECTIONS), default=list(SECTIONS),
+                    help="sections to time: B.6, B.2 + B.1, B.4 + B.5, B.3")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ablations: no CUDA device", file=sys.stderr)
         return 2
-    libs, dev = build(args.only), torch.device("cuda")
+    libs = build(dict.fromkeys(SECTIONS[o] for o in args.only))
+    dev = torch.device("cuda")
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
-    if "flash_attention" in libs:
+    if "flash_attention" in args.only:
         b, s, h, d = 4, 2048, 16, 64
         gen = torch.Generator(device=dev).manual_seed(0)
         q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
@@ -199,15 +362,20 @@ def main() -> int:
         del q, k, v
 
     rng = np.random.default_rng(0)
-    if "filter_counts" in libs:
+    if "filter_counts" in args.only or "match_count" in args.only:
         n, keys, tb = 1 << chip_smoke.LOG_N, chip_smoke.N_KEYS, chip_smoke.N_TABLES
         store16, rows, query16, elig, seg = chip_smoke.make_filter_inputs(
             rng, dev, 1 << chip_smoke.LOG_STORE, 16, n, keys, tb)
         store4, query4 = store16[:, :4].contiguous(), query16[:, :4].contiguous()
         q30 = chip_smoke.make_queries(rng, store4, rows, 30)
         elig30 = chip_smoke.make_elig(rng, dev, n, 30, "random")
+        q300 = chip_smoke.make_queries(rng, store4, rows, 300)
+        elig300 = chip_smoke.make_elig(rng, dev, n, 300, "random")
+        variants = lambda names: {k: libs["filter_counts"][k] for k in names}  # noqa: E731
+    if "filter_counts" in args.only:
         for label, st, qs, el in (("512-bit, q=256", store16, query16, elig), ("128-bit, q=256", store4, query4, elig),
-                                  ("128-bit, q=30", store4, q30, elig30), ("512-bit, q=256, elig=None", store16, query16, None)):
+                                  ("128-bit, q=30", store4, q30, elig30), ("128-bit, q=300", store4, q300, elig300),
+                                  ("512-bit, q=256, elig=None", store16, query16, None)):
             def gather(handle, st=st, qs=qs, el=el):
                 counts = torch.zeros(tb, dtype=torch.int32, device=dev)
                 _build.check(handle.gather_counts_launch(
@@ -217,9 +385,10 @@ def main() -> int:
                 return counts
             want = fk.gather_filter_table_counts_plain(rows, st, qs, el, seg, tb, qs.shape[0])
             print(json.dumps({"kernel": "gather_filter_table_counts", "shape": f"{label}, n={n}, tables={tb}",
-                              "variants": in_turns(libs["filter_counts"], gather, want)}), flush=True)
+                              "variants": in_turns(variants(B12_VARIANTS), gather, want)}), flush=True)
         for label, qs, el, mode in (("128-bit sum, q=256", query4, elig, "sum"), ("512-bit sum, q=256", query16, elig, "sum"),
-                                    ("128-bit sum, q=30", q30, elig30, "sum"), ("512-bit any, q=256", query16, elig, "any")):
+                                    ("128-bit sum, q=30", q30, elig30, "sum"), ("128-bit sum, q=300", q300, elig300, "sum"),
+                                    ("512-bit any, q=256", query16, elig, "any")):
             row_sk = store16[rows.long(), :qs.shape[1]].contiguous()
             def counts(handle, row_sk=row_sk, qs=qs, el=el, mode=mode):
                 out = torch.zeros(tb, dtype=torch.int32, device=dev)
@@ -233,11 +402,50 @@ def main() -> int:
                 return out, key_counts
             want = fk.filter_table_counts_plain(row_sk, qs, el, seg, tb, qs.shape[0], mode)
             print(json.dumps({"kernel": "filter_table_counts", "shape": f"{label}, n={n}, tables={tb}",
-                              "variants": in_turns(libs["filter_counts"], counts, want)}), flush=True)
+                              "variants": in_turns(variants(B12_VARIANTS), counts, want)}), flush=True)
             del row_sk
+    if "match_count" in args.only:
+        # B.4 and B.5 at the headline shapes and at q = 30; B.4 at the main
+        # path's two kinds of launch (smoke lake, PR 15: a discover's 30 keys
+        # over <= 128 rows, a discover_many group's 154 keys over up to
+        # 2,241,293 rows); B.5 at the ops path's shape (641,424 rows of 4
+        # lanes against ~120 query keys)
+        n_ops, n_group = 641_424, 2_241_293
+        q_ops = chip_smoke.make_queries(rng, store4, rows[:n_ops], 120)
+        group_rows = torch.from_numpy(rng.integers(0, store4.shape[0], size=n_group)).to(dev)
+        q_group = chip_smoke.make_queries(rng, store4, group_rows, 154)
+        for label, qs, rix, kinds in (("128-bit, q=256", query4, rows, "match count"),
+                                      ("512-bit, q=256", query16, rows, "match count"),
+                                      ("128-bit, q=30", q30, rows, "match count"),
+                                      ("128-bit main-path shape, q=30", q30, rows[:128], "match"),
+                                      ("128-bit main-path shape, q=154", q_group, group_rows, "match"),
+                                      ("128-bit ops-path shape, q=120", q_ops, rows[:n_ops], "count")):
+            nr = rix.shape[0]
+            row_sk = store16[rix.long(), :qs.shape[1]].contiguous()
+            def match(handle, row_sk=row_sk, qs=qs):
+                out = torch.empty(row_sk.shape[0], qs.shape[0], dtype=torch.int8, device=dev)
+                _build.check(handle.filter_match_launch(
+                    row_sk.data_ptr(), qs.shape[1], qs.data_ptr(), qs.shape[0], row_sk.shape[0],
+                    out.data_ptr(), stream()), "filter_match")
+                return out
+            def count(handle, row_sk=row_sk, qs=qs):
+                out = torch.zeros(qs.shape[0], dtype=torch.int32, device=dev)
+                _build.check(handle.filter_count_launch(
+                    row_sk.data_ptr(), qs.shape[1], qs.data_ptr(), qs.shape[0], row_sk.shape[0],
+                    out.data_ptr(), stream()), "filter_count")
+                return out
+            shape = f"{label}, n={nr}"
+            if "match" in kinds:
+                print(json.dumps({"kernel": "filter_match", "shape": shape, "variants": in_turns(
+                    variants(B4_VARIANTS), match, fk.filter_match_plain(row_sk, qs))}), flush=True)
+            if "count" in kinds:
+                print(json.dumps({"kernel": "filter_count", "shape": shape, "variants": in_turns(
+                    variants(B5_VARIANTS), count, fk.filter_count_plain(row_sk, qs))}), flush=True)
+            del row_sk
+    if "filter_counts" in args.only or "match_count" in args.only:
         del store16, store4, rows, query16, elig, seg
 
-    if "xash_superkey" in libs:
+    if "xash_superkey" in args.only:
         corpus = synthetic.make_corpus(synthetic.SyntheticSpec(n_tables=20000, seed=0))
         uniq = torch.from_numpy(corpus.unique_enc).to(dev)
         freq = tuple(corpus.char_frequencies().tolist())
