@@ -29,7 +29,13 @@ Phases, each printing one JSON line:
    [4, 2048, 16, 64] in bf16, causal and with a 512 window, ragged
    S = T = 1,000, strided views of one fused QKV projection, d 128 with
    dv 64, S != T (max_abs_err < 2e-2), and at [2, 512, 2, d 128, dv 64] in
-   f32 (< 1e-5).  CUDA-event times of kernel and plain version, the bound
+   f32 (< 1e-5); B.2 over the 1-, 2-, 3-, 5-, 7- and 13-lane prefixes
+   of its 16-lane store beside 4, 8 and 16, exactly (the ``lanes`` line
+   reports them); B.6 at MLA's head dims, [2, 512, 4, d 192, dv 128] and
+   [2, 512, 4, d 24, dv 16], and at [2, 512, 4, d 20, dv 12] (padded to
+   multiples of 8 by the wrapper), causal and windowed, bf16 and f32, with
+   ``ptxas``'s report of the d-192 kernels (the ``flash_edge`` line).
+   CUDA-event times of kernel and plain version, the bound
    (the least time the card could take: the larger of bytes over 3.35 TB/s
    and the operations this run's data needs over the peak rate of their
    type — 67 T op/s for 32-bit integer and float32, 989 TFLOP/s for bf16
@@ -50,7 +56,24 @@ Phases, each printing one JSON line:
    ground-truth queries' keys, equal to the column sums of the match matrix
    (``ops.filter_match_auto`` on the 'pallas' backend, kernel B.4), then
    B.5 timed at that shape beside its plain version and its bound;
-5. serve — full-width qwen1.5-0.5b (24 layers, random weights from
+5. lanes — ``plan_and_count`` at ``filter_lanes`` 1, 2, 3 (the 128-bit
+   session) and 5 (a 256-bit session of the same lake) under
+   'fused-gather', for the ground-truth group (B.2) and the mixed group
+   (demoted to B.4), exactly equal to 'numpy'; ``discover_many`` likewise
+   for the ground-truth group at every prefix and the mixed group at 5;
+6. fd — ``MateSession.discover_fds`` on the smoke lake (each ground-truth
+   query given a second dependent value for its key 2) and on the
+   planted-FD lakes at 128/256/512 bits, under 'fused-gather', 'fused' and
+   'numpy', signals off and on: identical verdicts, equal to a brute-force
+   oracle;
+7. serving tier — a ``DiscoveryEngine`` and then an
+   ``AsyncDiscoveryEngine`` on a ManualClock over a 512-bit session of the
+   lake that degrades to 128 bits: 64 requests in bursts (shed, degraded,
+   result- and bound-cache hits, deadline flushes), every answer equal to
+   a cold ``discover``, B.2 probing 16 and 4 lanes of the 16-lane store;
+   then a spike of 24 mixed queries alone on a fresh engine (16 admitted,
+   8 degraded), timed per group;
+8. serve — full-width qwen1.5-0.5b (24 layers, random weights from
    ``--seed``) serves 8 requests (prompts of 512–2048 tokens drawn from
    ``--seed``, 32 new tokens each) in slot batches of 4, twice (greedy: the
    tokens must repeat), holds prefill and decode against the full forward
@@ -60,10 +83,15 @@ Phases, each printing one JSON line:
    weight moved by one bf16 ulp makes in the forward at that depth, then
    runs the port's ``launch.serve.main`` at its defaults.
 
-Launch counters are zeroed just before each of the three paths (3, 4, 5)
-and read just after: each kernel must have launched on its path.  Then the
-``kernels`` summary line (with those launch counts), the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.  Any mismatch
+Launch counters are zeroed just before each path's own calls (3–8) and
+read just after; index builds of paths 5–7, their references and their
+checks (numpy backends, full-width runs, cold ``discover``s, the serve
+phase's consistency check) run outside those windows.  Each kernel must
+have launched on its path.  Then the ``kernels`` summary line (each
+kernel's ``launches`` on its own path — the main path for B.1–B.4, the ops
+path for B.5, the serve path for B.6 — and ``launches_by_path``, every
+path's own count), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Any mismatch
 raises and the script exits non-zero without the last line.  It needs a
 CUDA device and the repository's ``src/`` beside it.
 """
@@ -122,6 +150,31 @@ EDGE_N = (1, 31, 257, (1 << LOG_N) + 3)
 EDGE_Q = (1, 7, 9, 30, 240, 256, 257, 300)
 EDGE_LANES = (4, 8, 16)
 BIG_MATCH = ((1 << 23) + 5, 257)  # B.4 rows and queries with n·q past 2^31
+# lane prefixes (not multiples of 4 take B.2's word-by-word copies): of the
+# kernel phase's 16-lane store, and of the main lake's 128- and 256-bit
+# sessions through plan_and_count / discover_many
+KERNEL_LANES = (1, 2, 3, 4, 5, 7, 8, 13, 16)
+SESSION_LANES = {128: (1, 2, 3), 256: (5,)}
+MIXED_MANY_LANES = (5,)  # the mixed group's discover_many (demoted to B.4)
+# B.6 at MLA's head dims: (B, S, H, d, dv), each causal with these windows,
+# in both dtypes with their tolerances
+FLASH_EDGE = [(2, 512, 4, 192, 128), (2, 512, 4, 24, 16), (2, 512, 4, 20, 12)]
+FLASH_EDGE_WINDOWS = (0, 128)
+FLASH_EDGE_DTYPES = ((torch.bfloat16, 2e-2), (torch.float32, 1e-5))
+# the discovery serving tier: a 512-bit session that degrades to 128 bits,
+# driven on a ManualClock by bursts of requests (their sizes sum to
+# SERVING_REQUESTS) drawn with a Zipf skew from the ground-truth and mixed
+# queries; a burst smaller than the window waits for its deadline
+SERVING_BITS, SERVING_DEGRADE_BITS = 512, 128
+SERVING_BURSTS = (36, 3, 9, 8, 5, 3)
+SERVING_REQUESTS = sum(SERVING_BURSTS)
+SERVING_WINDOW, SERVING_MAX_QUEUE, SERVING_CACHE, SERVING_FLUSH_AFTER = 8, 16, 32, 0.5
+# then a spike of mixed queries alone, on a fresh engine: max_queue
+# admitted, a window past it degraded (mixed groups run B.4, not B.2)
+MIXED_SPIKE = SERVING_MAX_QUEUE + SERVING_WINDOW
+# FD phase: the planted-FD lakes (tests/test_fd.py's construction)
+FD_SEEDS = (0, 1, 2)
+FD_BACKENDS = ("fused-gather", "fused", "numpy")
 # serve phase
 SERVE_ARCH = "qwen1.5-0.5b"
 SERVE_REQUESTS, SERVE_BATCH, SERVE_NEW, SERVE_MAX_SEQ = 8, 4, 32, 2080
@@ -351,7 +404,68 @@ def xash_edge_inputs(rng, uniq: np.ndarray, n: int, max_len: int) -> np.ndarray:
     return enc
 
 
-def kernel_phase(seed, corpus) -> dict[str, dict]:
+def ptxas_entries(log: str, needle: str) -> dict[str, list[str]]:
+    """``ptxas -v`` lines (registers, stack, spills) of each entry function
+    whose mangled name holds ``needle``."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = m.group(1) if needle in m.group(1) else None
+            if fn:
+                out[fn] = []
+        elif fn and ("registers" in ln or "spill" in ln):
+            out[fn].append(ln.strip())
+    return out
+
+
+def flash_tc_smem(dp: int, dvp: int) -> int:
+    """Dynamic shared memory of one bf16 flash block (``launch_tc``): the
+    1024-byte alignment slack, Q, two K/V stages, the barriers and counters."""
+    return 1024 + 128 * dp * 2 + 2 * 64 * (dp + dvp) * 2 + 3 * 8 + 2 * 4
+
+
+def flash_edge_phase(seed) -> None:
+    """B.6 at MLA's head dims (d 192 and the reduced 24) and at d 20 / dv
+    12, causal and windowed, in bf16 (the tensor maps zero-fill d and dv to
+    the tile widths; d 20 / dv 12 are zero-padded to multiples of 8 by the
+    wrapper first) and f32, against the plain version; SDPA timed beside
+    it."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_kernel as flk
+
+    dev = torch.device("cuda")
+    checks = []
+    for b, s, h, d, dv in FLASH_EDGE:
+        for dtype, tol in FLASH_EDGE_DTYPES:
+            gen = torch.Generator(device=dev).manual_seed(seed + d)
+            qkv = [torch.randn(b, s, h, e, generator=gen, device=dev).to(dtype) for e in (d, d, dv)]
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in qkv)
+            for window in FLASH_EDGE_WINDOWS:
+                call = lambda: flk.flash_attention(*qkv, causal=True, window=window)
+                plain = lambda: flk.flash_attention_plain(*qkv, causal=True, window=window)
+                err = float((call().float() - plain().float()).abs().max().item())
+                shape = f"[{b},{s},{h},d={d},dv={dv}] {str(dtype)[6:]} causal window={window}"
+                if not err < tol:
+                    raise AssertionError(f"flash_attention {shape}: max_abs_err {err} >= {tol}")
+                if window:
+                    mask = flk._admissible(s, s, True, window, dev)
+                    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+                else:
+                    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+                nbytes, flops = flash_work(b, s, s, h, d, dv, window, qkv[0].element_size())
+                b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
+                checks.append({"shape": shape, "max_abs_err": err, "tolerance": tol, "ms": cuda_ms(call, REPS),
+                               "plain_ms": cuda_ms(plain, 1), "bound_ms": b_ms, "bound_by": b_by,
+                               "library_ms": cuda_ms(sdpa, REPS)})
+            del qkv, qt, kt, vt
+    log = _build.build_log.get("flash_attention")
+    emit({"phase": "flash_edge", "checks": checks,
+          "ptxas_d192": None if log is None else ptxas_entries(log, "flash_tc_kernelILi192E"),
+          "dynamic_smem_bytes_d192": {"dv<=64": flash_tc_smem(192, 64), "dv<=128": flash_tc_smem(192, 128)}})
+
+
+def kernel_phase(seed, corpus) -> tuple[dict[str, dict], list[dict]]:
     from repro_torch.core import encoding, xash
     from repro_torch.kernels import filter_kernel as fk
     from repro_torch.kernels import flash_kernel as flk
@@ -413,6 +527,7 @@ def kernel_phase(seed, corpus) -> dict[str, dict]:
                rate, library_ms)
         del qkv, got, want, qt, kt, vt
     torch.cuda.empty_cache()
+    flash_edge_phase(seed)
 
     store16, rows, query16, elig, seg = make_filter_inputs(
         rng, dev, 1 << LOG_STORE, 16, n, q, tb
@@ -444,6 +559,20 @@ def kernel_phase(seed, corpus) -> dict[str, dict]:
                "src/repro/kernels/filter_kernel.py:447", max_abs_err(got, want), 0, ms, plain_ms,
                nbytes, nops, f"{label} store [{st.shape[0]},{st.shape[1]}], n={n}, q={keys}, tables={tb}")
     del gather_cases
+
+    # B.2 over lane prefixes of the 16-lane store, exactly: those that are
+    # not multiples of 4 take the word-by-word row copies, 4 the 16-byte ones
+    lane_prefixes, pairs = [], int(elig.sum())
+    for lanes in KERNEL_LANES:
+        qs = query16[:, :lanes].contiguous()
+        call = lambda: fk.gather_filter_table_counts(rows, store16, qs, elig, seg, n_tables=tb)
+        err = max_abs_err(call(), fk.gather_filter_table_counts_plain(rows, store16, qs, elig, seg, tb, q))
+        if err:
+            raise AssertionError(f"gather_filter_table_counts at {lanes} of 16 lanes: kernel disagrees "
+                                 f"with its plain version (max_abs_err={err})")
+        b_ms, b_by = bound(gather_bytes(rows, 16, lanes, q, tb, True), pairs)
+        lane_prefixes.append({"lanes": lanes, "max_abs_err": err, "ms": cuda_ms(call, REPS),
+                              "bound_ms": b_ms, "bound_by": b_by})
 
     # B.1 filter_table_counts on host-gathered rows: its headline shapes
     # ('sum' at 512 and 128 bits, 'any' at 512), then at 128 bits the main
@@ -572,7 +701,7 @@ def kernel_phase(seed, corpus) -> dict[str, dict]:
     del uniq
     torch.cuda.synchronize()
     emit({"phase": "kernels", "checks": checks})
-    return results
+    return results, lane_prefixes
 
 
 # ---------------------------------------------------------------------------
@@ -637,6 +766,12 @@ def b2_shape(rows, store, query_sk, elig, seg_ids, *, n_tables, n_queries=None):
     return int(rows.shape[0]), int(keys), int(query_sk.shape[1])
 
 
+def b2_probe(rows, store, query_sk, elig, seg_ids, *, n_tables, n_queries=None):
+    """(candidate rows, query keys, probed lanes, store lanes) of one B.2 launch."""
+    n, keys, lanes = b2_shape(rows, store, query_sk, elig, seg_ids, n_tables=n_tables, n_queries=n_queries)
+    return n, keys, lanes, int(store.shape[1])
+
+
 def b4_shape(row_sk, query_sk):
     """(rows, query keys, lanes) of one B.4 launch; None when it launches nothing."""
     n, q = int(row_sk.shape[0]), int(query_sk.shape[0])
@@ -665,17 +800,36 @@ def zero_counts() -> None:
         fn.launches = 0
 
 
-def read_counts(names, path: str) -> dict[str, int]:
-    """The launch counts of ``names``; raises if one of them never launched."""
-    got = {name: counters()[name].launches for name in names}
-    missing = [name for name, v in got.items() if v == 0]
+@contextlib.contextmanager
+def path_window(total: collections.Counter):
+    """A window around a path's own calls: every launch count is set to 0
+    on entering, and on leaving the counts are added to ``total``.  Set-up
+    (index builds), references and checks run outside the windows."""
+    zero_counts()
+    yield
+    total.update({name: fn.launches for name, fn in counters().items()})
+
+
+def check_counts(total, names, path: str) -> dict[str, int]:
+    """Every kernel's launches counted in ``total``; raises if one of
+    ``names``, the kernels the path must run, never launched."""
+    got = {name: int(total[name]) for name in counters()}
+    missing = [name for name in names if got[name] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {path}: {missing}")
     return got
 
 
+def read_counts(names, path: str) -> dict[str, int]:
+    """Every kernel's launch count since ``zero_counts`` (``check_counts``)."""
+    return check_counts({name: fn.launches for name, fn in counters().items()}, names, path)
+
+
 MAIN_PATH_KERNELS = ("filter_table_counts", "gather_filter_table_counts", "xash_superkey",
                      "filter_match")
+# the path whose run gives each kernel's ``launches`` in the kernels line
+HOME_PATH = {**{name: "main_path" for name in MAIN_PATH_KERNELS}, "filter_count": "ops_path",
+             "flash_attention": "serve"}
 
 
 def main_path_phase(corpus, truth, mixed, b2_shapes, b3_shapes, b4_shapes):
@@ -821,6 +975,475 @@ def ops_phase(session, truth) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# Lane prefixes through the engines (filter_lanes), against 'numpy'
+# ---------------------------------------------------------------------------
+
+def lanes_phase(sessions, truth, mixed, lane_prefixes) -> dict[str, int]:
+    """``plan_and_count`` and ``discover_many`` at each lane prefix of
+    ``SESSION_LANES`` under 'fused-gather' against 'numpy': per-table counts
+    and top-k exactly equal, the verified set equal to the full width's.
+    The ground-truth group's launch is B.2 on the session's device store,
+    at every prefix.  The mixed group holds more candidate tables than one
+    fused launch takes (8192), so its launch demotes to B.4 on the
+    host-gathered lane prefix, as the reference's does: its counts are held
+    at every prefix, its ``discover_many`` only at ``MIXED_MANY_LANES``
+    (at 1–3 lanes it verifies 0.4–2.3 M survivors on the host, and B.4 is
+    the main path's kernel).  Launches are counted around the
+    'fused-gather' calls only."""
+    from repro_torch.core import batched
+    from repro_torch.kernels import filter_kernel as fk
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    out, counted = [], []  # counted: the B.2 probes inside the windows
+    groups = {"mixed": list(mixed), "truth": [(q, c) for q, c, _ in truth]}
+    with record_shapes(fk, "gather_filter_table_counts", b2_probe) as probes, \
+            record_shapes(fk, "filter_match", b4_shape) as b4_launches:
+        for bits, prefixes in SESSION_LANES.items():
+            index, cfg = sessions[bits].index, sessions[bits].config
+            kw = dict(init_mode=cfg.init_mode, profile_gate=cfg.profile_gate)
+            many = dict(k=cfg.k, rank=cfg.rank, **kw)
+            for label, group in groups.items():
+                with_many = [fl for fl in prefixes if label == "truth" or fl in MIXED_MANY_LANES]
+                full = (batched.discover_many(index, group, backend="fused-gather", **many)
+                        if with_many else None)
+                for fl in prefixes:
+                    n_b2, n_b4 = len(probes), len(b4_launches)
+                    t = time.perf_counter()
+                    with path_window(total):
+                        pcs = batched.plan_and_count(index, group, "fused-gather", filter_lanes=fl, **kw)
+                        got = (batched.discover_many(index, group, backend="fused-gather", filter_lanes=fl,
+                                                     **many) if fl in with_many else None)
+                        torch.cuda.synchronize()
+                    wall = time.perf_counter() - t
+                    b2, b4 = len(probes) - n_b2, len(b4_launches) - n_b4
+                    counted += probes[n_b2:]
+                    want_pcs = batched.plan_and_count(index, group, "numpy", filter_lanes=fl, **kw)
+                    where = f"{label} group at {fl} of {index.cfg.lanes} lanes"
+                    for pc, w in zip(pcs, want_pcs):
+                        if pc.filter_lanes != fl or not np.array_equal(pc.counts, w.counts):
+                            raise AssertionError(f"plan_and_count of the {where} differs from numpy")
+                    row = {"bits": bits, "group": label, "filter_lanes": fl,
+                           "candidate_tables": sum(pc.plan.block.n_tables for pc in pcs),
+                           "counts_identical": True, "b2_launches": b2, "b4_launches": b4,
+                           "wall_s": wall}
+                    if got is not None:
+                        # 'numpy' discover_many is exactly its plan_and_count
+                        # scored per request: one numpy launch serves both
+                        want = [batched.score_from_counts(index, pc, cfg.k, rank=cfg.rank) for pc in want_pcs]
+                        for (g, _), (w, _), (f, _) in zip(got, want, full):
+                            if key(g) != key(w):
+                                raise AssertionError(f"discover_many of the {where} differs from numpy")
+                            if sorted(key(g)) != sorted(key(f)):
+                                raise AssertionError(f"discover_many of the {where} verified another set")
+                        stats = [st for _, st in got]
+                        row.update({"topk_identical": True,
+                                    "filter_passed": sum(st.filter_passed for st in stats),
+                                    "full_width_filter_passed": sum(st.filter_passed for _, st in full),
+                                    "verified_fp": sum(st.verified_fp for st in stats),
+                                    "gather_bytes_saved": sum(st.gather_bytes_saved for st in stats)})
+                    out.append(row)
+    probed = collections.Counter((p[2], p[3]) for p in counted)
+    missing = [(fl, bits // 32) for bits, prefixes in SESSION_LANES.items() for fl in prefixes
+               if not probed[fl, bits // 32]]
+    if missing:
+        raise AssertionError(f"B.2 never probed these (lanes, store lanes) through the engines: {missing}")
+    launches = check_counts(total, ("gather_filter_table_counts",), "lanes path")
+    emit({"phase": "lanes", "sessions": out,
+          "b2_probes_by_lanes": {f"{a} of {b}": n for (a, b), n in sorted(probed.items())},
+          "b2_lane_prefixes": lane_prefixes, "launches": launches,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The FD workload
+# ---------------------------------------------------------------------------
+
+def planted_fd_lake(seed: int):
+    """(corpus, query, determinant_cols, dependent_col): ``tests/test_fd.py``'s
+    planted-FD lake — violating groups, a duplicate row, empty strings,
+    clean tables, violators, near-misses, a permuted match, a zero-row
+    table and seeded noise."""
+    from repro_torch.core.corpus import Corpus, Table
+
+    rng = np.random.default_rng(seed)
+    n_keys = 6
+    keys = [(f"a{seed}k{r}", f"b{seed}k{r}") for r in range(n_keys)]
+    q_cells = []
+    for r, (a, b) in enumerate(keys):
+        q_cells.append([a, b, f"d{r}"])
+        if r < 2:
+            q_cells.append([a, b, f"d{r}x"])
+        if r == 2:
+            q_cells.append([a, b, f"d{r}"])
+    q_cells.append(["", f"b{seed}nul", ""])
+    query = Table(-1, q_cells, name=f"fd query {seed}")
+    tables = [
+        Table(0, [[a, b, f"p{seed}"] for a, b in keys[2:]], name="clean wide"),
+        Table(1, [[keys[3][0], keys[3][1], "q"], [keys[4][0], keys[4][1], "q"]], name="clean two"),
+        Table(2, [[keys[0][0], keys[0][1], "v"], [keys[2][0], keys[2][1], "v"]], name="violator a"),
+        Table(3, [[keys[1][0], keys[1][1], "w"]], name="violator b"),
+        Table(4, [[keys[0][0], f"zz{seed}"], [f"yy{seed}", keys[0][1]], [keys[5][0], keys[5][1]]],
+              name="near miss"),
+        Table(5, [["pad", keys[5][1], keys[5][0]]], name="permuted"),
+        Table(6, [["", f"b{seed}nul", "k"]], name="empty det"),
+        Table(7, [], name="zero rows"),
+    ]
+    for _ in range(8):
+        tid = len(tables)
+        r = int(rng.integers(n_keys))
+        tables.append(Table(tid, [[keys[r][0], f"n{tid}x{j}{seed}"] for j in range(int(rng.integers(1, 4)))]))
+    return Corpus(tables), query, [0, 1], 2
+
+
+def _row_matches(key: tuple, row: list) -> bool:
+    """Some assignment of distinct row columns equals the key position-wise."""
+    per_col = [[c for c, v in enumerate(row) if v == qv] for qv in key]
+    if len(row) < len(key) or any(not cols for cols in per_col):
+        return False
+    stack = [(0, frozenset())]
+    while stack:
+        i, used = stack.pop()
+        if i == len(key):
+            return True
+        stack.extend((i + 1, used | {c}) for c in per_col[i] if c not in used)
+    return False
+
+
+def fd_oracle(corpus, query, det_cols, dep_col, min_support=1):
+    """{table_id: (support, holds, violations, matched keys)} by scanning the
+    rows of every table that holds one of the query's determinant values."""
+    dep_of_key: dict[tuple, set] = {}
+    for row in query.cells:
+        dep_of_key.setdefault(tuple(row[c] for c in det_cols), set()).add(row[dep_col])
+    values = {v for k in dep_of_key for v in k}
+    out = {}
+    for t in corpus.tables:
+        rows = [row for row in t.cells if values.intersection(row)]
+        matched = {k for k in dep_of_key if any(_row_matches(k, row) for row in rows)}
+        if rows and len(matched) >= min_support:
+            viol = sum(1 for k in matched if len(dep_of_key[k]) > 1)
+            out[t.table_id] = (len(matched), viol == 0, viol, matched)
+    return out
+
+
+def fd_verdicts(fds):
+    return [(c.table_id, c.support, c.holds, c.violations) for c in fds]
+
+
+def fd_phase(session, truth) -> dict[str, int]:
+    """``MateSession.discover_fds`` on the smoke lake (each ground-truth
+    query with a second dependent value for its key 2) and on the planted-FD
+    lakes at 128/256/512 bits, under 'fused-gather', 'fused' and 'numpy',
+    signals off and on: identical verdicts and scored order across backends,
+    equal to the brute-force oracle."""
+    from repro_torch.core import fd
+    from repro_torch.core.corpus import Table
+    from repro_torch.core.session import DiscoveryConfig, MateSession
+    from repro_torch.kernels import filter_kernel as fk
+
+    def run_all(index, query, det, dep, oracle, label, min_support=1):
+        per_signals = {}
+        for signals in (None, fd.DEFAULT_SIGNALS):
+            got = {}
+            for name in FD_BACKENDS:
+                sess = MateSession(index, DiscoveryConfig(backend=name, signals=signals))
+                n_b2 = len(shapes)
+                t = time.perf_counter()
+                with path_window(total):
+                    fds, stats = sess.discover_fds(query, det, dep, min_support=min_support)
+                    torch.cuda.synchronize()
+                walls.setdefault(name, []).append(time.perf_counter() - t)
+                counted.extend(shapes[n_b2:])
+                got[name] = (fd_verdicts(fds), [c.score for c in fds])
+                fd_counts.append((stats.fd_candidates, stats.fd_validated))
+            first = got[FD_BACKENDS[0]]
+            if any(g != first for g in got.values()):
+                raise AssertionError(f"{label}: FD verdicts differ across backends (signals={signals})")
+            facts = {tid: (sup, holds, viol) for tid, sup, holds, viol in first[0]}
+            if facts != {tid: o[:3] for tid, o in oracle.items() if o[0] >= min_support}:
+                raise AssertionError(f"{label}: FD verdicts differ from the brute-force oracle")
+            per_signals[signals is not None] = first
+        if sorted(per_signals[True][0]) != sorted(per_signals[False][0]):
+            raise AssertionError(f"{label}: signals changed the FD facts")
+        return per_signals[False][0]
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    walls: dict[str, list[float]] = {}
+    fd_counts: list[tuple[int, int]] = []
+    counted = []  # B.2 launch shapes inside the windows
+    with record_shapes(fk, "gather_filter_table_counts", b2_shape) as shapes:
+        lake = []
+        for query, q_cols, expected in truth:
+            extra = list(query.cells[2])
+            extra[2] += " second value"
+            fq = Table(-1, [list(r) for r in query.cells] + [extra], name=query.name)
+            det, dep = list(q_cols), 2
+            oracle = fd_oracle(session.index.corpus, fq, det, dep)
+            key2 = tuple(extra[c] for c in det)
+            rank0 = next(iter(expected))
+            injected = [tid for tid in expected if tid in oracle]
+            violators = [tid for tid in injected if key2 in oracle[tid][3]]
+            if not violators or any(oracle[tid][1] for tid in violators):
+                raise AssertionError("an injected table holding key 2 does not violate")
+            if rank0 in oracle and not (key2 not in oracle[rank0][3] and oracle[rank0][1]):
+                raise AssertionError("the rank-0 table (keys 0-1 only) does not hold")
+            verdicts = run_all(session.index, fq, det, dep, oracle, "smoke lake")
+            lake.append({"tables": len(verdicts), "violating": sum(not v[2] for v in verdicts),
+                         "injected_matched": len(injected), "rank0_holds": rank0 in oracle})
+        planted = []
+        for bits in (128, 256, 512):
+            for seed in FD_SEEDS:
+                corpus_p, query, det, dep = planted_fd_lake(seed)
+                index = MateSession.build(corpus_p, DiscoveryConfig(bits=bits)).index
+                for ms in (1, 2):
+                    oracle = fd_oracle(corpus_p, query, det, dep, ms)
+                    verdicts = run_all(index, query, det, dep, oracle, f"planted lake {seed} at {bits} bits", ms)
+                    planted.append(len(verdicts))
+    launches = check_counts(total, ("gather_filter_table_counts", "filter_table_counts", "xash_superkey"),
+                            "FD path")
+    emit({"phase": "fd", "smoke_lake": lake, "planted_lakes": {"bits": [128, 256, 512], "seeds": list(FD_SEEDS),
+          "min_support": [1, 2], "verdicts_per_run": planted}, "backends": list(FD_BACKENDS),
+          "identical_across_backends": True, "equal_to_oracle": True,
+          "wall_s_per_discover_fds": {k: sum(v) / len(v) for k, v in walls.items()},
+          "fd_candidates": sum(c for c, _ in fd_counts), "fd_validated": sum(v for _, v in fd_counts),
+          "b2_launch_shapes": shape_histogram(counted), "launches": launches,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The discovery serving tier
+# ---------------------------------------------------------------------------
+
+def serving_stream(seed, n_truth: int, n_queries: int) -> list[list[tuple[int, int | None]]]:
+    """Bursts of (query index, k) requests with a Zipf skew (weight 1 / (rank
+    + 1), the ground-truth queries the hottest).  The first burst is a spike
+    of the hot ground-truth queries alone at the default k, past twice
+    ``max_queue``: full and degraded groups, all on B.2 (a group with a
+    mixed query holds more candidate tables than one fused launch takes and
+    demotes to B.4), and sheds.  The rest draws from every query, every third
+    request at k = 5 (a bound-cache hit where only the bounds are cached)."""
+    rng = np.random.default_rng(seed + 7)
+
+    def draw(n, pool):
+        w = 1.0 / np.arange(1, pool + 1)
+        return [int(qi) for qi in rng.choice(pool, size=n, p=w / w.sum())]
+
+    out = [[(qi, None) for qi in draw(SERVING_BURSTS[0], n_truth)]]
+    rest = [(qi, 5 if i % 3 == 2 else None)
+            for i, qi in enumerate(draw(SERVING_REQUESTS - SERVING_BURSTS[0], n_queries))]
+    for size in SERVING_BURSTS[1:]:
+        out.append(rest[:size])
+        rest = rest[size:]
+    return out
+
+
+def mixed_spike(seed, n_truth: int, n_queries: int) -> list[tuple[int, None]]:
+    """``MIXED_SPIKE`` requests at the default k, drawn with the same Zipf
+    skew from the mixed queries alone (indices ``n_truth`` on)."""
+    rng = np.random.default_rng(seed + 11)
+    w = 1.0 / np.arange(1, n_queries - n_truth + 1)
+    return [(n_truth + int(j), None) for j in rng.choice(len(w), size=MIXED_SPIKE, p=w / w.sum())]
+
+
+def serving_phase(corpus, truth, mixed, seed) -> dict[str, int]:
+    """A ``DiscoveryEngine`` (then an ``AsyncDiscoveryEngine``) over a
+    512-bit session on the smoke lake, on a ManualClock: shed and degraded
+    admissions, result- and bound-cache hits, deadline flushes; every
+    answer equal to a cold ``discover`` of its query.  The stream's
+    numbers are those of its chosen spike (ground-truth queries, whose
+    degraded groups run B.2 at 4 of 16 lanes); a spike of mixed queries
+    alone follows on a fresh engine, timed per group, since a degraded
+    mixed group demotes to B.4 on rows read back to the host.  Launches are
+    counted around the engines' calls only."""
+    import asyncio
+
+    from repro_torch.core.session import DiscoveryConfig, MateSession
+    from repro_torch.kernels import filter_kernel as fk
+    from repro_torch.serve import cache as cache_lib
+    from repro_torch.serve.clock import ManualClock
+    from repro_torch.serve.engine import AdmissionError, AsyncDiscoveryEngine, DiscoveryEngine
+
+    queries = [(q, c) for q, c, _ in truth] + list(mixed)
+    bursts = serving_stream(seed, len(truth), len(queries))
+    cfg = DiscoveryConfig(bits=SERVING_BITS, window=SERVING_WINDOW, flush_after=SERVING_FLUSH_AFTER,
+                          max_queue=SERVING_MAX_QUEUE, pressure_policy="degrade",
+                          degrade_bits=SERVING_DEGRADE_BITS, result_cache=SERVING_CACHE,
+                          bound_cache=SERVING_CACHE)
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    t = time.perf_counter()
+    index = MateSession.build(corpus, cfg).index
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+
+    def log_groups(eng):
+        """Logs each group ``eng`` serves: its size, whether it ran
+        degraded, its host seconds (ending in a device sync) and its B.2
+        and B.4 launches."""
+        serve, log = eng._serve_group, []
+
+        def logged(group):
+            launched = lambda: (counters()["gather_filter_table_counts"].launches,
+                                counters()["filter_match"].launches)
+            before, t = launched(), time.perf_counter()
+            serve(group)
+            torch.cuda.synchronize()
+            after = launched()
+            log.append({"requests": len(group), "degraded": sum(r.degraded for r in group),
+                        "s": time.perf_counter() - t, "b2": after[0] - before[0], "b4": after[1] - before[1]})
+
+        eng._serve_group = logged
+        return log
+
+    def drive(eng, clk):
+        reqs, bound_ready, deadline_flushes = [], [], 0
+        for burst in bursts:
+            new = [eng.submit(*queries[qi], k=k) for qi, k in burst]
+            # queued (not answered, not shed) with cached bounds: a bound hit
+            bound_ready += [r for r in new if r.bounds is not None and not r.future.done()]
+            reqs += new
+            eng.pump()
+            if eng.queue:  # a partial group: served on its deadline
+                clk.advance(SERVING_FLUSH_AFTER)
+                deadline_flushes += bool(eng.pump())
+        eng.flush()
+        return reqs, len(bound_ready), deadline_flushes
+
+    async def drive_async(eng, clk):
+        reqs = []
+        async with eng:  # the pump task serves due groups whenever the loop yields
+            for burst in bursts:
+                reqs += [eng.submit(*queries[qi], k=k) for qi, k in burst]
+                for _ in range(8):
+                    await asyncio.sleep(0)
+                if eng.queue:
+                    clk.advance(SERVING_FLUSH_AFTER)
+                    for _ in range(8):
+                        await asyncio.sleep(0)
+        return reqs
+
+    clk = ManualClock()
+    session = MateSession(index, cfg)
+    eng = DiscoveryEngine(session=session, clock=clk.now)
+    groups = log_groups(eng)
+    with record_shapes(fk, "gather_filter_table_counts", b2_probe) as probes:
+        t = time.perf_counter()
+        with path_window(total):
+            reqs, bound_hits, deadline_flushes = drive(eng, clk)
+            torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t
+
+    # host-side bookkeeping against the session's counters
+    want = {"shed": sum(isinstance(r.future.exception(), AdmissionError) for r in reqs),
+            "degraded": sum(r.degraded for r in reqs), "cache_hits": sum(r.from_cache for r in reqs),
+            "bound_hits": bound_hits, "requests": sum(r.future.exception() is None for r in reqs)}
+    got = {name: getattr(session.stats, name) for name in want}
+    if got != want or not all(got[n] > 0 for n in ("shed", "degraded", "cache_hits", "bound_hits")):
+        raise AssertionError(f"serving counters {got}, bookkeeping expects {want} (each > 0)")
+    probed = collections.Counter((p[2], p[3]) for p in probes)
+    if not (probed[16, 16] and probed[4, 16]):
+        raise AssertionError(f"B.2 probes of the 16-lane store: {dict(probed)}, want 16 and 4 lanes")
+
+    # every answer against a cold discover at the session's flags: the same
+    # top-k set, and the same order unless the request was degraded or a
+    # cache hit (a degraded group's quality order may read its looser
+    # prefix counts, and a cache hit replays whatever filled it)
+    cold_session = MateSession(index, cfg)
+    cold: dict = {}
+
+    def check_cold(stream, served) -> int:
+        in_order = 0
+        for (qi, k), r in zip(stream, served):
+            if r.future.exception() is not None:
+                continue
+            if (qi, k) not in cold:
+                cold[qi, k] = key(cold_session.discover(*queries[qi], k=k)[0])
+            if sorted(key(r.results)) != sorted(cold[qi, k]):
+                raise AssertionError(f"served answer for query {qi} differs from a cold discover")
+            if not (r.degraded or r.from_cache) and key(r.results) != cold[qi, k]:
+                raise AssertionError(f"served answer for query {qi} is out of the cold order")
+            in_order += key(r.results) == cold[qi, k]
+        return in_order
+
+    in_order = check_cold([x for b in bursts for x in b], reqs)
+
+    # an FD-workload fingerprint of a served query never hits the join caches
+    served = next(r for r in reqs if r.fingerprint is not None and r.future.exception() is None)
+    epoch = index.mutation_epoch
+    fd_fp = cache_lib.query_fingerprint(served.query, served.q_cols, cfg.init_mode, rank=cfg.rank,
+                                        profile_gate=cfg.profile_gate, workload="fd:2:1")
+    if (eng.result_cache.get(served.fingerprint, served.k, epoch) is None
+            or eng.result_cache.get(fd_fp, served.k, epoch) is not None
+            or eng.bound_cache.get(fd_fp, epoch) is not None):
+        raise AssertionError("an FD-workload fingerprint hit the join caches (or the join entry is gone)")
+
+    # the same stream through the asyncio tier, on a fresh session
+    aclk = ManualClock()
+    asession = MateSession(index, cfg)
+    aeng = AsyncDiscoveryEngine(session=asession, clock=aclk)
+    agroups = log_groups(aeng)
+    t = time.perf_counter()
+    with path_window(total):
+        areqs = asyncio.run(drive_async(aeng, aclk))
+        torch.cuda.synchronize()
+    async_s = time.perf_counter() - t
+
+    def outcome(r):
+        e = r.future.exception()
+        return ("shed", str(e)) if isinstance(e, AdmissionError) else ("ok", key(r.results), r.degraded)
+
+    if [outcome(r) for r in areqs] != [outcome(r) for r in reqs] or len(agroups) != len(groups):
+        raise AssertionError("the asyncio tier served the stream differently")
+    if {name: getattr(asession.stats, name) for name in want} != got:
+        raise AssertionError("the asyncio tier's counters differ from the synchronous engine's")
+
+    # a spike of mixed queries alone on a fresh engine (empty caches):
+    # max_queue admitted at full width, the rest degraded
+    spike = mixed_spike(seed, len(truth), len(queries))
+    mclk = ManualClock()
+    msession = MateSession(index, cfg)
+    meng = DiscoveryEngine(session=msession, clock=mclk.now)
+    mgroups = log_groups(meng)
+    with record_shapes(fk, "gather_filter_table_counts", b2_probe) as mprobes:
+        t = time.perf_counter()
+        with path_window(total):
+            mreqs = [meng.submit(*queries[qi], k=k) for qi, k in spike]
+            meng.flush()
+            torch.cuda.synchronize()
+        spike_s = time.perf_counter() - t
+    mstats = {name: getattr(msession.stats, name) for name in ("shed", "degraded", "cache_hits", "requests")}
+    if mstats != {"shed": 0, "degraded": MIXED_SPIKE - SERVING_MAX_QUEUE, "cache_hits": 0,
+                  "requests": MIXED_SPIKE}:
+        raise AssertionError(f"mixed spike counters {mstats}")
+    spike_in_order = check_cold(spike, mreqs)
+    degraded_groups = [g for g in mgroups if g["degraded"]]
+    full_groups = [g for g in mgroups if not g["degraded"]]
+
+    launches = check_counts(total, ("gather_filter_table_counts", "xash_superkey"), "serving path")
+    emit({"phase": "serving_tier", "bits": SERVING_BITS, "degrade_bits": SERVING_DEGRADE_BITS,
+          "build_s": build_s, "requests": SERVING_REQUESTS, "bursts": list(SERVING_BURSTS),
+          "window": SERVING_WINDOW, "max_queue": SERVING_MAX_QUEUE, "counters": got,
+          "groups": len(groups), "deadline_flushes": deadline_flushes, "group_log": groups,
+          "b2_probes_by_lanes": {f"{a} of {b}": n for (a, b), n in sorted(probed.items())},
+          "answers_equal_cold_discover": True, "answers_in_cold_order": in_order,
+          "fd_fingerprint_misses_join_caches": True, "async_identical": True,
+          "stream_s": stream_s, "s_per_request": stream_s / SERVING_REQUESTS,
+          "async_stream_s": async_s,
+          "mixed_spike": {"requests": MIXED_SPIKE, "counters": mstats, "group_log": mgroups,
+                          "b2_probes_by_lanes": dict(collections.Counter(f"{p[2]} of {p[3]}" for p in mprobes)),
+                          "answers_equal_cold_discover": True, "answers_in_cold_order": spike_in_order,
+                          "spike_s": spike_s, "s_per_request": spike_s / MIXED_SPIKE,
+                          "full_group_s": [g["s"] for g in full_groups],
+                          "degraded_group_s": [g["s"] for g in degraded_groups]},
+          "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: LM serving at full width
 # ---------------------------------------------------------------------------
 
@@ -836,7 +1459,7 @@ def serve_phase(seed) -> dict[str, int]:
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(2, cfg.vocab_size, size=int(rng.integers(PROMPT_MIN, PROMPT_MAX + 1))).tolist()
                for _ in range(SERVE_REQUESTS)]
-    zero_counts()
+    total = collections.Counter()  # launches of the two generate runs and serve.main
     torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
     model = TransformerLM.init(cfg, seed=seed, device=dev)
@@ -848,8 +1471,9 @@ def serve_phase(seed) -> dict[str, int]:
     runs, wall = [], []
     for _ in range(2):
         t = time.perf_counter()
-        done = engine.generate([Request(prompt=p, max_new=SERVE_NEW) for p in prompts])
-        torch.cuda.synchronize()
+        with path_window(total):
+            done = engine.generate([Request(prompt=p, max_new=SERVE_NEW) for p in prompts])
+            torch.cuda.synchronize()
         wall.append(time.perf_counter() - t)
         runs.append([r.out for r in done])
         timings = dict(engine.timings)
@@ -858,7 +1482,7 @@ def serve_phase(seed) -> dict[str, int]:
     if any(len(out) != SERVE_NEW for out in runs[0]):
         raise AssertionError("a request did not get all its tokens")
     groups = -(-SERVE_REQUESTS // SERVE_BATCH)
-    flash_serving = counters()["flash_attention"].launches
+    flash_serving = total["flash_attention"]
 
     # decode consistency (tests/test_models.py on the card): prefill at S and
     # decode of token S against the full forward of S + 1 tokens, on the
@@ -901,15 +1525,15 @@ def serve_phase(seed) -> dict[str, int]:
     del model, engine
 
     t = time.perf_counter()
-    served = serve_launch.main([])
-    torch.cuda.synchronize()
+    with path_window(total):
+        served = serve_launch.main([])
+        torch.cuda.synchronize()
     main_s = time.perf_counter() - t
-    launches = read_counts(("flash_attention",), "serve path")
-    # one flash launch per layer per prefill or forward: the two generate
-    # runs, the consistency check's forward, prefill and nudged forward at
-    # every depth, serve.main's groups (its default batch is 4)
-    want = (cfg.n_layers * (2 * groups + -(-len(served) // 4))
-            + 3 * sum(c["layers"] for c in consistency))
+    launches = check_counts(total, ("flash_attention",), "serve path")
+    # one flash launch per layer per prefill: the two generate runs and
+    # serve.main's groups (its default batch is 4); the consistency check
+    # runs outside the counted windows
+    want = cfg.n_layers * (2 * groups + -(-len(served) // 4))
     if launches["flash_attention"] != want:
         raise AssertionError(f"flash_attention launched {launches['flash_attention']} times, expected {want}")
 
@@ -968,19 +1592,32 @@ def main() -> int:
           "unique_values": len(corpus.unique_values),
           "cells": int((corpus.cell_value_ids >= 0).sum()), "wall_s": time.perf_counter() - t0})
 
-    rows = kernel_phase(args.seed, corpus)
+    rows, lane_prefixes = kernel_phase(args.seed, corpus)
+    from repro_torch.core.session import DiscoveryConfig, MateSession
     from repro_torch.kernels import filter_kernel as fk
     from repro_torch.kernels import xash_kernel as xk
 
+    # each path's own launches, counted from 0 around its calls
+    by_path = {}
     with record_shapes(fk, "gather_filter_table_counts", b2_shape) as b2_shapes, \
             record_shapes(xk, "xash_superkey", b3_shape) as b3_shapes, \
             record_shapes(fk, "filter_match", b4_shape) as b4_shapes:
-        launches, session = main_path_phase(corpus, truth, mixed, b2_shapes, b3_shapes, b4_shapes)
-    launches.update(ops_phase(session, truth))
+        by_path["main_path"], session = main_path_phase(corpus, truth, mixed, b2_shapes, b3_shapes,
+                                                        b4_shapes)
+    by_path["ops_path"] = ops_phase(session, truth)
+    session256 = MateSession.build(corpus, DiscoveryConfig(bits=256))
+    by_path["lanes"] = lanes_phase({128: session, 256: session256}, truth, mixed, lane_prefixes)
+    del session256
+    by_path["fd"] = fd_phase(session, truth)
     del session
-    launches.update(serve_phase(args.seed))
-    for name, n in launches.items():
-        rows[name]["launches"] = n
+    by_path["serving_tier"] = serving_phase(corpus, truth, mixed, args.seed)
+    by_path["serve"] = serve_phase(args.seed)
+    # ``launches``: the count on the kernel's own path (HOME_PATH); every
+    # path that launched it, with its own count, beside it
+    for name, row in rows.items():
+        row["launches"] = by_path[HOME_PATH[name]][name]
+        row["launches_path"] = HOME_PATH[name]
+        row["launches_by_path"] = {path: c[name] for path, c in by_path.items() if c[name]}
     emit({"kernels": list(rows.values())})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """MATE online discovery (paper §6, Algorithm 1) — faithful implementation.
 
 Port of ``repro.core.discovery``: host-side numpy, as in the reference.
-``DiscoveryStats`` keeps every counter of the reference (the routed-lake and
-FD counters stay 0 until those paths are ported: ROADMAP A.6, A.7) so that
-stats compare field by field across the two packages.
+``DiscoveryStats`` keeps every counter of the reference (the routed-lake
+counters stay 0 until that path is ported: ROADMAP A.7; the FD counters are
+filled by ``core.fd``) so that stats compare field by field across the two
+packages.
 
 Four phases: initialization (§6.1), table filtering (§6.2), row filtering
 (§6.3), exact joinability calculation (calculateJ).  ``row_filter=False``

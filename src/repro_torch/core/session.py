@@ -5,7 +5,7 @@ reference's fields and validation messages; the device is a keyword of
 ``MateSession.build`` (``None`` means CUDA, and raises without it), not a
 config field.  Not ported yet, and raising ``NotImplementedError``: the
 sharded / routed build (``mesh=``, ``n_shards>1``, ``distributed=True``:
-ROADMAP A.7) and ``discover_fds`` (ROADMAP A.6).
+ROADMAP A.7).
 
 MATE's pipeline (paper §4–6: super-key index → XASH filter → verification)
 is one system, but three PRs of growth left four entry points
@@ -36,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core import batched as batched_lib
+from repro_torch.core import fd as fd_lib
 from repro_torch.core import index as index_lib
 from repro_torch.core import xash
 from repro_torch.core.corpus import Corpus, Table
@@ -46,11 +47,6 @@ from repro_torch.kernels.registry import Backend
 
 # super-key widths the kernels are exercised at (4/8/16 uint32 lanes)
 VALID_BITS = (128, 256, 512)
-
-# the FD workload's signal names (``repro.core.fd.SIGNAL_NAMES``), kept here
-# so that ``signals`` validates exactly as in the reference until the FD
-# workload is ported (ROADMAP A.6)
-SIGNAL_NAMES = ("joinability", "uniqueness", "sketch", "name")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,9 +174,9 @@ class DiscoveryConfig:
                         f"each signal must be a (name, weight) pair, got {pair!r}"
                     )
                 name, weight = pair
-                if name not in SIGNAL_NAMES:
+                if name not in fd_lib.SIGNAL_NAMES:
                     raise ValueError(
-                        f"unknown signal {name!r}; valid: {SIGNAL_NAMES}"
+                        f"unknown signal {name!r}; valid: {fd_lib.SIGNAL_NAMES}"
                     )
                 if not weight > 0:
                     raise ValueError(
@@ -439,9 +435,33 @@ class MateSession:
         self.stats.absorb(stats)
         return entries, stats
 
-    def discover_fds(self, *args, **kwargs):
-        """The FD workload (``repro.core.fd``) is ROADMAP A.6."""
-        raise NotImplementedError("discover_fds is not ported yet: ROADMAP A.6")
+    def discover_fds(
+        self,
+        query: Table,
+        determinant_cols: list[int],
+        dependent_col: int,
+        *,
+        min_support: int = 1,
+    ) -> tuple[list[fd_lib.FDCandidate], DiscoveryStats]:
+        """FD workload (``core.fd``): which lake tables preserve the candidate
+        FD ``determinant_cols → dependent_col`` on the (never materialized)
+        join with ``query``?  The session's backend/gate/init knobs apply
+        unchanged; ``config.signals`` switches on the multi-signal ensemble
+        ordering.  Stats are absorbed like any other request."""
+        fds, stats = fd_lib.discover_fds(
+            self.index,
+            query,
+            determinant_cols,
+            dependent_col,
+            min_support=min_support,
+            backend=self.backend,
+            init_mode=self.config.init_mode,
+            profile_gate=self.config.profile_gate,
+            signals=self.config.signals,
+            fused_block_n=self.config.fused_block_n,
+        )
+        self.stats.absorb(stats)
+        return fds, stats
 
     # index mutation passes through (§5.4): the session stays valid because
     # MateIndex updates are in-place and the backend/config hold no arrays.

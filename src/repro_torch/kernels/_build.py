@@ -66,10 +66,10 @@ LIBRARIES = {
     "flash_attention": (
         "flash_attention.cu",
         {
-            # q, k, v, out, B, H, S, T, d, dv, q strides (b, s, h),
+            # q, k, v, out, B, H, S, T, d, dv, scale_d, q strides (b, s, h),
             # k strides, v strides, causal, window, is_bf16, stream
             "flash_attention_launch": [
-                _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                 _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _P,
             ],
         },

@@ -50,8 +50,9 @@
 //     memory took the slow path for most rows.
 //   * Rows in flight.  A block takes chunks of 256 candidate rows: each
 //     thread copies one row's lanes into shared memory with 16-byte
-//     cp.async (4-byte copies for rows whose width is not a multiple of 4
-//     words) and its table id with a 4-byte one, double-buffered, so the
+//     cp.async (4-byte copies when the probed lanes or the row width are not
+//     a multiple of 4 words: B.2 over a 1-, 2-, 3-, 5-... lane prefix) and
+//     its table id with a 4-byte one, double-buffered, so the
 //     next chunk's copies are in flight while this chunk is tested.  Host
 //     rows are contiguous, so a warp's copies are coalesced; B.2 gathers, and
 //     loads its row offsets one chunk further ahead.  (TMA cannot gather
@@ -274,7 +275,7 @@ __global__ void __launch_bounds__(kThreads, LANES == 4 && OP < kMatch ? 4 : 2) c
     if (c < n_chunks && i < a.n) {
       const uint32_t* src = a.rows_sk + (size_t)(GATHER ? (long long)r : i) * a.row_stride;
       uint32_t* dst = s_rows + (buf * kChunk + tid) * kPitch;
-      if (GATHER || a.vec16) {
+      if (a.vec16) {
 #pragma unroll
         for (int c4 = 0; c4 < LANES / 4; ++c4)
           if (c4 * 4 < lanes) cp_async16(dst + c4 * 4, src + c4 * 4);
@@ -584,19 +585,18 @@ REPRO_API int filter_counts_launch(const void* rows_sk, int row_stride, int lane
   return (int)(any_mode ? dispatch<kAny>(a, s) : dispatch<kSum>(a, s));
 }
 
-// B.2. store: int32[N, row_stride] (16-byte aligned, row_stride a multiple
-// of 4); rows: int32[n] offsets into it; query: int32[>= n_queries, lanes]
-// with lanes in {4, 8, 12, 16}, lanes <= row_stride; elig: int8[n,
-// elig_stride] or NULL; seg: int32[n]; counts: int32[n_tables], zeroed by
-// the caller — the kernel adds into it.
+// B.2. store: int32[N, row_stride]; rows: int32[n] offsets into it; query:
+// int32[>= n_queries, lanes] with 1 <= lanes <= row_stride (a lane prefix
+// of the store); elig: int8[n, elig_stride] or NULL; seg: int32[n];
+// counts: int32[n_tables], zeroed by the caller — the kernel adds into it.
+// Rows are copied in 16-byte groups when lanes and row_stride are
+// multiples of 4 and the store is 16-byte aligned, else word by word.
 REPRO_API int gather_counts_launch(const void* store, int row_stride, int lanes, const void* rows,
                                    const void* query, int n_queries, const void* elig,
                                    long long elig_stride, const void* seg, long long n,
                                    int n_tables, void* counts, void* stream) {
   if (n <= 0 || n_queries <= 0 || n_tables <= 0) return 0;
-  if (lanes < 4 || lanes > repro::kMaxLanes || lanes % 4 || row_stride % 4 || lanes > row_stride ||
-      (reinterpret_cast<uintptr_t>(store) & 15))
-    return (int)cudaErrorInvalidValue;
+  if (lanes < 1 || lanes > repro::kMaxLanes || lanes > row_stride) return (int)cudaErrorInvalidValue;
   Args a = rows_args(store, row_stride, lanes, query, n_queries, n);
   a.rows = static_cast<const int32_t*>(rows);
   a.elig = static_cast<const int8_t*>(elig);

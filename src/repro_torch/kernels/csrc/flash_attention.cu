@@ -17,8 +17,8 @@
 // bfloat16 (the serving path) — tensor cores with asynchronous staging.
 //   * One block per (128-row query tile, b·h): two warpgroups of 64 query
 //     rows each; the grid walks the heaviest query tiles (last, under a
-//     causal mask) of every b·h first.  At dv <= 64 a block fits in 128
-//     registers a thread, and two blocks share an SM.
+//     causal mask) of every b·h first.  At d <= 128 and dv <= 64 a block
+//     fits in 128 registers a thread, and two blocks share an SM.
 //   * Q, K and V tiles (64 keys) are copied by TMA through 4-D tensor maps
 //     over the strided [B, T, H, d] views, in 64-element boxes with the 128B
 //     swizzle that wgmma reads; ragged S and T ends are zero-filled by the
@@ -26,7 +26,9 @@
 //     that the copy completes, and tile j + 1 is in flight while tile j is
 //     computed.
 //   * S = Q·Kᵀ: wgmma m64n64k16 with Q and K read from shared memory (both
-//     K-major), float32 accumulators in registers.
+//     K-major), float32 accumulators in registers; d/16 k-steps (12 at
+//     d = 192, where Q takes 48 KB and each K stage 24 KB: 132 KB a block
+//     at dv = 128, one block per SM).
 //   * Online softmax on the accumulator fragment (exp2 with a log2(e)-scaled
 //     score): each thread holds 2 rows x 16 keys; row max by quad shuffles,
 //     the row sum kept per thread and summed over the quad once at the end.
@@ -47,16 +49,22 @@
 //     the other.
 //   * Epilogue: bf16 rows staged in shared memory, stored as 16-byte
 //     vectors, one contiguous row of out per 8 or 16 threads.
-//   d and dv: multiples of 16 up to 128 (dv != d allowed); base pointers and
-//   the strides of dims of extent > 1 multiples of 16 bytes (the tensor
-//   map's rule).  The wrapper raises on anything else.
+//   d: a multiple of 8 up to 192; dv: a multiple of 8 up to 128 (dv != d
+//   allowed).  The tensor maps read the columns past d and dv as zeros up
+//   to the tile widths (64, 128, 192), which leaves Q·Kᵀ unchanged and
+//   zeroes the output columns that are never stored; the wrapper zero-pads
+//   other head dims to the next multiple of 8 and passes the unpadded d for
+//   the 1/sqrt(d) scale.  Base pointers and the strides of dims of extent
+//   > 1 multiples of 16 bytes (the tensor map's rule).  The wrapper raises
+//   on anything else.
 //
 // float32 — plain fp32 FMAs from shared memory:
 //   its 1e-5 tolerance rules out bf16 and TF32 tensor cores, and float32
 //   never reaches it on the serving path.  One block per (64-row query tile,
 //   b·h), 256 threads, each owning a 4 x 4 patch of the 64 x 64 score tile
-//   and 4 x (dv/16) outputs; Q and K are staged transposed, P is written back
-//   transposed; the same skipping, masking and flag rules as above.
+//   and 4 x (dv/16) outputs; Q and K are staged transposed (d <= 192: 104 KB
+//   at d = 192), P is written back transposed; the same skipping, masking
+//   and flag rules as above.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -85,7 +93,7 @@ struct TcParams {
   __nv_bfloat16* o;
   int H, S, T, dv;
   int causal, window;
-  float scale_log2;  // log2(e) / sqrt(d)
+  float scale_log2;  // log2(e) / sqrt(d), d unpadded
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -228,11 +236,12 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// DP, DVP: d and dv rounded up to 64 or 128 (the shared-memory tile widths).
-// With dv <= 64 the kernel fits 128 registers, so two blocks (four
-// warpgroups) share an SM and hide each other's softmax latency.
+// DP: d rounded up to 64, 128 or 192; DVP: dv rounded up to 64 or 128 (the
+// shared-memory tile widths).  With d <= 128 and dv <= 64 the kernel fits
+// 128 registers and 80 KB, so two blocks (four warpgroups) share an SM and
+// hide each other's softmax latency.
 template <int DP, int DVP>
-__global__ void __launch_bounds__(kTcThreads, DVP == 64 ? 2 : 1)
+__global__ void __launch_bounds__(kTcThreads, DVP == 64 && DP <= 128 ? 2 : 1)
     flash_tc_kernel(const __grid_constant__ TcParams p) {
   constexpr int kQBytes = kTQ * DP * 2, kKBytes = kTK * DP * 2, kVBytes = kTK * DVP * 2;
   constexpr int kNo = DVP / 2;  // output accumulators per thread
@@ -635,20 +644,24 @@ cudaError_t launch(const Params& p, cudaStream_t s) {
 
 // q: [B, S, H, d], k: [B, T, H, d], v: [B, T, H, dv] with the given strides
 // (in elements; the last dim contiguous); out: contiguous [B, S, H, dv].
-// is_bf16 selects the tensor-core kernel (__nv_bfloat16) over the float32
-// one.
+// Scores are scaled by 1/sqrt(scale_d): scale_d is d before the wrapper's
+// zero padding (padding leaves q·k unchanged).  is_bf16 selects the
+// tensor-core kernel (__nv_bfloat16) over the float32 one.
 REPRO_API int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                     int B, int H, int S, int T, int d, int dv,
+                                     int B, int H, int S, int T, int d, int dv, int scale_d,
                                      long long sqb, long long sqs, long long sqh,
                                      long long skb, long long sks, long long skh,
                                      long long svb, long long svs, long long svh,
                                      int causal, int window, int is_bf16, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || T <= 0) return 0;
-  if (d < 1 || d > 128 || dv < 1 || dv > 128 || window < 0 || (long long)B * H > 65535)
+  if (d < 1 || d > 192 || dv < 1 || dv > 128 || scale_d < 1 || scale_d > d || window < 0 ||
+      (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (d % 16 || dv % 16) return (int)cudaErrorInvalidValue;
+    // the tensor maps read past d (dv) as zeros up to the tile widths; the
+    // epilogue stores 16-byte chunks of dv
+    if (d % 8 || dv % 8) return (int)cudaErrorInvalidValue;
     TcParams p;
     if (!make_map(&p.tq, q, d, H, S, B, sqb, sqs, sqh) ||
         !make_map(&p.tk, k, d, H, T, B, skb, sks, skh) ||
@@ -656,12 +669,13 @@ REPRO_API int flash_attention_launch(const void* q, const void* k, const void* v
       return (int)cudaErrorInvalidValue;
     p.o = static_cast<__nv_bfloat16*>(out);
     p.H = H, p.S = S, p.T = T, p.dv = dv, p.causal = causal, p.window = window;
-    p.scale_log2 = kLog2e / sqrtf((float)d);
+    p.scale_log2 = kLog2e / sqrtf((float)scale_d);
     if (d <= 64) return (int)(dv <= 64 ? launch_tc<64, 64>(p, B, s) : launch_tc<64, 128>(p, B, s));
-    return (int)(dv <= 64 ? launch_tc<128, 64>(p, B, s) : launch_tc<128, 128>(p, B, s));
+    if (d <= 128) return (int)(dv <= 64 ? launch_tc<128, 64>(p, B, s) : launch_tc<128, 128>(p, B, s));
+    return (int)(dv <= 64 ? launch_tc<192, 64>(p, B, s) : launch_tc<192, 128>(p, B, s));
   }
   Params p{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
            static_cast<float*>(out), B, H, S, T, d, dv, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh,
-           causal, window, 1.0f / sqrtf((float)d)};
+           causal, window, 1.0f / sqrtf((float)scale_d)};
   return (int)(dv <= 64 ? launch<64>(p, s) : launch<128>(p, s));
 }

@@ -317,10 +317,10 @@ def gather_filter_table_counts(
     Returns:
       counts int32[n_tables] — the only output ('sum' semantics).
 
-    On CUDA the kernel copies each row's lanes in 16-byte groups: the probed
-    lanes and the store's width must be multiples of 4 (128, 256 or 512
-    bits, every width a session takes) and the store 16-byte aligned; it
-    raises ``ValueError`` on anything else.
+    On CUDA the kernel copies each row's probed lanes in 16-byte groups
+    when the lane count and the store's width are multiples of 4 and the
+    store is 16-byte aligned (every full-width and 4-lane degrade probe),
+    and word by word otherwise (any other lane prefix).
     """
     n, q = rows.shape[0], query_sk.shape[0]
     n_queries = q if n_queries is None else n_queries
@@ -338,19 +338,12 @@ def gather_filter_table_counts(
     _check_cuda("gather_filter_table_counts", dev, rows=(rows, (torch.int32,)),
                 store=(store, (torch.int32,)), query_sk=(query_sk, (torch.int32,)),
                 elig=(elig, (torch.int8,)), seg_ids=(seg_ids, (torch.int32,)))
-    lanes = query_sk.shape[1]
-    if lanes % 4 or store.shape[1] % 4 or store.data_ptr() % 16:
-        raise ValueError(
-            "gather_filter_table_counts: the kernel copies 16-byte lane groups; probed lanes"
-            f" ({lanes}) and store width ({store.shape[1]}) must be multiples of 4 and the"
-            " store 16-byte aligned"
-        )
     counts = torch.zeros(n_tables, dtype=torch.int32, device=dev)
     if n == 0 or n_queries == 0 or n_tables == 0:
         return counts
     lib = _build.load("filter_counts")
     err = lib.gather_counts_launch(
-        store.data_ptr(), store.shape[1], lanes, rows.data_ptr(), query_sk.data_ptr(),
+        store.data_ptr(), store.shape[1], query_sk.shape[1], rows.data_ptr(), query_sk.data_ptr(),
         n_queries, _build.ptr(elig), q, seg_ids.data_ptr(), n, n_tables,
         counts.data_ptr(), _stream(store),
     )

@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 192  # d: MLA's qk_nope + qk_rope at full width
+MAX_VALUE_DIM = 128  # dv
 # score elements (B·H·rows·T) per plain-version step
 _PLAIN_ELEMS = 1 << 26
 
@@ -64,15 +65,23 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0) -> t
     return out
 
 
+def _pad8(x: torch.Tensor) -> torch.Tensor:
+    """``x`` zero-padded along its last dim to a multiple of 8 elements, so
+    that a contiguous ``x``'s strides are multiples of 16 bytes (the tensor
+    maps' rule); ``x`` itself when it is one.  The bf16 kernel pads the
+    rest of the way to its tile widths itself: its tensor maps read the
+    elements past d (dv) as zeros."""
+    pad = -x.shape[3] % 8
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
 def _strides(x: torch.Tensor, bf16: bool) -> tuple[int, int, int]:
     """Element strides of dims 0-2 of ``x`` for the kernel.  The bf16
     kernel reads through a tensor map: its base and every stride in bytes
-    must be a multiple of 16, and ``d`` (``x.shape[3]``) a multiple of 16.
-    A dim of extent 1 is never stepped, so its stride is set to 8 elements."""
+    must be a multiple of 16.  A dim of extent 1 is never stepped, so its
+    stride is set to 8 elements."""
     if not bf16:
         return x.stride(0), x.stride(1), x.stride(2)
-    if x.shape[3] % 16:
-        raise ValueError(f"bf16 flash_attention takes head dims that are multiples of 16, got {x.shape[3]}")
     strides = tuple(x.stride(i) if x.shape[i] > 1 else 8 for i in range(3))
     if x.data_ptr() % 16 or any(st % 8 for st in strides):
         raise ValueError(
@@ -88,12 +97,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.T
     Args:
       q: [B, S, H, d]; k: [B, T, H, d]; v: [B, T, H, dv] — float32 or
          bfloat16, one dtype, heads already repeated to full count; the last
-         dim must be contiguous (other strides are free), d, dv <= 128.
-         On CUDA in bfloat16 (the tensor-core kernel, whose tiles are
-         copied through tensor maps) d and dv must be multiples of 16, and
-         the base pointers and the strides of dims longer than 1 multiples
-         of 16 bytes: q, k and v may be strided views of one fused
-         projection.
+         dim must be contiguous (other strides are free), d <= 192, dv <=
+         128.  On CUDA in bfloat16 (the tensor-core kernel, whose tiles are
+         copied through tensor maps) a d or dv that is not a multiple of 8
+         is zero-padded to one (q·k is unchanged, the scale stays
+         1/sqrt(d) of the unpadded d, and the output is sliced back), and
+         the base pointers and the strides of dims longer than 1 must be
+         multiples of 16 bytes: q, k and v may be strided views of one
+         fused projection.
     Returns:
       [B, S, H, dv] in the inputs' dtype, contiguous.
     """
@@ -114,27 +125,29 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.T
             raise ValueError(f"{name} is {x.dtype} on {x.device}, q is {q.dtype} on {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention takes float32 or bfloat16, got {q.dtype}")
-    if not (1 <= d <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
-        raise ValueError(f"head dims d={d}, dv={dv} outside [1, {MAX_HEAD_DIM}]")
+    if not (1 <= d <= MAX_HEAD_DIM and 1 <= dv <= MAX_VALUE_DIM):
+        raise ValueError(
+            f"head dims d={d}, dv={dv} outside [1, {MAX_HEAD_DIM}] x [1, {MAX_VALUE_DIM}]"
+        )
     if any(x.stride(3) != 1 for x in (q, k, v)):
         raise ValueError("the last dim of q, k and v must be contiguous")
+    if b * s * h == 0 or t == 0:
+        return torch.zeros(b, s, h, dv, dtype=q.dtype, device=q.device)
     bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        q, k, v = _pad8(q), _pad8(k), _pad8(v)
     strides = [_strides(x, bf16) for x in (q, k, v)]
-    out = torch.empty(b, s, h, dv, dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    if t == 0:
-        return out.zero_()
+    out = torch.empty(b, s, h, v.shape[3], dtype=q.dtype, device=q.device)
     lib = _build.load("flash_attention")
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, s, t, d, dv, *strides[0], *strides[1], *strides[2],
+        b, h, s, t, q.shape[3], v.shape[3], d, *strides[0], *strides[1], *strides[2],
         int(causal), window, int(bf16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return out if out.shape[3] == dv else out[..., :dv].contiguous()
 
 
 flash_attention.launches = 0

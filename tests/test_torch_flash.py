@@ -8,12 +8,15 @@ tolerances are ``tests/test_kernels.py::test_flash_attention_kernel``'s:
 P·V, the plain version keeps it in float32).
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as ref_ops
+from repro.models import layers as ref_layers
 from repro_torch.kernels import flash_kernel, ops
 
 SHAPES = [
@@ -93,3 +96,45 @@ def test_rejects_bad_shapes():
         flash_kernel.flash_attention(q, k[:, :, :1], v)
     with pytest.raises(ValueError, match="window"):
         flash_kernel.flash_attention(q, k, v, window=-1)
+
+
+def _tile(n: int, widths) -> int:
+    return next(w for w in widths if w >= n)
+
+
+@pytest.mark.parametrize("d,dv", [(24, 16), (192, 128), (20, 12)])  # MLA's reduced and full head dims; dims off the 16-byte rule
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_padding_is_exact(d, dv, window, dtype):
+    """The bf16 kernel on CUDA sees q, k and v zero-padded along d and dv:
+    by the wrapper to a multiple of 8 where the byte width breaks the
+    tensor maps' 16-byte rule, then by the tensor maps' zero fill to its
+    tile widths (64, 128, 192), with the scale of the unpadded d.  Attention
+    on the padded inputs, with q scaled by sqrt(d_pad / d) to keep
+    1/sqrt(d), sliced back to dv, equals attention on the unpadded inputs
+    (float32, within rounding); the plain version agrees with the
+    reference's chunked attention (``layers._sdpa_flash``, MLA's prefill
+    path) within the B.6 tolerances."""
+    s = 200
+    q, k, v = _inputs(s, s, d, dv, seed=d)
+    qt, kt, vt = (_torch(x, dtype) for x in (q, k, v))
+    want = flash_kernel.flash_attention_plain(qt, kt, vt, causal=True, window=window)
+    wrapped = [flash_kernel._pad8(x) for x in (qt, kt, vt)]
+    assert [x.shape[3] for x in wrapped] == [-(-d // 8) * 8] * 2 + [-(-dv // 8) * 8]
+    assert all(torch.equal(x[..., :n], y) for x, y, n in zip(wrapped, (qt, kt, vt), (d, d, dv)))
+    dp, dvp = _tile(d, (64, 128, 192)), _tile(dv, (64, 128))
+    pad = torch.nn.functional.pad
+    q32, k32, v32 = (x.float() for x in wrapped)
+    qp = pad(q32, (0, dp - q32.shape[3])) * math.sqrt(dp / d)
+    kp, vp = pad(k32, (0, dp - k32.shape[3])), pad(v32, (0, dvp - v32.shape[3]))
+    got = flash_kernel.flash_attention_plain(qp, kp, vp, causal=True, window=window)
+    ref32 = flash_kernel.flash_attention_plain(qt.float(), kt.float(), vt.float(), causal=True,
+                                               window=window)
+    assert not got[..., dv:].any()
+    assert float((got[..., :dv] - ref32).abs().max()) < 1e-6
+    pos = jnp.arange(s, dtype=jnp.int32)
+    jdt = getattr(jnp, dtype)
+    ref = ref_layers._sdpa_flash(jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+                                 pos, pos, True, window)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    assert float(np.max(np.abs(want.float().numpy() - np.asarray(ref, np.float32)))) < tol

@@ -18,9 +18,10 @@ import torch
 from conftest import ALL_BITS, ground_truth_lake
 from repro.core import batched as ref_batched
 from repro.core import discovery as ref_discovery
+from repro.core import fd as ref_fd
 from repro.core import session as ref_session
 from repro.data import synthetic as ref_synthetic
-from repro_torch.core import batched, corpus as port_corpus, discovery, ranking, session
+from repro_torch.core import batched, corpus as port_corpus, discovery, fd, ranking, session
 from repro_torch.data import synthetic
 
 PORT_BACKENDS = ("fused-gather", "fused", "pallas", "xla", "numpy", "auto")
@@ -205,7 +206,8 @@ def test_config_errors_match_reference(kwargs):
 def test_config_fields_match_reference():
     ref_fields = [(f.name, f.default) for f in dataclasses.fields(ref_session.DiscoveryConfig)]
     assert [(f.name, f.default) for f in dataclasses.fields(session.DiscoveryConfig)] == ref_fields
-    assert session.SIGNAL_NAMES == __import__("repro.core.fd", fromlist=["x"]).SIGNAL_NAMES
+    assert fd.SIGNAL_NAMES == ref_fd.SIGNAL_NAMES
+    assert fd.DEFAULT_SIGNALS == ref_fd.DEFAULT_SIGNALS
 
 
 def test_build_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -223,9 +225,6 @@ def test_unported_parts_raise():
         session.MateSession.build(corpus, distributed=True, device="cpu")
     with pytest.raises(NotImplementedError, match="A.7"):
         session.MateSession.build(corpus, n_shards=2, device="cpu")
-    s = session.MateSession.build(corpus, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        s.discover_fds(None, [0], 1)
 
 
 @pytest.mark.parametrize("seed,n_tables", [(0, 30), (7, 60)])

@@ -171,3 +171,128 @@ def test_edge_rows_and_queries_hold_their_edges(n, lanes, q):
     others = [j for j in range(q) if q < 3 or j not in (q // 2, q - 1)]
     sub = ((qs[others, None] & ~rows[None]) == 0).all(dim=-1).any(dim=1)
     assert bool(sub.all())
+
+
+# ---------------------------------------------------------------------------
+# The FD and serving-tier phases' yardsticks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 7])
+def test_planted_fd_lake_is_test_fds_construction(seed):
+    """The smoke carries its own copy of ``tests/test_fd.py``'s planted lake
+    (the smoke may not import the tests): cell for cell the same."""
+    from test_fd import planted_fd_lake
+
+    ref_corpus, ref_query, ref_det, ref_dep = planted_fd_lake(seed)
+    corpus, query, det, dep = chip_smoke.planted_fd_lake(seed)
+    assert (query.cells, query.name, det, dep) == (ref_query.cells, ref_query.name, ref_det, ref_dep)
+    assert [(t.table_id, t.cells, t.name) for t in corpus.tables] == [
+        (t.table_id, t.cells, t.name) for t in ref_corpus.tables
+    ]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("min_support", [1, 2])
+def test_fd_oracle_matches_the_tests_oracle(seed, min_support):
+    """The smoke's oracle scans only the rows holding a determinant value;
+    its facts equal ``tests/test_fd.py``'s full scan."""
+    from test_fd import fd_oracle_python, planted_fd_lake
+
+    corpus, query, det, dep = planted_fd_lake(seed)
+    got = chip_smoke.fd_oracle(corpus, query, det, dep, min_support)
+    assert {t: v[:3] for t, v in got.items()} == fd_oracle_python(corpus, query, det, dep, min_support)
+
+
+@pytest.mark.parametrize("key,row,want", [
+    (("a", "b"), ["b", "a"], True),
+    (("a", "a"), ["a", "x"], False),  # distinct columns
+    (("a", "a"), ["a", "a"], True),
+    (("a",), [], False),
+    (("a", "b", "c"), ["c", "a", "b", "a"], True),
+    (("", "x"), ["x", ""], True),
+])
+def test_row_matches_is_an_injective_mapping(key, row, want):
+    assert chip_smoke._row_matches(key, row) is want
+
+
+@pytest.mark.parametrize("seed", [0, 1, 5])
+def test_serving_stream_shape(seed):
+    """A spike of ground-truth queries alone at the default k, past twice
+    max_queue; then every query, every third request at k = 5."""
+    bursts = chip_smoke.serving_stream(seed, 4, 12)
+    assert [len(b) for b in bursts] == list(chip_smoke.SERVING_BURSTS)
+    assert sum(map(len, bursts)) == chip_smoke.SERVING_REQUESTS == 64
+    spike = bursts[0]
+    assert len(spike) > 2 * chip_smoke.SERVING_MAX_QUEUE
+    assert all(qi < 4 and k is None for qi, k in spike)
+    rest = [r for b in bursts[1:] for r in b]
+    assert [k for _, k in rest] == [5 if i % 3 == 2 else None for i in range(len(rest))]
+    assert all(0 <= qi < 12 for qi, _ in rest)
+    assert any(b and len(b) % chip_smoke.SERVING_WINDOW for b in bursts[1:])  # partial groups
+    assert chip_smoke.serving_stream(seed, 4, 12) == bursts  # seeded
+
+
+def test_flash_tc_smem_fits_a_block():
+    """B.6's bf16 block at d 192: Q 48 KB, two K stages of 24 KB, two V
+    stages; under the 227 KB a block may use."""
+    assert chip_smoke.flash_tc_smem(192, 128) == 1024 + 48 * 1024 + 2 * (24 + 16) * 1024 + 32
+    assert chip_smoke.flash_tc_smem(192, 64) == 1024 + 48 * 1024 + 2 * (24 + 8) * 1024 + 32
+    assert chip_smoke.flash_tc_smem(64, 64) == 1024 + 16 * 1024 + 2 * (8 + 8) * 1024 + 32
+    assert max(chip_smoke.flash_tc_smem(dp, dvp) for dp in (64, 128, 192) for dvp in (64, 128)) <= 232448
+
+
+def test_ptxas_entries_picks_the_named_kernels():
+    log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115flash_tc_kernelILi192ELi128EEEvT' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115flash_tc_kernelILi192ELi128EEEvT
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 576 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115flash_tc_kernelILi64ELi64EEEvT' for 'sm_90a'
+ptxas info    : Used 127 registers, 576 bytes cmem[0]
+"""
+    got = chip_smoke.ptxas_entries(log, "flash_tc_kernelILi192E")
+    assert list(got) == ["_ZN12_GLOBAL__N_115flash_tc_kernelILi192ELi128EEEvT"]
+    assert got["_ZN12_GLOBAL__N_115flash_tc_kernelILi192ELi128EEEvT"] == [
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 576 bytes cmem[0]",
+    ]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 5])
+def test_mixed_spike_shape(seed):
+    """Mixed queries alone at the default k: max_queue admitted, one window
+    past it degraded, none shed; seeded."""
+    spike = chip_smoke.mixed_spike(seed, 4, 12)
+    assert len(spike) == chip_smoke.MIXED_SPIKE
+    assert chip_smoke.SERVING_MAX_QUEUE < len(spike) <= 2 * chip_smoke.SERVING_MAX_QUEUE
+    assert (len(spike) - chip_smoke.SERVING_MAX_QUEUE) % chip_smoke.SERVING_WINDOW == 0
+    assert all(4 <= qi < 12 and k is None for qi, k in spike)
+    assert chip_smoke.mixed_spike(seed, 4, 12) == spike
+
+
+def test_path_window_counts_only_inside():
+    """Launches made between windows are not counted; each window's are
+    added; check_counts names a kernel of the path that never launched."""
+    wrappers = chip_smoke.counters()
+    saved = {name: fn.launches for name, fn in wrappers.items()}
+    try:
+        total = __import__("collections").Counter()
+        wrappers["gather_filter_table_counts"].launches += 5  # before any window
+        with chip_smoke.path_window(total):
+            wrappers["gather_filter_table_counts"].launches += 2
+        wrappers["filter_match"].launches += 7  # a reference between windows
+        with chip_smoke.path_window(total):
+            wrappers["gather_filter_table_counts"].launches += 3
+            wrappers["xash_superkey"].launches += 1
+        got = chip_smoke.check_counts(total, ("gather_filter_table_counts", "xash_superkey"), "test")
+        assert got["gather_filter_table_counts"] == 5 and got["xash_superkey"] == 1
+        assert got["filter_match"] == 0 and set(got) == set(wrappers)
+        with pytest.raises(AssertionError, match="filter_match"):
+            chip_smoke.check_counts(total, ("filter_match",), "test")
+    finally:
+        for name, fn in wrappers.items():
+            fn.launches = saved[name]
+
+
+def test_every_kernel_has_a_home_path():
+    assert set(chip_smoke.HOME_PATH) == set(chip_smoke.counters())
+    assert set(chip_smoke.HOME_PATH.values()) == {"main_path", "ops_path", "serve"}
