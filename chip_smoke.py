@@ -66,14 +66,30 @@ Phases, each printing one JSON line:
    planted-FD lakes at 128/256/512 bits, under 'fused-gather', 'fused' and
    'numpy', signals off and on: identical verdicts, equal to a brute-force
    oracle;
-7. serving tier — a ``DiscoveryEngine`` and then an
+7. routed — the routed lake on the same lake:
+   ``MateSession.build(distributed=True, n_shards=4)`` at 128 bits beside a
+   single-host session built from the same corpus; ``discover`` of the
+   ground-truth queries under 'fused-gather', 'fused', 'pallas' and
+   'numpy', ``discover_many`` of the ground-truth and the mixed group (past
+   the fused kernels' table cap: kernel B.4 once per shard, timed), the FD
+   queries of phase 6 and a 16-request ``DiscoveryEngine`` stream, every
+   answer equal to the single-host session's and timed beside it; the
+   routed accounting (``route_bytes_merged`` = Σ shard launches × tables ×
+   4) checked; ``build_index(n_shards=4)`` byte-identical to the
+   single-host build; the mesh mode: 2 ranks spawned on the one card over
+   gloo, each building the routed session across the group (B.3 on its
+   value block, ``all_gather``) and launching B.2 (B.4 past the cap) over
+   its own shard on the card, the all-reduced counts equal to host-routed;
+   then an ``update_cell`` on shard 1 that moves that shard's epoch and
+   store only;
+8. serving tier — a ``DiscoveryEngine`` and then an
    ``AsyncDiscoveryEngine`` on a ManualClock over a 512-bit session of the
    lake that degrades to 128 bits: 64 requests in bursts (shed, degraded,
    result- and bound-cache hits, deadline flushes), every answer equal to
    a cold ``discover``, B.2 probing 16 and 4 lanes of the 16-lane store;
    then a spike of 24 mixed queries alone on a fresh engine (16 admitted,
    8 degraded), timed per group;
-8. serve — full-width qwen1.5-0.5b (24 layers, random weights from
+9. serve — full-width qwen1.5-0.5b (24 layers, random weights from
    ``--seed``) serves 8 requests (prompts of 512–2048 tokens drawn from
    ``--seed``, 32 new tokens each) in slot batches of 4, twice (greedy: the
    tokens must repeat), holds prefill and decode against the full forward
@@ -83,8 +99,8 @@ Phases, each printing one JSON line:
    weight moved by one bf16 ulp makes in the forward at that depth, then
    runs the port's ``launch.serve.main`` at its defaults.
 
-Launch counters are zeroed just before each path's own calls (3–8) and
-read just after; index builds of paths 5–7, their references and their
+Launch counters are zeroed just before each path's own calls (3–9) and
+read just after; index builds of paths 5, 6 and 8, their references and their
 checks (numpy backends, full-width runs, cold ``discover``s, the serve
 phase's consistency check) run outside those windows.  Each kernel must
 have launched on its path.  Then the ``kernels`` summary line (each
@@ -175,6 +191,13 @@ MIXED_SPIKE = SERVING_MAX_QUEUE + SERVING_WINDOW
 # FD phase: the planted-FD lakes (tests/test_fd.py's construction)
 FD_SEEDS = (0, 1, 2)
 FD_BACKENDS = ("fused-gather", "fused", "numpy")
+# the routed lake: shards of the session, backends held against the
+# single-host session, the serving stream, the mesh sub-phase's ranks
+ROUTED_SHARDS = 4
+ROUTED_BACKENDS = ("fused-gather", "fused", "pallas", "numpy")
+ROUTED_STREAM = 16
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 300.0
 # serve phase
 SERVE_ARCH = "qwen1.5-0.5b"
 SERVE_REQUESTS, SERVE_BATCH, SERVE_NEW, SERVE_MAX_SEQ = 8, 4, 32, 2080
@@ -1215,6 +1238,284 @@ def fd_phase(session, truth) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# The routed lake
+# ---------------------------------------------------------------------------
+
+def route_accounting(calls) -> tuple[int, int]:
+    """(shard launches, count-merge bytes) that host-routed launches owe the
+    stats: each call ``(shards it reached, its batch's tables)`` launches once
+    per shard and ships each shard's int32 counts vector."""
+    return (sum(sh for sh, _ in calls), sum(sh * n * 4 for sh, n in calls))
+
+
+@contextlib.contextmanager
+def record_routed_calls(index):
+    """While active, every ``index.routed_counts`` call appends (distinct
+    owning shards of its rows, its table count) to the yielded list."""
+    calls, inner = [], index.routed_counts
+
+    def recording(rows, query_sk, elig, seg_ids, n_tables, **kw):
+        if len(rows) and len(query_sk) and n_tables:
+            calls.append((len(np.unique(index._shard_ids_of_rows(rows))), int(n_tables)))
+        return inner(rows, query_sk, elig, seg_ids, n_tables, **kw)
+
+    index.routed_counts = recording
+    try:
+        yield calls
+    finally:
+        del index.routed_counts
+
+
+@contextlib.contextmanager
+def time_launches(module, name: str):
+    """While active, every call of ``module.name`` is timed with CUDA events
+    and appended as (rows, query keys, lanes, ms) to the yielded list; the
+    launch count carries over as in ``record_shapes``."""
+    wrapper, timed = getattr(module, name), []
+
+    def timing(row_sk, query_sk):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = wrapper(row_sk, query_sk)
+        end.record()
+        end.synchronize()
+        timed.append((int(row_sk.shape[0]), int(query_sk.shape[0]), int(row_sk.shape[1]),
+                      start.elapsed_time(end)))
+        return out
+
+    timing.launches = wrapper.launches
+    setattr(module, name, timing)
+    try:
+        yield timed
+    finally:
+        wrapper.launches = timing.launches
+        setattr(module, name, wrapper)
+
+
+def routed_mesh_rank(mesh, corpus, groups):
+    """One rank of the mesh sub-phase: build the routed session across the
+    group (kernel B.3 on this rank's value block, ``all_gather``), attach
+    the mesh, and run ``plan_and_count`` of each group under 'fused-gather'
+    — this rank launches B.2 (B.4 past the table cap) over its own shard's
+    items against its own store on the card, and the counts are
+    all-reduced.  Returns the counts, the arena's digest and this rank's
+    launch counts."""
+    import hashlib
+
+    from repro_torch.core.session import DiscoveryConfig, MateSession
+
+    zero_counts()
+    t = time.perf_counter()
+    s = MateSession.build(corpus, DiscoveryConfig(backend="fused-gather"), distributed=True, mesh=mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    launches_build = {name: fn.launches for name, fn in counters().items()}
+    out = {"rank": mesh.rank, "device": str(mesh.device), "build_s": build_s,
+           "store_device": str(s.index.shards[mesh.rank].device_store().device),
+           "value_lanes": hashlib.sha256(s.index.value_lanes.tobytes()).hexdigest(),
+           "counts": {}, "wall_s": {}}
+    for label, group in groups.items():
+        t = time.perf_counter()
+        pcs = s.plan_and_count(group)
+        torch.cuda.synchronize()
+        out["wall_s"][label] = time.perf_counter() - t
+        out["counts"][label] = [pc.counts.tolist() for pc in pcs]
+    out["launches"] = {name: fn.launches - launches_build[name] for name, fn in counters().items()}
+    out["launches_build"] = launches_build
+    return out
+
+
+def routed_phase(corpus, truth, mixed) -> dict[str, int]:
+    """The routed lake on the smoke lake: ``MateSession.build(distributed=True,
+    n_shards=4)`` at 128 bits with the default config, beside a single-host
+    session built from the same corpus; ``discover`` of the ground-truth
+    queries under 'fused-gather', 'fused', 'pallas' and 'numpy',
+    ``discover_many`` of the ground-truth and the mixed group, the FD
+    queries of the ``fd`` phase and a 16-request ``DiscoveryEngine`` stream,
+    every answer equal to the single-host session's (each call timed beside
+    it on the host clock); the routed accounting (``shard_launches``,
+    ``route_bytes_merged``) equal to what the launches owe; the mixed group,
+    past the fused kernels' table cap, on kernel B.4 once per shard (timed
+    with CUDA events); ``build_index(n_shards=4)`` byte-identical to the
+    single-host build; the mesh mode: ``MESH_RANKS`` ranks spawned on the
+    one card over gloo, each launching on the card, whose all-reduced counts
+    equal the host-routed counts and whose group-hashed arena equals the
+    routed build's; last an ``update_cell`` on an interior shard, to a value already in the
+    arena, that moves that shard's epoch and store only (and is undone, the
+    corpus's value arena checked unchanged: the corpus is shared with later
+    phases).  Launches are counted around the routed calls only."""
+    import hashlib
+
+    from repro_torch.core import index as index_lib
+    from repro_torch.core.corpus import Table
+    from repro_torch.core.session import DiscoveryConfig, MateSession
+    from repro_torch.core.xash import lanes_to_numpy
+    from repro_torch.kernels import filter_kernel as fk
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.serve.engine import DiscoveryEngine
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    wall: dict[str, dict] = {}
+
+    def clock(label, side, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall.setdefault(label, {}).setdefault(side, []).append(time.perf_counter() - t)
+        return out
+
+    def per_request_identity(stats, label):
+        for st in stats:
+            if st.route_bytes_merged != st.shard_launches * (st.tables_fetched - st.tables_gated) * 4:
+                raise AssertionError(f"{label}: route_bytes_merged != shard_launches x n_tables x 4")
+
+    single = clock("build", "single_host", lambda: MateSession.build(corpus, DiscoveryConfig()))
+    with path_window(total):
+        routed = clock("build", "routed", lambda: MateSession.build(
+            corpus, DiscoveryConfig(), distributed=True, n_shards=ROUTED_SHARDS))
+    index = routed.index
+    if routed.backend.name != "fused-gather" or not index.routed or index.n_shards != ROUTED_SHARDS:
+        raise AssertionError(f"routed session: backend {routed.backend.name}, {index!r}")
+    if not np.array_equal(index.value_lanes, single.index.value_lanes):
+        raise AssertionError("the routed build's value arena differs from the single-host arena")
+    arena = hashlib.sha256(index.value_lanes.tobytes()).hexdigest()
+
+    # discover under each backend, beside the single-host session's
+    truth_group = [(q, c) for q, c, _ in truth]
+    with record_routed_calls(index) as calls:
+        for name in ROUTED_BACKENDS:
+            r_sess = MateSession(index, DiscoveryConfig(backend=name))
+            s_sess = MateSession(single.index, DiscoveryConfig(backend=name))
+            for query, q_cols in truth_group:
+                n_calls = len(calls)
+                with path_window(total):
+                    got, st = clock(f"discover[{name}]", "routed", lambda: r_sess.discover(query, q_cols))
+                want, _ = clock(f"discover[{name}]", "single_host", lambda: s_sess.discover(query, q_cols))
+                if key(got) != key(want):
+                    raise AssertionError(f"routed discover under {name} differs from the single-host session")
+                if (st.shard_launches, st.route_bytes_merged) != route_accounting(calls[n_calls:]):
+                    raise AssertionError("routed discover: the routed accounting differs from its launches")
+
+    with time_launches(fk, "filter_match") as b4_timed:
+        for label, group in (("truth", truth_group), ("mixed", list(mixed))):
+            n_b4 = len(b4_timed)
+            with path_window(total):
+                got = clock(f"discover_many[{label}]", "routed", lambda: routed.discover_many(group))
+            b4 = b4_timed[n_b4:]
+            want = clock(f"discover_many[{label}]", "single_host", lambda: single.discover_many(group))
+            if [key(g) for g, _ in got] != [key(w) for w, _ in want]:
+                raise AssertionError(f"routed discover_many of the {label} group differs from single-host")
+            per_request_identity([st for _, st in got], f"discover_many[{label}]")
+            if label == "mixed" and len(b4) != ROUTED_SHARDS:
+                raise AssertionError(f"the mixed group ran {len(b4)} B.4 launches, not one per shard")
+    b4_mixed = [{"rows": n, "keys": q, "lanes": lanes, "ms": ms} for n, q, lanes, ms in b4]
+
+    # the FD queries of the fd phase
+    fd_tables = []
+    for query, q_cols, _expected in truth:
+        extra = list(query.cells[2])
+        extra[2] += " second value"
+        fq = Table(-1, [list(r) for r in query.cells] + [extra], name=query.name)
+        with path_window(total):
+            got, st = clock("discover_fds", "routed", lambda: routed.discover_fds(fq, list(q_cols), 2))
+        want, _ = clock("discover_fds", "single_host", lambda: single.discover_fds(fq, list(q_cols), 2))
+        if fd_verdicts(got) != fd_verdicts(want):
+            raise AssertionError("routed discover_fds differs from the single-host session")
+        per_request_identity([st], "discover_fds")
+        fd_tables.append(len(got))
+
+    # a DiscoveryEngine stream over each session
+    stream = [(truth_group[i % len(truth_group)], 10 if i % 3 else 5) for i in range(ROUTED_STREAM)]
+
+    def serve(sess):
+        eng = DiscoveryEngine(session=sess, batch=8)
+        reqs = [eng.submit(q, c, k=k) for (q, c), k in stream]
+        eng.flush()
+        if eng.queue or not all(r.done for r in reqs):
+            raise AssertionError("the engine left requests unserved")
+        return reqs
+
+    with path_window(total):
+        served = clock("engine_stream", "routed", lambda: serve(routed))
+    want = clock("engine_stream", "single_host", lambda: serve(MateSession(single.index)))
+    if [key(r.results) for r in served] != [key(r.results) for r in want]:
+        raise AssertionError("the engine over the routed session answered differently from single-host")
+    per_request_identity([r.stats for r in served], "engine")
+
+    # the sharded build, byte-identical to the single-host build
+    with path_window(total):
+        sharded, sharded_stats = clock("build_index[n_shards=4]", "routed", lambda: index_lib.build_index(
+            corpus, use_corpus_char_freq=True, n_shards=ROUTED_SHARDS))
+    if not index_lib.index_artifacts_equal(sharded, single.index):
+        raise AssertionError("build_index(n_shards=4) artifacts differ from the single-host build")
+    del sharded
+
+    # the mesh mode: ranks sharing the one card over gloo
+    groups = {"truth": truth_group, "mixed": list(mixed)}
+    host_counts = {label: [pc.counts.tolist() for pc in routed.plan_and_count(group)]
+                   for label, group in groups.items()}
+    ranks = clock("mesh", "routed", lambda: meshlib.run_ranks(  # the default: ranks on the card
+        routed_mesh_rank, MESH_RANKS, backend="gloo", args=(corpus, groups), timeout_s=MESH_TIMEOUT_S))
+    for r in ranks:
+        if r["counts"] != host_counts:
+            raise AssertionError(f"mesh rank {r['rank']}: all-reduced counts differ from host-routed")
+        if r["value_lanes"] != arena:
+            raise AssertionError(f"mesh rank {r['rank']}: the xash_values_mesh arena differs")
+        if not r["launches"]["gather_filter_table_counts"] or not r["launches_build"]["xash_superkey"]:
+            raise AssertionError(f"mesh rank {r['rank']} launched no B.2 / B.3 on the card")
+        if not r["store_device"].startswith("cuda"):
+            raise AssertionError(f"mesh rank {r['rank']}: its store is on {r['store_device']}")
+
+    # update_cell on an interior shard: that shard's epoch and store only.
+    # The new value is another cell of the same table, already in the value
+    # arena, so nothing is interned and the corpus that later phases build
+    # from (its character frequencies, hence every superkey) is unchanged.
+    stores = [sh.device_store() for sh in index.shards]
+    epochs = [sh.mutation_epoch for sh in index.shards]
+    n_values = len(corpus.unique_values)
+    tid = int(index.shards[1].table_lo)
+    old = corpus.tables[tid].cells[0][0]
+    new = next(v for r in corpus.tables[tid].cells for v in r if v != old)
+    with path_window(total):
+        routed.update_cell(tid, 0, 0, new)
+        routed.discover(*truth_group[0])
+        torch.cuda.synchronize()
+    refreshed = [sh.device_store() is not st for sh, st in zip(index.shards, stores)]
+    moved = [sh.mutation_epoch - e for sh, e in zip(index.shards, epochs)]
+    if refreshed != [i == 1 for i in range(ROUTED_SHARDS)] or moved != [int(i == 1) for i in range(ROUTED_SHARDS)]:
+        raise AssertionError(f"update_cell on shard 1: epochs moved {moved}, stores refreshed {refreshed}")
+    if not np.array_equal(lanes_to_numpy(index.shards[1].device_store()), index.shards[1].superkeys):
+        raise AssertionError("shard 1's refreshed store differs from its superkeys")
+    routed.update_cell(tid, 0, 0, old)  # the corpus is shared with later phases
+    if len(corpus.unique_values) != n_values or corpus.tables[tid].cells[0][0] != old:
+        raise AssertionError("the routed update_cell left the shared corpus changed")
+
+    launches = check_counts(total, ("gather_filter_table_counts", "filter_table_counts", "xash_superkey",
+                                    "filter_match"), "routed path")
+    emit({"phase": "routed", "n_shards": ROUTED_SHARDS, "bits": index.bits, "tables": len(corpus.tables),
+          "shard_row_bounds": index.shard_row_bounds.tolist(),
+          "shard_table_bounds": [index.shards[0].table_lo] + [sh.table_hi for sh in index.shards],
+          "wall_s_per_call": {label: {side: sum(v) / len(v) for side, v in sides.items()}
+                              for label, sides in wall.items()},
+          "shard_launches": routed.stats.shard_launches,
+          "route_bytes_merged": routed.stats.route_bytes_merged,
+          "shard_gather_demotions": routed.stats.shard_gather_demotions,
+          "route_identity": True, "answers_equal_single_host": True,
+          "mixed_b4_per_shard": b4_mixed, "fd_tables": fd_tables,
+          "engine_requests": len(stream),
+          "sharded_build": {"artifacts_equal": True, "shard_rows": sharded_stats.shard_rows,
+                            "shard_values": sharded_stats.shard_values},
+          "update_cell": {"shard": 1, "table": tid, "epochs_moved": moved, "stores_refreshed": refreshed},
+          "mesh": {"backend": "gloo", "world_size": MESH_RANKS, "counts_equal_host_routed": True,
+                   "xash_values_mesh_equal": True,
+                   "ranks": [{k: r[k] for k in ("rank", "device", "build_s", "wall_s", "launches")}
+                             for r in ranks]},
+          "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # The discovery serving tier
 # ---------------------------------------------------------------------------
 
@@ -1610,6 +1911,7 @@ def main() -> int:
     del session256
     by_path["fd"] = fd_phase(session, truth)
     del session
+    by_path["routed"] = routed_phase(corpus, truth, mixed)
     by_path["serving_tier"] = serving_phase(corpus, truth, mixed, args.seed)
     by_path["serve"] = serve_phase(args.seed)
     # ``launches``: the count on the kernel's own path (HOME_PATH); every

@@ -37,8 +37,13 @@ same engine and kernels serve any width the index was built at.
 launch, then demuxes per request (``plan_and_count`` → ``score_from_counts``).
 
 Top-k results are BIT-IDENTICAL to Algorithm 1 (ids, joinability scores and
-mappings), and to the reference engine at every backend name.  The routed
-lake (``ShardedMateIndex``) is ROADMAP A.7.
+mappings), and to the reference engine at every backend name.
+
+On the routed lake (``core.routing.ShardedMateIndex``, detected by its
+``routed`` attribute) there is no global superkey array or device store: the
+filter launches go through ``index.routed_counts`` — shard-local counts-only
+launches, with only per-table count vectors crossing shards — and surviving
+tables re-gather their superkeys from the owning shard.
 """
 from __future__ import annotations
 
@@ -418,12 +423,16 @@ def discover_batched(
     fl = full_lanes if filter_lanes is None else max(1, min(int(filter_lanes), full_lanes))
     stats.filter_lanes = fl
     q_f = plan.q_sk if fl == full_lanes else plan.q_sk[:, :fl]
+    # routed index: there IS no global superkey array or single device
+    # store — the filter diverts to shard-local counts-only launches and
+    # only count vectors cross shards.
+    routed = getattr(index, "routed", False)
     # gather-fused: the engine decides per batch whether the device store
     # carries the gather (store fits + the batch is under the scatter-tile
     # cap), because only then may the host skip its own superkey gather.
     store = (
         index.device_store()
-        if bk.gather and ops.gather_store_fits(index.superkeys)
+        if not routed and bk.gather and ops.gather_store_fits(index.superkeys)
         else None
     )
     topk = _TopK(k)
@@ -441,8 +450,11 @@ def discover_batched(
         rows = block.rows[lo:hi]
         use_gather = store is not None and (stop - start) <= ops._FUSED_MAX_TABLES
         # the gather-fused contract: the host NEVER touches the candidate
-        # superkeys — the kernel reads them from the device store.
-        row_sk = None if use_gather else index.superkey_of_rows(rows)
+        # superkeys — the kernel reads them from the device store.  The
+        # routed contract is stricter still: the host never gathers a WHOLE
+        # batch at all; surviving tables re-gather from their owning shard
+        # in _score_tables (index.superkey_of_rows routes per shard).
+        row_sk = None if (use_gather or routed) else index.superkey_of_rows(rows)
         row_f = (
             None if row_sk is None
             else row_sk if fl == full_lanes else row_sk[:, :fl]
@@ -451,7 +463,15 @@ def discover_batched(
         seg = _segment_ids(block.table_ptr, start, stop)
         stats.pl_items_checked += int(rows.shape[0])
         stats.filter_checks += int(elig.sum())
-        if use_gather:
+        if routed:
+            # shard-local counts-only launches, count-merge across shards:
+            # the only cross-shard bytes are stats.route_bytes_merged.
+            hits = None
+            counts = index.routed_counts(
+                rows, q_f, elig, seg, stop - start,
+                backend=bk, fused_block_n=fused_block_n, stats=stats,
+            )
+        elif use_gather:
             # one launch from posting-list offsets to counts: n×4 offset
             # bytes go to the device instead of n×lanes×4 gathered key bytes
             # (and the gathered block never exists in HBM either).
@@ -545,8 +565,11 @@ class PlanCounts:
     filter_lanes: int = 0  # lanes the launch probed (< index width: degraded)
     epoch: int = 0  # index.mutation_epoch at launch time
     gather_saved: int = 0  # HBM bytes the gather-fused launch never moved
-    route_launches: int = 0  # routed index (ROADMAP A.7): always 0 here
-    route_bytes: int = 0  # routed index (ROADMAP A.7): always 0 here
+    route_launches: int = 0  # routed index: shard launches this request's
+    # items spanned (distinct owning shards — whole-table ownership means
+    # each of its candidate tables was counted on exactly one of them)
+    route_bytes: int = 0  # routed index: this request's share of the
+    # cross-shard count-merge bytes (its counts vector × shards touched)
 
     def cacheable(self) -> "PlanCounts":
         """A copy safe to hold in a cache: the (possibly device-resident)
@@ -613,20 +636,34 @@ def plan_and_count(
     full_lanes = index.cfg.lanes
     fl = full_lanes if filter_lanes is None else max(1, min(int(filter_lanes), full_lanes))
     q_f = q_all if fl == full_lanes else q_all[:, :fl]
+    routed = getattr(index, "routed", False)
     use_gather = (
-        bk.gather
+        not routed
+        and bk.gather
         and ops.gather_store_fits(index.superkeys)
         and n_tables_all <= ops._FUSED_MAX_TABLES
     )
     # gather-fused group launch: no host superkey gather at all — the kernel
     # pulls every request's candidate rows from the device store, and phase B
     # re-gathers only surviving tables' slices (bit-identical: same array).
-    row_sk_all = None if use_gather else index.superkey_of_rows(rows_all)
+    # The routed group launch shares that contract (row_sk stays None) and
+    # scoring re-gathers from the OWNING shard only.
+    row_sk_all = (
+        None if (use_gather or routed) else index.superkey_of_rows(rows_all)
+    )
     row_f = (
         None if row_sk_all is None
         else row_sk_all if fl == full_lanes else row_sk_all[:, :fl]
     )
-    if use_gather:
+    if routed:
+        # shard-local counts-only launches for the whole group; per-request
+        # routing accounting is attributed below from each plan's own items.
+        hits_all = None
+        counts_all = index.routed_counts(
+            rows_all, q_f, elig_all, seg_all, n_tables_all,
+            backend=bk, fused_block_n=fused_block_n,
+        )
+    elif use_gather:
         hits_all, counts_all = ops.filter_hits_table_counts(
             None, q_f, elig_all, seg_all, n_tables_all,
             backend=bk, fused_block_n=fused_block_n,
@@ -659,6 +696,14 @@ def plan_and_count(
     r_off = k_off = t_off = 0
     for p in plans:
         ni, ki, ti = p.block.n_items, p.q_sk.shape[0], p.block.n_tables
+        # routed attribution: the shards THIS request's items spanned — its
+        # solo cost, and (by whole-table ownership) exactly the shards that
+        # produced its slice of the group counts vector.
+        n_sh = (
+            len(np.unique(index._shard_ids_of_rows(p.block.rows)))
+            if routed and ni
+            else 0
+        )
         out.append(
             PlanCounts(
                 plan=p,
@@ -675,6 +720,8 @@ def plan_and_count(
                 filter_lanes=fl,
                 epoch=epoch,
                 gather_saved=ni * (fl * 4 - 4) if use_gather else 0,
+                route_launches=n_sh,
+                route_bytes=n_sh * ti * 4,
             )
         )
         r_off += ni

@@ -2,8 +2,8 @@
 
 Port of ``repro.core.discovery``: host-side numpy, as in the reference.
 ``DiscoveryStats`` keeps every counter of the reference (the routed-lake
-counters stay 0 until that path is ported: ROADMAP A.7; the FD counters are
-filled by ``core.fd``) so that stats compare field by field across the two
+counters are filled on a ``core.routing.ShardedMateIndex``, the FD counters
+by ``core.fd``) so that stats compare field by field across the two
 packages.
 
 Four phases: initialization (§6.1), table filtering (§6.2), row filtering

@@ -21,8 +21,9 @@ Two phases, both reused from ``core.batched``:
      so the count is an UPPER bound on true matched pairs: ``counts <
      min_support`` proves true support is below the bar.  Refuted tables
      are pruned before any superkey byte moves.
-  B. Survivors re-gather their candidate rows' super keys (epoch-pinned)
-     and every filter-surviving (row, key) pair is verified exactly
+  B. Survivors re-gather their candidate rows' super keys (epoch-pinned;
+     on the routed lake ``ShardedMateIndex.superkey_of_rows`` pulls each
+     row from its OWNING shard) and every filter-surviving (row, key) pair is verified exactly
      (``discovery._verify_pair``), yielding the matched determinant-key
      set, the support, and the violation count.
 
@@ -196,8 +197,8 @@ def fds_from_counts(
         lo, hi = int(ptr[t]), int(ptr[t + 1])
         rows = block.rows[lo:hi]
         # full-width re-gather (row_sk keeps full width even on degraded
-        # launches); gather-fused launches left row_sk None — pull the
-        # slices from the index store, epoch-pinned above.
+        # launches); gather-fused/routed launches left row_sk None — pull
+        # the slices from the index store / owning shard, epoch-pinned above.
         rsk = (
             pc.row_sk[lo:hi]
             if pc.row_sk is not None

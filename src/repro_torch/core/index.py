@@ -14,7 +14,15 @@ device:
     the gather kernel reads, refreshed on every §5.4 mutation epoch.
 
 Baseline hashes (``bf``, ``murmur``, …) stay host-side Python, as in the
-reference.  The sharded build (``mesh=``, ``n_shards > 1``) is ROADMAP A.7.
+reference.
+
+The offline phase is SHARDABLE (``build_index``): unique-value hashing runs
+per contiguous value shard (through the XASH kernel on the index's device),
+or per rank of a process group (``kernels.ops.xash_values_mesh``: each rank
+hashes its block, an ``all_gather`` assembles the arena), while super keys
+and posting lists run per contiguous row shard and merge deterministically
+(``merge_shard_postings``) — every artifact is BYTE-IDENTICAL to the
+single-host ``MateIndex(...)`` constructor at any shard count.
 
 Index updates (§5.4): ``insert_table`` appends rows/postings/super keys;
 ``delete_table`` tombstones; ``update_cell`` re-hashes the affected row.
@@ -97,23 +105,31 @@ def _aggregate_superkeys(
 
 
 def _shard_postings(
-    cell_value_ids: np.ndarray, n_values: int
+    cell_value_ids: np.ndarray, row_lo: int, row_hi: int, n_values: int
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Posting-list items of every row: ``(payload, counts)`` with
-    ``payload`` int64[m, 2] of (global_row, col) grouped by ascending value
-    id, row-major within a value id (the PL order the scalar engine fetches),
-    and ``counts`` int64[n_values] items per value id."""
-    rows_idx, cols_idx = np.nonzero(cell_value_ids >= 0)
-    vids = cell_value_ids[rows_idx, cols_idx]
+    """Posting-list items of rows ``[row_lo, row_hi)`` in mergeable form:
+    ``(payload, counts)`` with ``payload`` int64[m, 2] of (global_row, col)
+    grouped by ascending value id, row-major within a value id (the PL order
+    the scalar engine fetches), and ``counts`` int64[n_values] items per
+    value id.  One call over every row is the single-host build; per-shard
+    calls merge through ``merge_shard_postings``."""
+    ids = cell_value_ids[row_lo:row_hi]
+    rows_idx, cols_idx = np.nonzero(ids >= 0)
+    vids = ids[rows_idx, cols_idx]
     order = np.argsort(vids, kind="stable")
-    payload = np.stack([rows_idx[order], cols_idx[order]], axis=1).astype(np.int64)
+    payload = np.stack(
+        [rows_idx[order] + row_lo, cols_idx[order]], axis=1
+    ).astype(np.int64)
     counts = np.bincount(vids, minlength=n_values).astype(np.int64)
     return payload, counts
 
 
-def _intern_value(index: "MateIndex", value: str) -> int:
+def _intern_value(index, value: str) -> int:
     """Resolve ``value`` in the corpus value arena, interning (and hashing)
-    it if new — the shared §5.4 mutation primitive."""
+    it if new — the shared §5.4 mutation primitive.  ``index`` is anything
+    with ``corpus`` / ``cfg`` / ``hash_name`` / ``value_lanes`` / ``device``
+    (``MateIndex`` or ``routing.ShardedMateIndex``, whose value arena is
+    replicated)."""
     corpus = index.corpus
     vid = corpus.value_of.get(value)
     if vid is not None:
@@ -141,6 +157,34 @@ def _csr_ptr(counts: np.ndarray) -> np.ndarray:
     return ptr
 
 
+def merge_shard_postings(
+    payloads: list[np.ndarray], counts: list[np.ndarray], n_values: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Merge per-shard posting payloads into the global CSR layout.
+
+    Shards cover contiguous ascending row ranges, so placing each shard's
+    per-vid group after the previous shards' groups reproduces the global
+    row-major order within every value id — the merged ``(payload, ptr)`` is
+    byte-identical to a single-host ``_shard_postings`` over all rows.
+    """
+    total = (
+        np.sum(np.stack(counts), axis=0)
+        if counts
+        else np.zeros(n_values, dtype=np.int64)
+    )
+    ptr = _csr_ptr(total)
+    payload = np.empty((int(ptr[-1]), 2), dtype=np.int64)
+    write_at = ptr[:-1].copy()  # next free slot per value id
+    for pl, cnt in zip(payloads, counts):
+        if not len(pl):
+            continue
+        group_start = np.cumsum(cnt) - cnt  # this shard's per-vid offsets
+        within = np.arange(len(pl), dtype=np.int64) - np.repeat(group_start, cnt)
+        payload[np.repeat(write_at, cnt) + within] = pl
+        write_at += cnt
+    return payload, ptr
+
+
 def _postings_dict(payload: np.ndarray, ptr: np.ndarray) -> dict[int, np.ndarray]:
     """Explode a CSR posting store into the per-value dict the index serves
     (entries are views into ``payload``; §5.4 mutations replace them with
@@ -156,8 +200,11 @@ def _postings_dict(payload: np.ndarray, ptr: np.ndarray) -> dict[int, np.ndarray
 @dataclasses.dataclass
 class BuildStats:
     """Offline-phase accounting for one ``build_index`` run (the reference's
-    fields; on one host ``n_shards`` is 1 and the shard lists have one
-    entry each)."""
+    fields).  ``shard_values`` / ``shard_rows`` are the contiguous partitions
+    the build used (values for the hash pass, corpus rows for super keys and
+    postings).  ``shard_hash_seconds`` is per-shard hash wall time on the
+    host-sharded path, and per collective launch on the process-group path
+    (every rank takes part in each)."""
 
     n_shards: int = 1
     mesh_shape: dict[str, int] | None = None  # None: no device mesh
@@ -174,6 +221,10 @@ class BuildStats:
     profile_seconds: float = 0.0  # per-column ProfileStore pass (ranking)
     profile_bytes: int = 0  # ProfileStore footprint (all arrays)
     total_seconds: float = 0.0
+
+    @property
+    def sharded(self) -> bool:
+        return self.n_shards > 1
 
 
 @dataclasses.dataclass
@@ -199,6 +250,9 @@ class CandidateBlock:
     def n_tables(self) -> int:
         return int(self.table_ids.shape[0])
 
+    def table_slice(self, t: int) -> slice:
+        return slice(int(self.table_ptr[t]), int(self.table_ptr[t + 1]))
+
 
 class MateIndex:
     """Inverted index + per-row super keys for one corpus, on one device."""
@@ -219,7 +273,9 @@ class MateIndex:
             corpus.avg_row_width(), self.device,
         )
         superkeys = _aggregate_superkeys(corpus.cell_value_ids, value_lanes, cfg.lanes)
-        payload, counts = _shard_postings(corpus.cell_value_ids, len(corpus.unique_values))
+        payload, counts = _shard_postings(
+            corpus.cell_value_ids, 0, corpus.total_rows, len(corpus.unique_values)
+        )
         self._init(corpus, cfg, hash_name, value_lanes, superkeys, payload, _csr_ptr(counts))
 
     def _init(self, corpus, cfg, hash_name, value_lanes, superkeys, payload, ptr) -> None:
@@ -542,59 +598,131 @@ def build_index(
     use_corpus_char_freq: bool = False,
     *,
     mesh=None,
-    row_axes: tuple[str, ...] | None = None,
     n_shards: int | None = None,
     device=None,
 ) -> tuple[MateIndex, BuildStats]:
-    """Offline phase (§4/§5) on one host, plus build accounting.
+    """Offline phase (§4/§5) with every pass sharded, plus build accounting.
 
-    Artifacts are byte-identical to ``MateIndex(corpus, ...)`` and to the
-    reference's ``build_index``.  Profiles are built eagerly.  ``mesh`` and
-    ``n_shards > 1`` (the sharded build) are ROADMAP A.7 and raise.
+    ``n_shards`` splits the passes on this host: unique values are hashed
+    per contiguous value shard (the XASH kernel on ``device``), super keys
+    and posting lists are built per contiguous row shard and merged
+    (``merge_shard_postings``), and the column profiles per contiguous table
+    shard, joined by ``profiles.merge_profiles``.  With a ``mesh``
+    (``launch.mesh.Mesh``, one process per rank) of more than one rank, the
+    hash pass runs across the group (``kernels.ops.xash_values_mesh``; the
+    index then lives on the rank's device) and ``n_shards`` defaults to the
+    group size; an ``n_shards`` that differs from it raises.  Baseline
+    hashes stay host-side Python under any mesh.  The default ``n_shards=1``
+    IS the single-host path.
+
+    Every path yields artifacts byte-identical to ``MateIndex(corpus, ...)``
+    and to the reference's ``build_index``: per-value hashing has no
+    cross-value term, super keys are per-row, and the posting merge keeps
+    the global row-major order within each value id.
 
     Returns ``(index, BuildStats)``.
     """
-    if mesh is not None or row_axes is not None or (n_shards or 1) > 1:
-        raise NotImplementedError(
-            "sharded build (mesh=, row_axes=, n_shards>1) is not ported yet: ROADMAP A.7"
-        )
+    from repro_torch.core import distributed
+
     t_start = time.perf_counter()
-    dev = resolve_device(device)
     cfg = _resolve_cfg(corpus, cfg, hash_name, use_corpus_char_freq)
-    n_values = len(corpus.unique_values)
-    stats = BuildStats(
-        values_total=n_values,
-        rows_total=corpus.total_rows,
-        bytes_hashed=int(corpus.unique_enc.size),
-        shard_values=[n_values],
-        shard_rows=[corpus.total_rows],
+    value_lanes, stats, dev = _sharded_hash_pass(
+        corpus, cfg, hash_name, mesh, n_shards, device
     )
+    n_shards, n_values = stats.n_shards, stats.values_total
 
+    # -- per-row-shard super keys + posting lists ---------------------------
+    rb = distributed.shard_bounds(corpus.total_rows, n_shards)
+    stats.shard_rows = np.diff(rb).astype(int).tolist()
     t0 = time.perf_counter()
-    value_lanes = _hash_unique_values(
-        corpus.unique_values, corpus.unique_enc, cfg, hash_name,
-        corpus.avg_row_width(), dev,
-    )
-    stats.hash_seconds = time.perf_counter() - t0
-    stats.shard_hash_seconds.append(stats.hash_seconds)
-
-    t0 = time.perf_counter()
-    superkeys = _aggregate_superkeys(corpus.cell_value_ids, value_lanes, cfg.lanes)
+    sk_parts = [
+        _aggregate_superkeys(
+            corpus.cell_value_ids[int(rb[i]) : int(rb[i + 1])], value_lanes, cfg.lanes
+        )
+        for i in range(n_shards)
+    ]
     stats.superkey_seconds = time.perf_counter() - t0
     t0 = time.perf_counter()
-    payload, counts = _shard_postings(corpus.cell_value_ids, n_values)
+    parts = [
+        _shard_postings(corpus.cell_value_ids, int(rb[i]), int(rb[i + 1]), n_values)
+        for i in range(n_shards)
+    ]
     stats.postings_seconds = time.perf_counter() - t0
 
+    # -- host-side merge ----------------------------------------------------
     t0 = time.perf_counter()
+    payload, ptr = merge_shard_postings(
+        [p for p, _ in parts], [c for _, c in parts], n_values
+    )
     index = MateIndex._from_build(
-        corpus, cfg, hash_name, value_lanes, superkeys, payload, _csr_ptr(counts), dev
+        corpus, cfg, hash_name, value_lanes, np.concatenate(sk_parts), payload, ptr, dev
     )
     stats.merge_seconds = time.perf_counter() - t0
 
+    # -- per-column profiles, per contiguous table shard --------------------
     t0 = time.perf_counter()
-    index._profiles = profiles_lib.build_profiles(corpus, value_lanes)
+    tb = distributed.shard_bounds(len(corpus.row_base) - 1, n_shards)
+    index._profiles = profiles_lib.merge_profiles(
+        [
+            profiles_lib.build_profiles(corpus, value_lanes, int(tb[i]), int(tb[i + 1]))
+            for i in range(n_shards)
+        ]
+    )
     stats.profile_seconds = time.perf_counter() - t0
     stats.profile_bytes = index._profiles.nbytes
 
     stats.total_seconds = time.perf_counter() - t_start
     return index, stats
+
+
+def _sharded_hash_pass(
+    corpus: Corpus,
+    cfg: xash.XashConfig,
+    hash_name: str,
+    mesh,
+    n_shards: int | None,
+    device,
+) -> tuple[np.ndarray, BuildStats, torch.device]:
+    """The hash pass the sharded and the routed builds share:
+    ``(value_lanes, BuildStats, device)``.  Resolves the shard count (from
+    ``mesh`` when one is given; a conflicting ``n_shards`` raises) and the
+    device (the rank's with a mesh), then hashes the value arena across the
+    mesh's ranks (``kernels.ops.xash_values_mesh``, XASH only) or per
+    contiguous value shard on the device, one wall time per collective
+    launch or per shard into ``BuildStats.shard_hash_seconds``."""
+    from repro_torch.core import distributed
+
+    mesh_shards = distributed.mesh_shards(mesh, n_shards)
+    n_shards = max(int(n_shards or mesh_shards or 1), 1)
+    use_mesh = mesh_shards > 1 and hash_name == "xash"
+    dev = resolve_device(mesh.device if mesh is not None and device is None else device)
+    n_values = len(corpus.unique_values)
+    stats = BuildStats(
+        n_shards=n_shards,
+        mesh_shape={distributed.MESH_AXES[0]: mesh.size} if use_mesh else None,
+        values_total=n_values,
+        rows_total=corpus.total_rows,
+        bytes_hashed=int(corpus.unique_enc.size),
+        shard_values=np.diff(distributed.shard_bounds(n_values, n_shards))
+        .astype(int).tolist(),
+    )
+    t0 = time.perf_counter()
+    if use_mesh:
+        from repro_torch.kernels import ops
+
+        value_lanes = ops.xash_values_mesh(
+            corpus.unique_enc, cfg, mesh=mesh, times_out=stats.shard_hash_seconds,
+        )
+    else:
+        value_lanes = np.zeros((n_values, cfg.lanes), dtype=np.uint32)
+        vb = distributed.shard_bounds(n_values, n_shards)
+        for i in range(n_shards):
+            lo, hi = int(vb[i]), int(vb[i + 1])
+            ts = time.perf_counter()
+            value_lanes[lo:hi] = _hash_unique_values(
+                corpus.unique_values[lo:hi], corpus.unique_enc[lo:hi], cfg, hash_name,
+                corpus.avg_row_width(), dev,
+            )
+            stats.shard_hash_seconds.append(time.perf_counter() - ts)
+    stats.hash_seconds = time.perf_counter() - t0
+    return value_lanes, stats, dev

@@ -3,9 +3,7 @@
 Port of ``repro.core.session``.  ``DiscoveryConfig`` keeps exactly the
 reference's fields and validation messages; the device is a keyword of
 ``MateSession.build`` (``None`` means CUDA, and raises without it), not a
-config field.  Not ported yet, and raising ``NotImplementedError``: the
-sharded / routed build (``mesh=``, ``n_shards>1``, ``distributed=True``:
-ROADMAP A.7).
+config field.
 
 MATE's pipeline (paper §4–6: super-key index → XASH filter → verification)
 is one system, but three PRs of growth left four entry points
@@ -38,6 +36,7 @@ import dataclasses
 from repro_torch.core import batched as batched_lib
 from repro_torch.core import fd as fd_lib
 from repro_torch.core import index as index_lib
+from repro_torch.core import routing
 from repro_torch.core import xash
 from repro_torch.core.corpus import Corpus, Table
 from repro_torch.core.discovery import DiscoveryStats, TopKEntry
@@ -316,7 +315,6 @@ class MateSession:
         config: DiscoveryConfig | None = None,
         *,
         mesh=None,
-        row_axes: tuple[str, ...] | None = None,
         n_shards: int | None = None,
         distributed: bool = False,
         device=None,
@@ -324,21 +322,32 @@ class MateSession:
         """Offline phase (§4/§5): hash + index ``corpus`` per ``config`` on
         ``device`` (None: the CUDA device; raises when there is none — pass
         ``device="cpu"`` for the plain PyTorch path).  Accounting lands in
-        ``session.build_stats``.  The sharded and routed builds (``mesh``,
-        ``n_shards > 1``, ``distributed=True``) are ROADMAP A.7 and raise."""
+        ``session.build_stats``.
+
+        ``n_shards`` splits the offline passes (``core.index.build_index``):
+        hashing per value shard, super keys and posting lists per row shard
+        with a deterministic merge — byte-identical artifacts to the
+        single-host build.  ``mesh`` (a ``launch.mesh.Mesh``) hashes across
+        its ranks instead.
+
+        ``distributed=True`` skips the merge and keeps the index ROUTED
+        (``core.routing.ShardedMateIndex``): each shard's postings and
+        superkeys stay resident where they were built (per-shard
+        epoch-pinned device stores), the online filter runs shard-locally
+        and only per-table counts cross shards — same top-k, bit-identical,
+        with ``SessionStats.route_bytes_merged`` / ``shard_launches``
+        proving the traffic shape.  §5.4 mutations through this session then
+        apply shard-locally too (one shard's epoch bumps, one store
+        refreshes).
+        """
         config = config or DiscoveryConfig()
-        if distributed:
-            raise NotImplementedError(
-                "MateSession.build(distributed=True) (routed lake) is not"
-                " ported yet: ROADMAP A.7"
-            )
-        index, build_stats = index_lib.build_index(
+        build = routing.build_routed_index if distributed else index_lib.build_index
+        index, build_stats = build(
             corpus,
             cfg=xash.XashConfig(bits=config.bits),
             hash_name=config.hash_name,
             use_corpus_char_freq=config.use_corpus_char_freq,
             mesh=mesh,
-            row_axes=row_axes,
             n_shards=n_shards,
             device=device,
         )

@@ -21,12 +21,14 @@ version; plain versions run only for tensors on the CPU.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from repro_torch.core.xash import lanes_to_numpy, lanes_to_torch
 from repro_torch.device import resolve_device
-from repro_torch.kernels import filter_kernel, flash_kernel, registry
+from repro_torch.kernels import filter_kernel, flash_kernel, registry, xash_kernel
 from repro_torch.kernels.registry import Backend
 
 # below this many (row × key) probes, numpy beats a device dispatch
@@ -39,6 +41,10 @@ _FUSED_MAX_TABLES = filter_kernel.FUSED_MAX_TABLES
 # device superkey stores above this size stay host-resident and the
 # fused-gather backend demotes to the host-gather fused launch
 GATHER_STORE_MAX_BYTES = 2 << 30
+
+# unique values per rank per XASH launch of ``xash_values_mesh`` (the
+# single-host build's chunk, ``core.index._XASH_CHUNK``)
+_MESH_HASH_CHUNK = 1 << 18
 
 # the reference's flash block (block_q = block_kv): it pads S and T to it,
 # which is only sound for causal calls, so it asserts alignment otherwise
@@ -80,6 +86,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not causal and (s % FLASH_ALIGN or t % FLASH_ALIGN):
         raise ValueError(f"non-causal flash attention needs S and T multiples of {FLASH_ALIGN}, got {s}, {t}")
     return flash_kernel.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def xash_values_mesh(
+    enc_values: np.ndarray,
+    cfg,
+    *,
+    mesh,
+    chunk: int = _MESH_HASH_CHUNK,
+    times_out: list | None = None,
+) -> np.ndarray:
+    """Group-sharded unique-value XASH: uint8[n, max_len] -> uint32[n, lanes].
+
+    The offline build's hash pass across a process group (``launch.mesh``):
+    each block of ``chunk × ranks`` values is padded to the group and cut
+    into equal rank blocks; every rank hashes its own block with kernel B.3
+    (``xash_kernel.xash_values``, the plain version on a CPU rank) and an
+    ``all_gather`` assembles the block on every rank.  Per-value hashing has
+    no cross-value term, so the arena is BIT-IDENTICAL to the single-host
+    pass at any group size.  ``times_out`` receives each collective launch's
+    wall seconds (every rank takes part in each).  Every rank must call.
+    """
+    from repro_torch.core import distributed
+
+    n_shards = mesh.size
+    n = enc_values.shape[0]
+    out = np.zeros((n, cfg.lanes), dtype=np.uint32)
+    step = chunk * n_shards
+    for s in range(0, n, step):
+        block = distributed.pad_rows_to_shards(enc_values[s : s + step], n_shards)
+        per = block.shape[0] // n_shards
+        mine = np.ascontiguousarray(block[mesh.rank * per : (mesh.rank + 1) * per])
+        t0 = time.perf_counter()
+        lanes = distributed.all_gather_rows(
+            xash_kernel.xash_values(torch.from_numpy(mine).to(mesh.device), cfg), mesh
+        )
+        nb = min(step, n - s)
+        out[s : s + nb] = lanes_to_numpy(lanes)[:nb]
+        if times_out is not None:
+            times_out.append(time.perf_counter() - t0)
+    return out
 
 
 def filter_count(row_sk: np.ndarray, query_sk: np.ndarray, *, device=None) -> np.ndarray:

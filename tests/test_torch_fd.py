@@ -12,7 +12,10 @@ counters (``fd_candidates``, ``fd_validated``, ``fd_bytes_verified``) and
 the verified pair counts, equal; the brute-force oracle agrees; errors
 word for word.  Ensemble scores are float64 host arithmetic in the
 reference's op order, held equal within 1e-12 (they come out identical).
-The routed cases of ``test_fd.py`` wait for the routed lake (ROADMAP A.7).
+The routed cases of ``test_fd.py`` run here too: ``discover_fds`` on a
+routed index (``build_routed_index``) at {1, 2, 4, 8} shards × every width,
+against the reference's routed and single-host indexes, routed counters
+included.
 """
 
 import dataclasses
@@ -24,12 +27,14 @@ from test_fd import fd_oracle_python, planted_fd_lake
 from repro.core import batched as ref_batched
 from repro.core import fd as ref_fd
 from repro.core import index as ref_index
+from repro.core import routing as ref_routing
 from repro.core import session as ref_session
 from repro.core import xash as ref_xash
-from repro_torch.core import batched, corpus as port_corpus, fd, index, session, xash
+from repro_torch.core import batched, corpus as port_corpus, fd, index, routing, session, xash
 
 PORT_BACKENDS = ("fused-gather", "fused", "numpy")
 SEEDS = (0, 1, 2)
+SHARD_COUNTS = (1, 2, 4, 8)
 SCORE_ATOL = 1e-12
 STAT_FIELDS = ("fd_candidates", "fd_validated", "fd_bytes_verified", "verified_tp",
                "verified_fp", "filter_checks", "filter_passed", "pl_items_checked")
@@ -207,3 +212,29 @@ def test_helpers_match_reference():
         assert fd._token_jaccard(fd._name_tokens(name), other) == ref_fd._token_jaccard(
             ref_fd._name_tokens(name), other
         )
+
+
+@pytest.mark.parametrize("bits", ALL_BITS)
+@pytest.mark.parametrize("n_shards", SHARD_COUNTS)
+def test_routed_bit_identical(bits, n_shards):
+    """``discover_fds`` on the routed lake: the verdict sequence equals the
+    reference's on its routed and single-host indexes, and validation
+    re-gathers the survivors' rows from their owning shards."""
+    corpus, query, det, dep, ref, _port, pq = _lake(1, bits)
+    ref_routed, _ = ref_routing.build_routed_index(
+        corpus, cfg=ref_xash.XashConfig(bits=bits), n_shards=n_shards
+    )
+    routed, _ = routing.build_routed_index(
+        _port_corpus(corpus), cfg=xash.XashConfig(bits=bits), n_shards=n_shards, device="cpu"
+    )
+    want_single = ref_fd.discover_fds(ref, query, det, dep, backend="numpy")
+    want = ref_fd.discover_fds(ref_routed, query, det, dep, backend="numpy")
+    assert _verdicts(want[0]) == _verdicts(want_single[0])
+    for backend in PORT_BACKENDS:
+        got = fd.discover_fds(routed, pq, det, dep, backend=backend)
+        _assert_same(got, want)
+        assert _verdicts(got[0]) == _verdicts(want[0])
+        for name in ("shard_launches", "route_bytes_merged"):
+            assert getattr(got[1], name) == getattr(want[1], name), name
+        if n_shards > 1:
+            assert got[1].fd_bytes_verified > 0

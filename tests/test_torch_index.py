@@ -154,6 +154,10 @@ def test_cuda_is_the_default_device(lake, monkeypatch):
 
 
 def test_sharded_build_not_ported(lake):
+    """The sharded build is ported (``tests/test_torch_sharded_build.py``
+    holds its matrix): ``n_shards=2`` builds what the reference builds."""
     corpus, _q, _c = lake
-    with pytest.raises(NotImplementedError, match="A.7"):
-        index.build_index(_port_corpus(corpus), n_shards=2, device="cpu")
+    port, stats = index.build_index(_port_corpus(corpus), n_shards=2, device="cpu")
+    ref, ref_stats = ref_index.build_index(corpus, n_shards=2)
+    _assert_equal(ref, port)
+    assert stats.sharded and stats.shard_rows == ref_stats.shard_rows

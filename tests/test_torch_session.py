@@ -220,11 +220,14 @@ def test_build_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_unported_parts_raise():
+    """Nothing of the session's build raises any more: the routed
+    (``distributed=True``) and the sharded (``n_shards``) builds are ported
+    (``tests/test_torch_routed.py``, ``tests/test_torch_sharded_build.py``)."""
     corpus = synthetic.make_corpus(synthetic.SyntheticSpec(n_tables=10, seed=1))
-    with pytest.raises(NotImplementedError, match="A.7"):
-        session.MateSession.build(corpus, distributed=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        session.MateSession.build(corpus, n_shards=2, device="cpu")
+    routed = session.MateSession.build(corpus, distributed=True, device="cpu")
+    assert routed.index.routed and routed.index.n_shards == 1
+    sharded = session.MateSession.build(corpus, n_shards=2, device="cpu")
+    assert sharded.build_stats.sharded and not getattr(sharded.index, "routed", False)
 
 
 @pytest.mark.parametrize("seed,n_tables", [(0, 30), (7, 60)])

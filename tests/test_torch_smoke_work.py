@@ -296,3 +296,22 @@ def test_path_window_counts_only_inside():
 def test_every_kernel_has_a_home_path():
     assert set(chip_smoke.HOME_PATH) == set(chip_smoke.counters())
     assert set(chip_smoke.HOME_PATH.values()) == {"main_path", "ops_path", "serve"}
+
+
+@pytest.mark.parametrize("n_shards", [1, 3, 8])
+@pytest.mark.parametrize("backend", ["fused-gather", "numpy"])
+def test_route_accounting_matches_the_routed_stats(n_shards, backend):
+    """``route_accounting`` over the calls ``record_routed_calls`` sees is
+    what a host-routed ``discover`` counts: one launch per owning shard per
+    batch, each shipping its batch's int32 counts vector."""
+    from repro_torch.core import batched, routing
+    from repro_torch.data import synthetic
+
+    corpus = synthetic.make_corpus(synthetic.SyntheticSpec(n_tables=60, seed=3))
+    query, q_cols, _e, corpus = synthetic.make_query_with_ground_truth(corpus, seed=4)
+    idx = routing.ShardedMateIndex(corpus, n_shards=n_shards, device="cpu")
+    with chip_smoke.record_routed_calls(idx) as calls:
+        _, st = batched.discover_batched(idx, query, q_cols, k=20, batch_tables=8, backend=backend)
+    assert len(calls) > 1 and "routed_counts" not in vars(idx)
+    assert (st.shard_launches, st.route_bytes_merged) == chip_smoke.route_accounting(calls)
+    assert st.route_bytes_merged == sum(sh * n * 4 for sh, n in calls)
