@@ -55,7 +55,12 @@ Phases, each printing one JSON line:
 4. ops path — ``ops.filter_count`` over the session's superkeys against the
    ground-truth queries' keys, equal to the column sums of the match matrix
    (``ops.filter_match_auto`` on the 'pallas' backend, kernel B.4), then
-   B.5 timed at that shape beside its plain version and its bound;
+   B.5 timed at that shape beside its plain version and its bound; and the
+   C.5 wrappers: ``ops.superkey`` (B.3) over those keys, equal to the
+   index's key superkeys, ``ops.xash_values`` (B.3) over the lake's unique
+   values, equal to the build's value lanes, ``ops.filter_match`` (B.4)
+   over the superkeys × the keys, summing to the B.5 counts, each timed
+   beside its plain version on the same CUDA inputs;
 5. lanes — ``plan_and_count`` at ``filter_lanes`` 1, 2, 3 (the 128-bit
    session) and 5 (a 256-bit session of the same lake) under
    'fused-gather', for the ground-truth group (B.2) and the mixed group
@@ -97,16 +102,36 @@ Phases, each printing one JSON line:
    finite; prefill within 0.05 of max|logit| at every depth, decode at 1
    and 2 layers, the reference test's depth), beside the gap that one
    weight moved by one bf16 ulp makes in the forward at that depth, then
-   runs the port's ``launch.serve.main`` at its defaults.
+   runs the port's ``launch.serve.main`` at its defaults;
+10. driver — ``repro_torch.launch.discovery.main`` in this process at the
+   same lake (its tables reused from phase 1's draw, copied before any
+   planting) with ``DRIVER_ARGV``: 4 mixed queries of 20 rows, FDs, the
+   serving caches, a 4-shard routed lake, the build across 2 spawned ranks
+   and the row filter over 2 ranks (gloo on the one card); its printed
+   lines parsed and held (engine sets identical, routed bit-identical,
+   every request served and replayed from the cache, the 2-rank build
+   byte-identical, the 2-rank counts equal to
+   ``ops.filter_hits_table_counts`` on the card for the same keys);
+11. conformance — ``tests/test_conformance.py``'s scenario on the card:
+   every backend of the port's registry × 128/256/512 bits exactly equal to
+   'numpy' on ``discover_batched``, ``discover_many``, ``plan_and_count`` +
+   ``score_from_counts`` and ``discover_fds``, fused backends with no match
+   matrix;
+12. examples — each ``examples/torch_*.py`` twin at its defaults on the
+   card, exit 0, its lines equal to its ``--device cpu`` run's (times,
+   rates, sampled tokens and backend names masked).
 
-Launch counters are zeroed just before each path's own calls (3–9) and
-read just after; index builds of paths 5, 6 and 8, their references and their
-checks (numpy backends, full-width runs, cold ``discover``s, the serve
-phase's consistency check) run outside those windows.  Each kernel must
+Launch counters are zeroed just before each path's own calls (3–12) and
+read just after; index builds of paths 5, 6, 8 and 11, their references and
+their checks (numpy backends, full-width runs, cold ``discover``s, the serve
+phase's consistency check, the examples' CPU reruns) run outside those
+windows (the driver's and the examples' own builds are part of their runs
+and are counted).  Each kernel must
 have launched on its path.  Then the ``kernels`` summary line (each
 kernel's ``launches`` on its own path — the main path for B.1–B.4, the ops
 path for B.5, the serve path for B.6 — and ``launches_by_path``, every
-path's own count), the card's name and power limit, and last
+path's own count; the driver's spawned ranks report their launches in the
+``driver`` line), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any mismatch
 raises and the script exits non-zero without the last line.  It needs a
 CUDA device and the repository's ``src/`` beside it.
@@ -118,6 +143,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -200,6 +226,29 @@ MESH_RANKS = 2
 MESH_TIMEOUT_S = 300.0
 # serve phase
 SERVE_ARCH = "qwen1.5-0.5b"
+# driver phase: ``launch.discovery.main`` at the smoke's lake with these
+# flags, beside ``--n-tables`` and ``--seed`` (sizes from PERF.md §4)
+DRIVER_ARGV = ["--queries", "4", "--rows", "20", "--fds", "--result-cache", "32",
+               "--bound-cache", "32", "--route-shards", "4", "--build-mesh", "2", "--mesh", "2x1"]
+# the parent's launches: B.2 (discover, FD, routed shards), B.3 (builds and
+# query keys), B.4 (the mixed serving group and routed shards past the
+# table cap); the 2-rank filter's B.4 runs in the ranks
+DRIVER_KERNELS = ("gather_filter_table_counts", "xash_superkey", "filter_match")
+# conformance phase: tests/test_conformance.py's lake and k
+CONFORMANCE_LAKE = dict(n_tables=30, corpus_seed=3, n_queries=2, n_rows=8, key_width=2,
+                        query_seed=5)
+CONFORMANCE_K, CONFORMANCE_FD_SEED = 5, 3
+# examples phase: each twin and text its card run must print
+EXAMPLE_EXPECT = {
+    "torch_quickstart": ("filter backend: fused-gather [resolved from platform]", "precision="),
+    "torch_async_serving": ("served 60/60", "pump_errors=0", "after insert_table: from_cache=False"),
+    "torch_distributed_discovery": ("(impl=fused)", "most candidate-dense tables"),
+    "torch_serve_batched": ("8 requests, 128 new tokens", "(CUDA, reduced config)",
+                            "discovery: 6/6 requests served", "backend=fused-gather"),
+}
+# B.1 (the distributed twin's fused shard impl), B.2, B.3, B.6 (serve_batched)
+EXAMPLE_KERNELS = ("filter_table_counts", "gather_filter_table_counts", "xash_superkey",
+                   "flash_attention")
 SERVE_REQUESTS, SERVE_BATCH, SERVE_NEW, SERVE_MAX_SEQ = 8, 4, 32, 2080
 PROMPT_MIN, PROMPT_MAX = 512, 2048
 CONSIST_B, CONSIST_S = 2, 512  # decode-consistency check
@@ -966,34 +1015,82 @@ def main_path_phase(corpus, truth, mixed, b2_shapes, b3_shapes, b4_shapes):
 # ---------------------------------------------------------------------------
 
 def ops_phase(session, truth) -> dict[str, int]:
-    from repro_torch.core.xash import lanes_to_torch
+    """``ops.filter_count`` (B.5) and the C.5 wrappers at this path's
+    shapes: ``ops.superkey`` (B.3) over the ground-truth queries' keys,
+    equal to the index's own key superkeys; ``ops.xash_values`` (B.3) over
+    the lake's unique values, equal to the build's value lanes;
+    ``ops.filter_match`` (B.4) over the superkeys × those keys, whose column
+    sums are the B.5 counts.  One call of each is counted; each is then
+    timed beside its plain version on the same CUDA inputs (both read back
+    to the host, as the wrapper does)."""
+    from repro_torch.core import encoding
+    from repro_torch.core.xash import lanes_to_numpy, lanes_to_torch
     from repro_torch.kernels import filter_kernel as fk
     from repro_torch.kernels import ops
+    from repro_torch.kernels import xash_kernel as xk
 
-    keys = [tuple(row[c] for c in q_cols) for query, q_cols, _ in truth for row in query.cells]
-    q_sk = session.index.superkey_of_keys(list(dict.fromkeys(keys)))
+    keys = list(dict.fromkeys(
+        tuple(row[c] for c in q_cols) for query, q_cols, _ in truth for row in query.cells))
+    q_sk = session.index.superkey_of_keys(keys)
     rows = session.index.superkeys
+    cfg = session.index.cfg
+    corpus = session.index.corpus
     dev = torch.device("cuda")
+    enc_keys = encoding.encode_values([v for k in keys for v in k], cfg.max_len).reshape(
+        len(keys), len(keys[0]), cfg.max_len)
     zero_counts()
     t = time.perf_counter()
     counts = ops.filter_count(rows, q_sk, device=dev)
     wall = time.perf_counter() - t
-    launches = read_counts(("filter_count",), "ops path")
+    key_sk = ops.superkey(enc_keys, cfg, device=dev)
+    value_lanes = ops.xash_values(corpus.unique_enc, cfg, device=dev)
+    match = ops.filter_match(rows, q_sk, device=dev)
+    launches = read_counts(("filter_count", "xash_superkey", "filter_match"), "ops path")
     match_sum = ops.filter_match_auto(rows, q_sk, "pallas", device=dev).sum(axis=0, dtype=np.int32)
     if not np.array_equal(counts, match_sum):
         raise AssertionError("ops.filter_count differs from the match matrix's column sums")
+    if not np.array_equal(match.sum(axis=0, dtype=np.int32), counts):
+        raise AssertionError("ops.filter_match's column sums differ from ops.filter_count")
+    if not np.array_equal(key_sk, q_sk):
+        raise AssertionError("ops.superkey differs from the index's key superkeys")
+    if not np.array_equal(value_lanes, session.index.value_lanes):
+        raise AssertionError("ops.xash_values differs from the build's value lanes")
     # B.5 at this path's own shape
     rt, qt = lanes_to_torch(rows, dev), lanes_to_torch(q_sk, dev)
     err = max_abs_err(fk.filter_count(rt, qt), fk.filter_count_plain(rt, qt))
     if err:
         raise AssertionError(f"filter_count at the ops path's shape: max_abs_err={err}")
     b_ms, b_by = bound(*count_work(rt.shape[0], rt.shape[1], qt.shape[0]))
+    # the wrappers on CUDA tensors, each against its plain version on them
+    enc_t = torch.from_numpy(enc_keys).to(dev)
+    val_t = torch.from_numpy(corpus.unique_enc).to(dev)
+    wrappers = {
+        "superkey": (lambda: ops.superkey(enc_t, cfg),
+                     lambda: lanes_to_numpy(xk.xash_superkey_plain(enc_t, cfg)),
+                     xash_work(enc_t, cfg), f"keys [{len(keys)}, {enc_keys.shape[1]}, {cfg.max_len}]"),
+        "xash_values": (lambda: ops.xash_values(val_t, cfg),
+                        lambda: lanes_to_numpy(xk.xash_superkey_plain(val_t[:, None], cfg)),
+                        xash_work(val_t[:, None], cfg), f"values [{val_t.shape[0]}, {cfg.max_len}]"),
+        "filter_match": (lambda: ops.filter_match(rt, qt),
+                         lambda: fk.filter_match_plain(rt, qt).view(torch.bool).cpu().numpy(),
+                         match_work(rt.shape[0], rt.shape[1], qt.shape[0]),
+                         f"rows {rt.shape[0]} x keys {qt.shape[0]} x {rt.shape[1]} lanes"),
+    }
+    timed = {}
+    for name, (kernel, plain, work, shape) in wrappers.items():
+        got, want = kernel(), plain()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"ops.{name} differs from its plain version on the card")
+        w_ms, w_by = bound(*work)
+        timed[name] = {"shape": shape, "max_abs_err": 0, "ms": cuda_ms(kernel, REPS),
+                       "plain_ms": cuda_ms(plain, 1), "bound_ms": w_ms, "bound_by": w_by}
     emit({"phase": "ops_path", "rows": int(rows.shape[0]), "lanes": int(rows.shape[1]),
           "query_keys": int(q_sk.shape[0]), "counts_min": int(counts.min()),
           "counts_max": int(counts.max()), "wall_s": wall, "launches": launches,
           "filter_count": {"max_abs_err": err, "ms": cuda_ms(lambda: fk.filter_count(rt, qt), REPS),
                            "plain_ms": cuda_ms(lambda: fk.filter_count_plain(rt, qt), 1),
-                           "bound_ms": b_ms, "bound_by": b_by}})
+                           "bound_ms": b_ms, "bound_by": b_by},
+          "wrappers": timed})
     return launches
 
 
@@ -1854,6 +1951,291 @@ def serve_phase(seed) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the discovery driver, as a user runs it, at the smoke's lake
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def reuse_corpus(spec, cells):
+    """While active, ``synthetic.make_corpus(spec)`` returns a corpus built
+    from ``cells`` — the tables that call generated earlier in this run,
+    copied before any query was planted into them — instead of drawing
+    them again (minutes of host time at 20,000 tables)."""
+    from repro_torch.core.corpus import Corpus, Table
+    from repro_torch.data import synthetic
+
+    original = synthetic.make_corpus
+
+    def make(s):
+        if s != spec:
+            return original(s)
+        return Corpus([Table(tid, [list(r) for r in rows]) for tid, rows in enumerate(cells)])
+
+    synthetic.make_corpus = make
+    try:
+        yield
+    finally:
+        synthetic.make_corpus = original
+
+
+@contextlib.contextmanager
+def record_calls(module, name: str):
+    """While active, every call of ``module.name`` appends (args, result)."""
+    inner, calls = getattr(module, name), []
+
+    def recording(*args):
+        out = inner(*args)
+        calls.append((args, out))
+        return out
+
+    setattr(module, name, recording)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, inner)
+
+
+def _one(pattern: str, lines: list[str]) -> re.Match:
+    hits = [m for m in (re.search(pattern, ln) for ln in lines) if m]
+    if len(hits) != 1:
+        raise AssertionError(f"expected one driver line matching {pattern!r}, got {len(hits)}")
+    return hits[0]
+
+
+def driver_phase(args, cells) -> dict[str, int]:
+    """``repro_torch.launch.discovery.main`` in this process at the smoke's
+    lake (``--n-tables`` tables from ``--seed``): the default config (128
+    bits, 'fused-gather', rank 'quality', gate on), ``DRIVER_ARGV`` — FDs,
+    the serving caches, a 4-shard routed lake, the build across 2 ranks and
+    the row filter over 2 ranks.  Its printed lines are parsed and held:
+    every engine set identical, the routed top-k bit-identical, every
+    request served and every replay from the cache, the 2-rank build
+    byte-identical (the driver exits otherwise) and the 2-rank filter's
+    counts equal to ``ops.filter_hits_table_counts`` over every corpus row
+    for the same keys (kernel B.4 on the card; rows with a hit per table,
+    matching rows per key).  Launches are counted around ``main`` only: the
+    parent's; the ranks report their own."""
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import discovery as drv
+
+    argv = ["--n-tables", str(args.n_tables), "--seed", str(args.seed), *DRIVER_ARGV]
+    total, buf = collections.Counter(), io.StringIO()
+    spec = synthetic.SyntheticSpec(n_tables=args.n_tables, seed=args.seed)
+    with reuse_corpus(spec, cells), record_calls(drv, "mesh_build") as builds, \
+            record_calls(drv, "mesh_filter") as filters:
+        t = time.perf_counter()
+        try:
+            with path_window(total), contextlib.redirect_stdout(buf):
+                drv.main(argv)
+                torch.cuda.synchronize()
+        except BaseException:
+            print(buf.getvalue(), file=sys.stderr)
+            raise
+        wall = time.perf_counter() - t
+    lines = buf.getvalue().splitlines()
+    launches = check_counts(total, DRIVER_KERNELS, "driver path")
+
+    n_queries = int(DRIVER_ARGV[DRIVER_ARGV.index("--queries") + 1])
+    if sum("engines_set_identical=True" in ln for ln in lines) != n_queries:
+        raise AssertionError("an engine set differs (or a query line is missing)")
+    total_m = _one(r"total: precision=([\d.]+) filter_checks=(\d+) seq=([\d.]+)s "
+                   r"batched=([\d.]+)s", lines)
+    routed_m = _one(r"routed lake \((\d+) shards.*bit_identical=(\w+), shard_launches=(\d+), "
+                    r"gather_demotions=(\d+)", lines)
+    traffic_m = _one(r"route_bytes_merged=(\d+)B .* vs (\d+)B", lines)
+    served_m = _one(r"DiscoveryEngine: (\d+) requests .*all_served=(\w+)", lines)
+    cache_m = _one(r"serving caches: .*cache_hits=(\d+), bound_hits=(\d+), all_from_cache=(\w+)",
+                   lines)
+    build_m = _one(r"build stats: shards=(\d+) mesh=\{'data': (\d+)\} hash=([\d.]+)s "
+                   r"superkeys=([\d.]+)s postings=([\d.]+)s merge=([\d.]+)s", lines)
+    fd_m = _one(r"FD workload .*candidates=(\d+) validated=(\d+) pruned=(\d+) "
+                r"bytes_verified=(\d+)B", lines)
+    mesh_m = _one(r"distributed filter on mesh 2x1 \(impl=(\w+)\): (\d+) candidate rows across "
+                  r"(\d+) tables in ([\d.]+)s", lines)
+    if routed_m.group(2) != "True":
+        raise AssertionError("routed top-k is not bit-identical")
+    if served_m.group(2) != "True" or cache_m.group(3) != "True":
+        raise AssertionError("a request was not served, or a replay missed the cache")
+    if build_m.group(1, 2) != ("2", "2") or len(builds) != 1:
+        raise AssertionError("the build did not run across 2 ranks")
+    digests = {r["digest"] for r in builds[0][1]}
+    if len(digests) != 1:
+        raise AssertionError("the build ranks' artifacts differ")
+
+    # the 2-rank filter's counts against the single-host launch
+    (superkeys, row_tables, qsk, n_tables, _backend, world, _dev), ranks = filters[0]
+    dev = torch.device("cuda")
+    elig = np.ones((superkeys.shape[0], qsk.shape[0]), dtype=bool)
+    hits, _ = ops.filter_hits_table_counts(superkeys, qsk, elig, row_tables, n_tables,
+                                           backend="pallas", device=dev)
+    rt = torch.from_numpy(row_tables).to(dev).long()
+    any_counts = torch.zeros(n_tables, dtype=torch.int64, device=dev).index_add_(
+        0, rt, hits.any(dim=1).long()).cpu().numpy()
+    key_counts = hits.sum(dim=0).cpu().numpy()
+    for r in ranks:
+        if not (np.array_equal(r["table_counts"], any_counts)
+                and np.array_equal(r["key_counts"], key_counts)):
+            raise AssertionError("the mesh filter's counts differ from the single-host launch")
+    if int(mesh_m.group(2)) != int(any_counts.sum()) or int(mesh_m.group(3)) != int((any_counts > 0).sum()):
+        raise AssertionError("the printed mesh counts differ from the single-host launch")
+
+    emit({"phase": "driver", "argv": argv, "wall_s": wall, "queries": n_queries,
+          "seq_s": float(total_m.group(3)), "batched_s": float(total_m.group(4)),
+          "precision": float(total_m.group(1)), "filter_checks": int(total_m.group(2)),
+          "routed": {"shards": int(routed_m.group(1)), "bit_identical": True,
+                     "shard_launches": int(routed_m.group(3)),
+                     "gather_demotions": int(routed_m.group(4)),
+                     "route_bytes_merged": int(traffic_m.group(1)),
+                     "host_gather_bytes": int(traffic_m.group(2))},
+          "served": int(served_m.group(1)), "all_served": True,
+          "cache_hits": int(cache_m.group(1)), "bound_hits": int(cache_m.group(2)),
+          "all_from_cache": True,
+          "build_mesh": {"ranks": len(builds[0][1]), "byte_identical": True,
+                         "rank_build_s": [r["seconds"] for r in builds[0][1]],
+                         "hash_s": float(build_m.group(3)), "superkeys_s": float(build_m.group(4)),
+                         "postings_s": float(build_m.group(5)), "merge_s": float(build_m.group(6))},
+          "fd": {"candidates": int(fd_m.group(1)), "validated": int(fd_m.group(2)),
+                 "pruned": int(fd_m.group(3)), "bytes_verified": int(fd_m.group(4))},
+          "mesh_filter": {"ranks": world, "impl": mesh_m.group(1), "n_tables": n_tables,
+                          "query_keys": int(qsk.shape[0]), "rows_with_hits": int(any_counts.sum()),
+                          "tables_with_hits": int((any_counts > 0).sum()),
+                          "counts_equal_single_host": True, "s": float(mesh_m.group(4)),
+                          "rank_launches": [r["launches"] for r in ranks]},
+          "launches": launches, "lines": lines})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: two-package conformance, the port's half, on the card
+# ---------------------------------------------------------------------------
+
+def conformance_phase() -> dict[str, int]:
+    """``tests/test_conformance.py``'s scenario on the card: the lake of
+    ``conftest.mixed_query_lake`` with that module's parameters (re-made by
+    the port's generator), the planted-FD lake of seed 3, every backend of
+    the port's registry × 128/256/512 bits against 'numpy' on
+    ``discover_batched``, ``discover_many``, ``plan_and_count``'s count
+    vectors with ``score_from_counts`` at two k, and ``discover_fds``'s
+    verdicts — exactly — with the stats invariant: fused backends report
+    ``filter_matrix_bytes == 0``, the others more.  Launches are counted
+    around the compared backends' calls; the builds and 'numpy''s answers
+    run outside."""
+    from repro_torch.core import batched, fd, xash
+    from repro_torch.core.index import build_index
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import registry
+
+    lake = CONFORMANCE_LAKE
+    corpus = synthetic.make_corpus(synthetic.SyntheticSpec(n_tables=lake["n_tables"],
+                                                           seed=lake["corpus_seed"]))
+    queries = synthetic.make_mixed_queries(corpus, lake["n_queries"], lake["n_rows"],
+                                           lake["key_width"], seed=lake["query_seed"])
+    fd_corpus, fd_query, det_cols, dep_col = planted_fd_lake(CONFORMANCE_FD_SEED)
+    k = CONFORMANCE_K
+    total, cells, t0 = collections.Counter(), {}, time.perf_counter()
+
+    def surfaces(idx, fd_idx, bk):
+        single, st = batched.discover_batched(idx, queries[0][0], queries[0][1], k=k, backend=bk)
+        many = batched.discover_many(idx, queries, k=k, backend=bk)
+        pcs = batched.plan_and_count(idx, queries, bk)
+        scored = [[key(batched.score_from_counts(idx, pc, kk)[0]) for pc in pcs] for kk in (k, 3)]
+        fds, fd_st = fd.discover_fds(fd_idx, fd_query, det_cols, dep_col, backend=bk)
+        torch.cuda.synchronize()
+        answers = {"discover_batched": key(single), "discover_many": [key(e) for e, _ in many],
+                   "counts": [np.asarray(pc.counts).tolist() for pc in pcs], "scored": scored,
+                   "fds": [dataclasses.astuple(c) for c in fds]}
+        return answers, {"discover": st.filter_matrix_bytes, "fd": fd_st.filter_matrix_bytes,
+                         "filter_checks": st.filter_checks}
+
+    for bits in (128, 256, 512):
+        idx = build_index(corpus, cfg=xash.XashConfig(bits=bits))[0]
+        fd_idx = build_index(fd_corpus, cfg=xash.XashConfig(bits=bits))[0]
+        want, _ = surfaces(idx, fd_idx, registry.resolve_backend("numpy"))
+        if not (want["discover_batched"] and want["fds"]):
+            raise AssertionError("the conformance lake gives empty answers")
+        for name in registry.backend_names():
+            bk = registry.resolve_backend(name)
+            with path_window(total):
+                got, matrix = surfaces(idx, fd_idx, bk)
+            drift = [s for s in want if got[s] != want[s]]
+            if drift:
+                raise AssertionError(f"{name} at {bits} bits differs from 'numpy' on {drift}")
+            if bk.fused and (matrix["discover"] or matrix["fd"]):
+                raise AssertionError(f"{name} at {bits} bits materialised a match matrix")
+            if not bk.fused and not (matrix["filter_checks"] and matrix["discover"] > 0):
+                raise AssertionError(f"{name} at {bits} bits reports no match matrix")
+            cells[f"{name}@{bits}"] = {"filter_matrix_bytes": matrix["discover"],
+                                       "fd_filter_matrix_bytes": matrix["fd"]}
+    launches = check_counts(total, MAIN_PATH_KERNELS, "conformance path")
+    emit({"phase": "conformance", "backends": list(registry.backend_names()),
+          "bits": [128, 256, 512], "identical_to_numpy": True, "cells": cells,
+          "wall_s": time.perf_counter() - t0, "launches": launches})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the example twins on the card
+# ---------------------------------------------------------------------------
+
+def examples_phase() -> dict[str, int]:
+    """Each ``examples/torch_*.py`` twin's ``main`` at its defaults on the
+    card (counted), then with ``--device cpu`` (not counted).  Each must
+    exit 0 and print what it should (``EXAMPLE_EXPECT``); the lines
+    ``tests/test_torch_examples.py`` holds equal to the reference example's
+    must be equal between the card and the CPU, with times, rates, sampled
+    tokens and the backend's name (the card's default is the gather kernel)
+    masked."""
+    import importlib.util
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+    masks = [(re.compile(r"\d+\.\d+s\b"), "<t>s"), (re.compile(r"\d+\.\d+ tok/s"), "<rate> tok/s"),
+             (re.compile(r"\.\.\. -> \[.*\]$"), "... -> <sampled>"),
+             (re.compile(r"^latency: .*"), "latency: <masked>"),
+             (re.compile(r"\((CPU|CUDA), reduced"), "(<device>, reduced"),
+             (re.compile(r"backend(=|: )[\w-]+(\[\w+\]| \[resolved from \w+\])?"), "backend <b>"),
+             (re.compile(r"impl=[\w-]+"), "impl=<impl>")]
+
+    def masked(lines):
+        out = []
+        for line in lines:
+            for pattern, repl in masks:
+                line = pattern.sub(repl, line)
+            out.append(line)
+        return out
+
+    def run(name, argv, window):
+        spec = importlib.util.spec_from_file_location(f"twin_{name}", os.path.join(root, f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        buf, status, t = io.StringIO(), 0, time.perf_counter()
+        with window, contextlib.redirect_stdout(buf):
+            try:
+                module.main(argv)
+            except SystemExit as e:
+                status = e.code if isinstance(e.code, int) else 1
+            torch.cuda.synchronize()
+        return status, buf.getvalue().splitlines(), time.perf_counter() - t
+
+    total, report = collections.Counter(), {}
+    for name, expect in EXAMPLE_EXPECT.items():
+        status, lines, wall = run(name, [], path_window(total))
+        cpu_status, cpu_lines, cpu_wall = run(name, ["--device", "cpu"], contextlib.nullcontext())
+        if status or cpu_status:
+            raise AssertionError(f"{name} exited {status} on the card, {cpu_status} on the CPU")
+        missing = [e for e in expect if not any(e in ln for ln in lines)]
+        if missing:
+            raise AssertionError(f"{name} printed none of {missing}")
+        if masked(lines) != masked(cpu_lines):
+            raise AssertionError(f"{name}: the card's lines differ from the CPU's:\n"
+                                 + "\n".join(lines) + "\n---\n" + "\n".join(cpu_lines))
+        report[name] = {"exit": status, "wall_s": wall, "cpu_wall_s": cpu_wall,
+                        "compared_lines": masked(lines)}
+    launches = check_counts(total, EXAMPLE_KERNELS, "examples path")
+    emit({"phase": "examples", "twins": report, "launches": launches})
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-tables", type=int, default=20000, help="tables in the main path's lake")
@@ -1882,6 +2264,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     corpus = synthetic.make_corpus(synthetic.SyntheticSpec(n_tables=args.n_tables, seed=args.seed))
+    lake_cells = [[list(r) for r in t.cells] for t in corpus.tables]  # before any planting
     truth = []  # ground-truth queries, each planted into the lake
     for i in range(N_TRUTH):
         query, q_cols, expected, corpus = synthetic.make_query_with_ground_truth(
@@ -1914,6 +2297,10 @@ def main() -> int:
     by_path["routed"] = routed_phase(corpus, truth, mixed)
     by_path["serving_tier"] = serving_phase(corpus, truth, mixed, args.seed)
     by_path["serve"] = serve_phase(args.seed)
+    by_path["driver"] = driver_phase(args, lake_cells)
+    del lake_cells
+    by_path["conformance"] = conformance_phase()
+    by_path["examples"] = examples_phase()
     # ``launches``: the count on the kernel's own path (HOME_PATH); every
     # path that launched it, with its own count, beside it
     for name, row in rows.items():

@@ -2,8 +2,11 @@
 
 The filter wrappers take the engines' host arrays (uint32 superkeys, bool
 eligibility, int32 table ids), move them to the device, dispatch on the
-resolved backend (``kernels.registry``) and return host arrays.  ``flash_attention`` takes and returns tensors, on
-the reference's ``[B, S, H, d]`` layout.  The reference's padding to block
+resolved backend (``kernels.registry``) and return host arrays.
+``superkey`` / ``xash_values`` (kernel B.3) and ``filter_match`` (B.4) take
+host arrays or tensors and return host arrays, as the engines' callers
+use them.  ``flash_attention`` takes and returns tensors, on the
+reference's ``[B, S, H, d]`` layout.  The reference's padding to block
 multiples and shape buckets is gone: the CUDA kernels mask their own ragged
 edges and PyTorch compiles nothing per shape.
 
@@ -26,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.xash import lanes_to_numpy, lanes_to_torch
+from repro_torch.core.xash import DEFAULT_CONFIG, XashConfig, lanes_to_numpy, lanes_to_torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import filter_kernel, flash_kernel, registry, xash_kernel
 from repro_torch.kernels.registry import Backend
@@ -59,6 +62,55 @@ def _check_fused_block_n(block_n: int) -> None:
         raise ValueError(
             f"fused_block_n must be a power of two >= 128, got {block_n}"
         )
+
+
+def fused_filter_default() -> bool:
+    """True when the unpinned dispatch resolves to a fused counts-only
+    launch (the backend variable, ``registry.ENV_VAR``, naming a fused
+    backend, or a CUDA device, whose default is the gather kernel).
+    Selection itself lives in ``kernels.registry``; this is a convenience
+    predicate over it."""
+    return registry.resolve_backend().fused
+
+
+def _on_device(a: np.ndarray | torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:
+    """``a`` as a contiguous ``dtype`` tensor on ``device`` (None: a
+    tensor's own device, else the CUDA device)."""
+    if isinstance(a, torch.Tensor):
+        dev = a.device if device is None else resolve_device(device)
+        return a.to(dev, dtype).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(a)).to(resolve_device(device), dtype)
+
+
+def _lanes_on(lanes: np.ndarray | torch.Tensor, device) -> torch.Tensor:
+    """Superkey lanes as an int32 tensor (uint32 bit patterns) on ``device``."""
+    if isinstance(lanes, torch.Tensor):
+        return _on_device(lanes, torch.int32, device)
+    return lanes_to_torch(lanes, resolve_device(device))
+
+
+def superkey(
+    enc_rows: np.ndarray | torch.Tensor,
+    cfg: XashConfig = DEFAULT_CONFIG,
+    *,
+    device=None,
+) -> np.ndarray:
+    """Super keys of encoded rows (kernel B.3): uint8[n, n_cols, max_len] ->
+    uint32[n, lanes] on the host.  The reference's ``block_n`` /
+    ``interpret`` knobs are left out: the kernel sizes its own blocks."""
+    enc = _on_device(enc_rows, torch.uint8, device)
+    return lanes_to_numpy(xash_kernel.xash_superkey(enc, cfg))
+
+
+def xash_values(
+    enc_values: np.ndarray | torch.Tensor,
+    cfg: XashConfig = DEFAULT_CONFIG,
+    *,
+    device=None,
+) -> np.ndarray:
+    """Per-value XASH: uint8[n, max_len] -> uint32[n, lanes] (1-cell rows)."""
+    enc = _on_device(enc_values, torch.uint8, device)
+    return lanes_to_numpy(xash_kernel.xash_values(enc, cfg))
 
 
 def _bool_t(a: np.ndarray | None, device) -> torch.Tensor | None:
@@ -147,6 +199,22 @@ def subsume_np(row_sk: np.ndarray, query_sk: np.ndarray) -> np.ndarray:
     rows = np.asarray(row_sk, dtype=np.uint32)
     qry = np.asarray(query_sk, dtype=np.uint32)
     return np.all((qry[None, :, :] & ~rows[:, None, :]) == 0, axis=-1)
+
+
+def filter_match(
+    row_sk: np.ndarray | torch.Tensor,
+    query_sk: np.ndarray | torch.Tensor,
+    *,
+    device=None,
+) -> np.ndarray:
+    """Subsumption match matrix (kernel B.4): (uint32[n, lanes],
+    uint32[q, lanes]) -> bool[n, q] on the host, the kernel's int8 matrix
+    read as bool.  The kernel pads nothing, so there is nothing to slice
+    off; the reference's ``block_n`` / ``block_q`` / ``interpret`` knobs are
+    left out."""
+    rows = _lanes_on(row_sk, device)
+    qry = _lanes_on(query_sk, rows.device)
+    return filter_kernel.filter_match(rows, qry).view(torch.bool).cpu().numpy()
 
 
 def _device_match(backend: str, row_sk, query_sk, device) -> torch.Tensor:

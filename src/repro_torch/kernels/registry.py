@@ -21,7 +21,9 @@ What each name runs in the port:
   * ``auto``         — numpy for small blocks, else ``xla``.
 
 On CPU tensors the kernel backends run their kernels' plain versions.
-No other module of the port reads ``MATE_FILTER_BACKEND``.
+``register_backend`` is the extension point; the built-in table above is
+registered through it.  No other module of the port reads
+``MATE_FILTER_BACKEND``.
 """
 
 from __future__ import annotations
@@ -79,23 +81,36 @@ class Backend:
         return self.name
 
 
-_REGISTRY: dict[str, BackendSpec] = {
-    spec.name: spec
-    for spec in (
-        BackendSpec("fused", "fused filter+segment-count CUDA kernel (counts-only"
-                    " readback; plain torch on CPU tensors)", fused=True),
-        BackendSpec("fused-gather", "gather-fused CUDA kernel: reads candidate rows"
-                    " from the device superkey store inside the fused counts-only"
-                    " launch (demotes to 'fused' when the store is absent or over"
-                    " budget)", fused=True, gather=True),
-        BackendSpec("pallas", "CUDA match-matrix kernel + torch segment-sum"
-                    " (name kept from the reference)"),
-        BackendSpec("xla", "vectorised plain-torch subsumption on the device"
-                    " (name kept from the reference)"),
-        BackendSpec("numpy", "host-side numpy oracle", device=False),
-        BackendSpec("auto", "size-based numpy/plain-torch split (CPU default)"),
-    )
-}
+_REGISTRY: dict[str, BackendSpec] = {}
+
+
+def register_backend(spec: BackendSpec) -> BackendSpec:
+    """Register a filter backend; names are unique and immutable."""
+    if spec.name in _REGISTRY:
+        raise ValueError(f"backend {spec.name!r} already registered")
+    _REGISTRY[spec.name] = spec
+    return spec
+
+
+register_backend(BackendSpec(
+    "fused", "fused filter+segment-count CUDA kernel (counts-only readback;"
+    " plain torch on CPU tensors)", fused=True,
+))
+register_backend(BackendSpec(
+    "fused-gather", "gather-fused CUDA kernel: reads candidate rows from the"
+    " device superkey store inside the fused counts-only launch (demotes to"
+    " 'fused' when the store is absent or over budget)", fused=True, gather=True,
+))
+register_backend(BackendSpec(
+    "pallas", "CUDA match-matrix kernel + torch segment-sum (name kept from"
+    " the reference)",
+))
+register_backend(BackendSpec(
+    "xla", "vectorised plain-torch subsumption on the device (name kept from"
+    " the reference)",
+))
+register_backend(BackendSpec("numpy", "host-side numpy oracle", device=False))
+register_backend(BackendSpec("auto", "size-based numpy/plain-torch split (CPU default)"))
 
 
 def backend_names() -> tuple[str, ...]:

@@ -98,6 +98,18 @@ def rank_devices(world_size: int) -> list[str]:
     return [f"cuda:{r % cards}" for r in range(world_size)]
 
 
+def rank_layout(world_size: int, device=None) -> tuple[str, list[str]]:
+    """``(backend, rank devices)`` of a ``world_size``-rank group on this
+    host for work on ``device`` (None: the CUDA device): on the CPU every
+    rank over gloo; on CUDA the cards round robin (``rank_devices``), over
+    NCCL when every rank has a card of its own and gloo when ranks share
+    one."""
+    if resolve_device(device).type == "cpu":
+        return "gloo", ["cpu"] * world_size
+    backend = "nccl" if torch.cuda.device_count() >= world_size else "gloo"
+    return backend, rank_devices(world_size)
+
+
 def _rank_main(fn, rank, world_size, backend, device, store_path, args, results, timeout_s):
     """One spawned rank: join the group, run ``fn(mesh, *args)``, report
     ``(rank, ok, result or traceback)``."""

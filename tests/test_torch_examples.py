@@ -1,0 +1,80 @@
+"""The example twins (``examples/torch_*.py``) against the reference's
+examples.
+
+Each pair runs in this process at a small size (where the example has
+flags), the twin with ``--device cpu``.  Their printed lines must be equal
+except where a line reports a time, a rate or sampled tokens: those parts
+are masked, and the rest of the line is still compared.  The LM tokens of
+``torch_serve_batched.py`` are not compared: the port samples from a
+``torch.Generator``, not ``jax.random``; its prompts, token counts and
+discovery side are.
+"""
+
+import contextlib
+import importlib.util
+import io
+import re
+import sys
+from pathlib import Path
+
+import pytest
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+
+# example -> (argv of both, masks applied to both outputs)
+_TIME = (re.compile(r"\d+\.\d+s\b"), "<t>s")
+CASES = {
+    "quickstart": ([], []),
+    "distributed_discovery": ([], [_TIME]),
+    "async_serving": (
+        ["--requests", "24", "--n-tables", "60"],
+        [(re.compile(r"^latency: .*"), "latency: <masked>")],
+    ),
+    "serve_batched": (
+        ["--requests", "2", "--max-new", "4", "--disc-requests", "3"],
+        [(re.compile(r"\d+\.\d+ tok/s"), "<rate> tok/s"),
+         (re.compile(r"\.\.\. -> \[.*\]$"), "... -> <sampled tokens>")],
+    ),
+}
+
+
+def _load(name: str):
+    spec = importlib.util.spec_from_file_location(f"example_{name}", EXAMPLES / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _lines(fn) -> list[str]:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn()
+    return buf.getvalue().splitlines()
+
+
+def _mask(lines, masks):
+    out = []
+    for line in lines:
+        for pattern, repl in masks:
+            line = pattern.sub(repl, line)
+        out.append(line)
+    return out
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_twin_prints_the_reference_lines(name, monkeypatch):
+    argv, masks = CASES[name]
+    monkeypatch.setattr(sys, "argv", [f"{name}.py", *argv])
+    want = _lines(_load(name).main)  # the reference examples read sys.argv
+    got = _lines(lambda: _load(f"torch_{name}").main([*argv, "--device", "cpu"]))
+    assert _mask(got, masks) == _mask(want, masks)
+    assert len(got) >= 3
+
+
+def test_serve_batched_twin_served_every_submitted_request():
+    """With enough decode ticks every discovery request is submitted and
+    served, and the LM side produced its tokens."""
+    got = _lines(lambda: _load("torch_serve_batched").main(
+        ["--requests", "2", "--max-new", "12", "--disc-requests", "3", "--device", "cpu"]))
+    assert any(ln.startswith("qwen1.5-0.5b-smoke: 2 requests, 24 new tokens") for ln in got)
+    assert any(ln.startswith("discovery: 3/3 requests served") for ln in got)

@@ -1,8 +1,9 @@
 """Guards of the port's boundaries.
 
-* Importing every module of ``repro_torch`` (in a fresh interpreter) leaves
-  ``jax``, ``repro`` and ``triton`` out of ``sys.modules``, and neither the
-  package nor ``chip_smoke.py`` has an import statement naming them.
+* Importing every module of ``repro_torch`` and every example twin
+  (``examples/torch_*.py``), in a fresh interpreter, leaves ``jax``,
+  ``repro`` and ``triton`` out of ``sys.modules``, and neither the package,
+  the twins nor ``chip_smoke.py`` has an import statement naming them.
 * ``MATE_FILTER_BACKEND`` has one reader in the port: ``kernels/registry.py``.
 * No module builds or imports a kernel toolchain at import time.
 """
@@ -21,6 +22,7 @@ MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     for p in PKG.rglob("*.py")
 )
+TWINS = sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro", "triton")
 
 
@@ -36,9 +38,12 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_importing_the_port_pulls_in_no_reference_or_toolchain():
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m.replace('.__init__', ''))\n"
+        f"for i, path in enumerate({[str(p) for p in TWINS]!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'twin{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
         "print('BAD', bad)\n"
     )
@@ -51,11 +56,18 @@ def test_importing_the_port_pulls_in_no_reference_or_toolchain():
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PKG.rglob("*.py")) + TWINS + [ROOT / "chip_smoke.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_import_statement_names_reference_or_jax(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+def test_every_reference_example_has_a_twin():
+    assert [p.name for p in TWINS] == sorted(
+        f"torch_{name}.py" for name in
+        ("quickstart", "async_serving", "distributed_discovery", "serve_batched")
+    )
 
 
 def test_filter_backend_env_var_has_one_reader():
