@@ -33,8 +33,12 @@ Phases, each printing one JSON line:
    of its 16-lane store beside 4, 8 and 16, exactly (the ``lanes`` line
    reports them); B.6 at MLA's head dims, [2, 512, 4, d 192, dv 128] and
    [2, 512, 4, d 24, dv 16], and at [2, 512, 4, d 20, dv 12] (padded to
-   multiples of 8 by the wrapper), causal and windowed, bf16 and f32, with
-   ``ptxas``'s report of the d-192 kernels (the ``flash_edge`` line).
+   multiples of 8 by the wrapper), causal and windowed, bf16 and f32, then
+   non-causal at the families' ragged lengths — whisper's encoder (S = T =
+   1500, d 64, H 8), llama-3.2-vision's cross-attention (S 512 and 2048 ×
+   T = 1601 patches, d 128, H 32) and whisper's cross-attention (S 256 × T
+   1500) — with ``ptxas``'s report of the d-192 kernels (the
+   ``flash_edge`` line).
    CUDA-event times of kernel and plain version, the bound
    (the least time the card could take: the larger of bytes over 3.35 TB/s
    and the operations this run's data needs over the peak rate of their
@@ -98,12 +102,26 @@ Phases, each printing one JSON line:
    ``--seed``) serves 8 requests (prompts of 512–2048 tokens drawn from
    ``--seed``, 32 new tokens each) in slot batches of 4, twice (greedy: the
    tokens must repeat), holds prefill and decode against the full forward
-   at every depth from 1 to 24 layers of the same weights (all logits
-   finite; prefill within 0.05 of max|logit| at every depth, decode at 1
-   and 2 layers, the reference test's depth), beside the gap that one
-   weight moved by one bf16 ulp makes in the forward at that depth, then
-   runs the port's ``launch.serve.main`` at its defaults;
-10. driver — ``repro_torch.launch.discovery.main`` in this process at the
+   at 1, 2, 6, 12 and 24 layers of the same weights (all logits finite;
+   prefill within 0.05 of max|logit| at every depth, decode at 1 and 2
+   layers, the reference test's depth), beside the gap that one weight
+   moved by one bf16 ulp makes in the forward at that depth, then runs the
+   port's ``launch.serve.main`` at its defaults;
+10. families — the other LM families at their published widths, one at a
+   time (``FAMILIES``: qwen2-moe 24 of 24 layers, mamba2 48 of 48,
+   llama-3.2-vision 40 of 40, whisper 6 + 6, jamba 8 of 32 — one block —
+   and deepseek-v3 4 of 61 with its MTP module built; depth cut only where
+   one card cannot hold the weights), random weights from ``--seed``: 4
+   requests in one slot group of 4 (prompts of 512–2048 tokens for
+   qwen2-moe, 64–256 for whisper, 256–1024 for the rest, the longest a
+   multiple of 64 so that MoE's 256-token groups divide B·S), 16 new
+   tokens, generated twice (greedy must repeat) with the stub frontends'
+   frames / patches; B.6 launches per prefill held to the table; every
+   logit of one more prefill and decode step finite; prefill/decode
+   consistency on the first 1 and 2 layers or blocks (``family_cut``,
+   ``family_consistency``); then ``launch.serve.main`` at full width for
+   qwen2-moe and with ``--smoke`` for all six;
+11. driver — ``repro_torch.launch.discovery.main`` in this process at the
    same lake (its tables reused from phase 1's draw, copied before any
    planting) with ``DRIVER_ARGV``: 4 mixed queries of 20 rows, FDs, the
    serving caches, a 4-shard routed lake, the build across 2 spawned ranks
@@ -112,24 +130,26 @@ Phases, each printing one JSON line:
    every request served and replayed from the cache, the 2-rank build
    byte-identical, the 2-rank counts equal to
    ``ops.filter_hits_table_counts`` on the card for the same keys);
-11. conformance — ``tests/test_conformance.py``'s scenario on the card:
+12. conformance — ``tests/test_conformance.py``'s scenario on the card:
    every backend of the port's registry × 128/256/512 bits exactly equal to
    'numpy' on ``discover_batched``, ``discover_many``, ``plan_and_count`` +
    ``score_from_counts`` and ``discover_fds``, fused backends with no match
    matrix;
-12. examples — each ``examples/torch_*.py`` twin at its defaults on the
+13. examples — each ``examples/torch_*.py`` twin at its defaults on the
    card, exit 0, its lines equal to its ``--device cpu`` run's (times,
    rates, sampled tokens and backend names masked).
 
-Launch counters are zeroed just before each path's own calls (3–12) and
-read just after; index builds of paths 5, 6, 8 and 11, their references and
+Launch counters are zeroed just before each path's own calls (3–13) and
+read just after; index builds of paths 5, 6, 8 and 12, their references and
 their checks (numpy backends, full-width runs, cold ``discover``s, the serve
-phase's consistency check, the examples' CPU reruns) run outside those
+and families phases' consistency checks and finite-logit prefills, the
+examples' CPU reruns) run outside those
 windows (the driver's and the examples' own builds are part of their runs
 and are counted).  Each kernel must
 have launched on its path.  Then the ``kernels`` summary line (each
 kernel's ``launches`` on its own path — the main path for B.1–B.4, the ops
-path for B.5, the serve path for B.6 — and ``launches_by_path``, every
+path for B.5, the serve path for B.6 (the families path beside it) — and
+``launches_by_path``, every
 path's own count; the driver's spawned ranks report their launches in the
 ``driver`` line), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any mismatch
@@ -143,6 +163,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -203,6 +224,19 @@ MIXED_MANY_LANES = (5,)  # the mixed group's discover_many (demoted to B.4)
 FLASH_EDGE = [(2, 512, 4, 192, 128), (2, 512, 4, 24, 16), (2, 512, 4, 20, 12)]
 FLASH_EDGE_WINDOWS = (0, 128)
 FLASH_EDGE_DTYPES = ((torch.bfloat16, 2e-2), (torch.float32, 1e-5))
+# B.6 non-causal, the families' calls: (B, S, T, H, d) with dv = d — whisper's
+# encoder (S = T = 1500 frames), llama-3.2-vision's cross-attention (T =
+# 1601 patches, S = the prompt), whisper's cross-attention (T = 1500)
+FLASH_NONCAUSAL = [(2, 1500, 1500, 8, 64), (2, 512, 1601, 32, 128), (2, 2048, 1601, 32, 128),
+                   (2, 256, 1500, 8, 64)]
+# their tolerances: a kernel that let in the last tile's zero-filled keys
+# past T (score 0, V 0) would scale every row by sum/(sum + n_pad), 1.4% at
+# T 1500 and 2.3% at T 1601.  With that fault planted the bf16 max_abs_err
+# read 0.0029-0.0117 and the mean |err| / mean |plain| 0.014-0.023; the
+# sound kernel reads one bf16 ulp (0.00098) and 4.5e-6 (one H100).  So bf16
+# is held at 2.5e-3 and the mean at FLASH_NONCAUSAL_MEAN_REL
+FLASH_NONCAUSAL_DTYPES = ((torch.bfloat16, 2.5e-3), (torch.float32, 1e-5))
+FLASH_NONCAUSAL_MEAN_REL = 1e-3
 # the discovery serving tier: a 512-bit session that degrades to 128 bits,
 # driven on a ManualClock by bursts of requests (their sizes sum to
 # SERVING_REQUESTS) drawn with a Zipf skew from the ground-truth and mixed
@@ -252,6 +286,26 @@ EXAMPLE_KERNELS = ("filter_table_counts", "gather_filter_table_counts", "xash_su
 SERVE_REQUESTS, SERVE_BATCH, SERVE_NEW, SERVE_MAX_SEQ = 8, 4, 32, 2080
 PROMPT_MIN, PROMPT_MAX = 512, 2048
 CONSIST_B, CONSIST_S = 2, 512  # decode-consistency check
+CONSIST_DEPTHS = (1, 2, 6, 12, 24)  # of qwen1.5-0.5b's 24 layers
+# families phase: (arch, layers kept, prompt lengths, B.6 launches per
+# prefill at that depth); widths are never cut, depth only where one card
+# cannot hold the weights
+FAMILIES = [
+    ("qwen2-moe-a2.7b", 24, (512, 2048), 24),
+    ("mamba2-1.3b", 48, (256, 1024), 0),
+    ("llama-3.2-vision-11b", 40, (256, 1024), 40),  # 32 self + 8 cross (T = 1601)
+    ("whisper-base", 6, (64, 256), 18),  # 6 encoder + 6 self + 6 cross (T = 1500)
+    ("jamba-v0.1-52b", 8, (256, 1024), 1),  # one block: 7 SSM + 1 attention, 4 MoE
+    ("deepseek-v3-671b", 4, (256, 1024), 4),  # 3 dense + 1 MoE layer, MTP built
+]
+FAMILY_REQUESTS, FAMILY_NEW = 4, 16  # one slot group of 4
+FAMILY_CONSIST_B, FAMILY_CONSIST_S = 2, 127  # B·S and B·(S + 1) within MoE's grouping
+# the first whole block's float32 prefill/decode consistency, in max|logit|:
+# a fault in the decode path would show in float32 as in bf16, at the size
+# the bf16 bound (0.05) is there to catch; rounding shrinks with precision.
+# A fifth of the bf16 bound: the VLM's 5-layer block read 0.143 in bf16 and
+# 0.0013 in float32 (one H100), its float32 one-ulp move printed beside
+FAMILY_F32_BOUND = 1e-2
 
 
 def emit(obj) -> None:
@@ -501,36 +555,57 @@ def flash_edge_phase(seed) -> None:
     """B.6 at MLA's head dims (d 192 and the reduced 24) and at d 20 / dv
     12, causal and windowed, in bf16 (the tensor maps zero-fill d and dv to
     the tile widths; d 20 / dv 12 are zero-padded to multiples of 8 by the
-    wrapper first) and f32, against the plain version; SDPA timed beside
-    it."""
+    wrapper first) and f32, against the plain version; then non-causal at
+    the families' ragged lengths, S = T and S != T (``FLASH_NONCAUSAL``);
+    SDPA timed beside each."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_kernel as flk
 
     dev = torch.device("cuda")
     checks = []
+
+    def check(qkv, t, causal, window, dtype, tol, shape, mean_rel_tol=None):
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in qkv)
+        call = lambda: flk.flash_attention(*qkv, causal=causal, window=window)
+        plain = lambda: flk.flash_attention_plain(*qkv, causal=causal, window=window)
+        got, want = call().float(), plain().float()
+        err = float((got - want).abs().max().item())
+        mean_rel = float((got - want).abs().mean() / want.abs().mean())
+        del got, want
+        if not err < tol:
+            raise AssertionError(f"flash_attention {shape}: max_abs_err {err} >= {tol}")
+        if mean_rel_tol is not None and not mean_rel < mean_rel_tol:
+            raise AssertionError(f"flash_attention {shape}: mean |err| / mean |plain| {mean_rel}"
+                                 f" >= {mean_rel_tol}")
+        b, s, h, d = qkv[0].shape
+        if window:
+            mask = flk._admissible(s, t, causal, window, dev)
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        else:
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        nbytes, flops = flash_work(b, s, t, h, d, qkv[2].shape[3], window, qkv[0].element_size(), causal)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
+        checks.append({"shape": shape, "max_abs_err": err, "tolerance": tol, "mean_rel_err": mean_rel,
+                       "mean_rel_tolerance": mean_rel_tol, "ms": cuda_ms(call, REPS),
+                       "plain_ms": cuda_ms(plain, 1), "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": cuda_ms(sdpa, REPS)})
+
     for b, s, h, d, dv in FLASH_EDGE:
         for dtype, tol in FLASH_EDGE_DTYPES:
             gen = torch.Generator(device=dev).manual_seed(seed + d)
             qkv = [torch.randn(b, s, h, e, generator=gen, device=dev).to(dtype) for e in (d, d, dv)]
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in qkv)
             for window in FLASH_EDGE_WINDOWS:
-                call = lambda: flk.flash_attention(*qkv, causal=True, window=window)
-                plain = lambda: flk.flash_attention_plain(*qkv, causal=True, window=window)
-                err = float((call().float() - plain().float()).abs().max().item())
-                shape = f"[{b},{s},{h},d={d},dv={dv}] {str(dtype)[6:]} causal window={window}"
-                if not err < tol:
-                    raise AssertionError(f"flash_attention {shape}: max_abs_err {err} >= {tol}")
-                if window:
-                    mask = flk._admissible(s, s, True, window, dev)
-                    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-                else:
-                    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-                nbytes, flops = flash_work(b, s, s, h, d, dv, window, qkv[0].element_size())
-                b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
-                checks.append({"shape": shape, "max_abs_err": err, "tolerance": tol, "ms": cuda_ms(call, REPS),
-                               "plain_ms": cuda_ms(plain, 1), "bound_ms": b_ms, "bound_by": b_by,
-                               "library_ms": cuda_ms(sdpa, REPS)})
-            del qkv, qt, kt, vt
+                check(qkv, s, True, window, dtype, tol,
+                      f"[{b},{s},{h},d={d},dv={dv}] {str(dtype)[6:]} causal window={window}")
+            del qkv
+    for b, s, t, h, d in FLASH_NONCAUSAL:
+        for dtype, tol in FLASH_NONCAUSAL_DTYPES:
+            gen = torch.Generator(device=dev).manual_seed(seed + s + t)
+            qkv = [torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype) for n in (s, t, t)]
+            check(qkv, t, False, 0, dtype, tol, f"[{b},S={s},T={t},{h},d={d}] {str(dtype)[6:]} non-causal",
+                  FLASH_NONCAUSAL_MEAN_REL)
+            del qkv
+    torch.cuda.empty_cache()
     log = _build.build_log.get("flash_attention")
     emit({"phase": "flash_edge", "checks": checks,
           "ptxas_d192": None if log is None else ptxas_entries(log, "flash_tc_kernelILi192E"),
@@ -1842,7 +1917,7 @@ def serving_phase(corpus, truth, mixed, seed) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: LM serving at full width
+# Phase 9: LM serving at full width
 # ---------------------------------------------------------------------------
 
 def serve_phase(seed) -> dict[str, int]:
@@ -1884,7 +1959,7 @@ def serve_phase(seed) -> dict[str, int]:
 
     # decode consistency (tests/test_models.py on the card): prefill at S and
     # decode of token S against the full forward of S + 1 tokens, on the
-    # first 1, 2, ..., 24 layers of the same weights.  Decode differs from
+    # first 1, 2, 6, 12 and 24 layers of the same weights.  Decode differs from
     # the forward row in GEMM shapes and in attention (plain float32
     # einsums against the flash kernel), so their bf16 roundings differ in
     # the last bit; the witness beside each gap is how
@@ -1899,7 +1974,7 @@ def serve_phase(seed) -> dict[str, int]:
     nudged_scale[0, 0] += 2.0 ** -7  # one bf16 ulp above 1.0
     nudged_s0 = {**stack["s0"], "mixer_norm": {**stack["s0"]["mixer_norm"], "scale": nudged_scale}}
     consistency = []
-    for depth in range(1, cfg.n_layers + 1):
+    for depth in CONSIST_DEPTHS:
         cut_cfg = dataclasses.replace(cfg, n_layers=depth)
         m = TransformerLM(cut_cfg, {**model.params, "layers": first_layers(stack, depth)})
         full = m(tokens)
@@ -1952,7 +2027,331 @@ def serve_phase(seed) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: the discovery driver, as a user runs it, at the smoke's lake
+# Phase 10: the other LM families through the serve entry point
+# ---------------------------------------------------------------------------
+
+def flash_per_prefill(cfg) -> int:
+    """B.6 launches of one prefill: one per attention, cross-attention and
+    MLA sublayer, one per encoder layer."""
+    from repro_torch.models import transformer
+
+    n = sum(plan.n * sum(m in ("attn", "cross", "mla") for m, _ in plan.sublayers)
+            for plan in transformer.group_plans(cfg))
+    return n + (cfg.encoder.n_layers if cfg.encoder is not None else 0)
+
+
+def family_prompts(rng, vocab: int, lo: int, hi: int) -> list[list[int]]:
+    """``FAMILY_REQUESTS`` prompts of lo..hi tokens; the longest is rounded
+    up to a multiple of 64, so that 4 × its length is a multiple of MoE's
+    256-token dispatch group."""
+    lens = rng.integers(lo, hi + 1, size=FAMILY_REQUESTS)
+    i = int(lens.argmax())
+    lens[i] = min(hi, -(-int(lens[i]) // 64) * 64)
+    return [rng.integers(2, vocab, size=int(n)).tolist() for n in lens]
+
+
+def _first(tree, n: int):
+    """Views of the first ``n`` entries of every stacked leaf."""
+    if isinstance(tree, dict):
+        return {k: _first(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def family_cut(cfg, params: dict, depth: int):
+    """A model of ``depth`` (1 or 2) layers built from the served weights,
+    as (config, parameter views): the first layers of a uniform stack;
+    deepseek: depth - 1 dense layers, then its MoE layer; whisper: ``depth``
+    decoder and encoder layers.  The VLM and jamba stack blocks of 5 and 8
+    sublayers, so their cut rebuilds the block at ``depth`` sublayers
+    (``cross_attn_every`` / ``attn_every`` = depth) from block 0's: the
+    VLM's [cross] and [self, cross]; jamba's [attention + MLP] and [SSM +
+    MLP, attention + MoE] (the attention sublayer's mixer with sublayer
+    1's MoE: not a structure of the served model, whose first whole block
+    ``family_consistency`` also runs, in bf16 and float32)."""
+    from repro_torch.models import transformer
+
+    out = dict(params)
+    if cfg.vision is not None or cfg.layer_pattern == "jamba":
+        blk = _first(params["blocks"], 1)
+        if cfg.vision is not None:
+            kw = {"vision": dataclasses.replace(cfg.vision, cross_attn_every=depth)}
+            subs = [blk["s4"]] if depth == 1 else [blk["s0"], blk["s4"]]
+        else:
+            kw = {"attn_every": depth}
+            attn_moe = {**blk["s4"], "ffn_norm": blk["s1"]["ffn_norm"], "ffn": blk["s1"]["ffn"]}
+            subs = [blk["s4"]] if depth == 1 else [blk["s0"], attn_moe]
+        out["blocks"] = {f"s{i}": sub for i, sub in enumerate(subs)}
+        return dataclasses.replace(cfg, n_layers=depth, **kw), out
+    kw = {}
+    if cfg.moe is not None and cfg.moe.first_dense:
+        kw["moe"] = dataclasses.replace(cfg.moe, first_dense=depth - 1)
+    if cfg.encoder is not None:
+        kw["encoder"] = dataclasses.replace(cfg.encoder, n_layers=depth)
+        out["encoder"] = _first(params["encoder"], depth)
+    cut_cfg = dataclasses.replace(cfg, n_layers=depth, **kw)
+    for plan in transformer.group_plans(cut_cfg):
+        out[plan.name] = _first(params[plan.name], plan.n)
+    return cut_cfg, out
+
+
+def family_block(cfg, params: dict):
+    """The served stack's first whole block where ``family_cut`` rebuilds
+    shorter ones, as (config, parameter views): the VLM's 5 layers (4 self
+    + 1 cross), jamba's 8 (7 SSM + 1 attention, 4 MoE; its served depth);
+    None for the uniform stacks, whose 1- and 2-layer cuts are served
+    structures already."""
+    if cfg.vision is not None:
+        n = cfg.vision.cross_attn_every
+    elif cfg.layer_pattern == "jamba":
+        n = cfg.attn_every
+    else:
+        return None
+    return dataclasses.replace(cfg, n_layers=n), {**params, "blocks": _first(params["blocks"], 1)}
+
+
+@contextlib.contextmanager
+def float32_activations():
+    """While active, the port's bf16 activation casts (the embedding, the
+    encoder's input, the caches) are float32, as in the float32 parity test
+    of ``tests/test_torch_families.py``."""
+    from repro_torch.models import transformer
+
+    saved = (transformer._embed, transformer._encode.__defaults__,
+             transformer.init_cache.__defaults__)
+    transformer._embed = lambda p, t: p["embed"].float()[t]
+    transformer._encode.__defaults__ = (torch.float32,)
+    transformer.init_cache.__defaults__ = (torch.float32, 0, None)
+    try:
+        yield
+    finally:
+        (transformer._embed, transformer._encode.__defaults__,
+         transformer.init_cache.__defaults__) = saved
+
+
+def _to_float32(tree: dict, in_place: bool) -> dict:
+    """A float32 copy of a parameter tree; ``in_place`` swaps each leaf in
+    ``tree`` itself, so that its bf16 copy is freed as the next is made."""
+    out = tree if in_place else {}
+    for k, v in tree.items():
+        out[k] = _to_float32(v, in_place) if isinstance(v, dict) else v.float()
+    return out
+
+
+def _consistency(m, tokens, s: int, extra: dict) -> dict:
+    """Prefill of S tokens and decode of token S against the full forward
+    of S + 1 tokens, in max|logit|; every logit must be finite."""
+    full = m(tokens, **extra)
+    pre, cache = m.prefill(tokens[:, :s], s + 8, **extra)
+    dec, _ = m.decode_step(tokens[:, s], cache)
+    for name, x in (("forward", full), ("prefill", pre), ("decode", dec)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{m.cfg.name}: non-finite {name} logits at {m.cfg.n_layers} layers")
+    scale = float(full.abs().max()) + 1e-6
+    return {"full": full, "dec": dec, "scale": scale,
+            "prefill": float((pre - full[:, s - 1]).abs().max()) / scale,
+            "decode": float((dec - full[:, s]).abs().max()) / scale}
+
+
+def family_consistency(cfg, params: dict, rng, dev) -> list[dict]:
+    """tests/test_models.py's decode consistency on the card: prefill of S
+    tokens and decode of token S against the full forward of S + 1 tokens
+    (MoE at capacity_factor 8, MLA on its naive path, as there; B = 2, S =
+    127, so that B·S and B·(S + 1) fit MoE's grouping), held to the
+    reference test's bound on 1 and 2 layers of the served weights
+    (``family_cut``), with the absorbed MLA decode against the naive one.
+    Then the first whole block where the cut rebuilt it (``family_block``)
+    and the served depth, each in bf16 printed beside ``one_ulp`` — how far
+    its forward moves when one weight (the first sublayer's first norm
+    scale, 1.0) moves one bf16 ulp — and the block also in float32 (every
+    weight and activation), held to ``FAMILY_F32_BOUND`` beside its own
+    one-float32-ulp move: the bf16 gap of a chaotic block is rounding only
+    if it shrinks with the precision.  jamba's block is its served depth, so its float32 copy
+    replaces the bf16 leaves of ``params`` one by one, last: the caller
+    holds no other reference to them and does not use them after this.
+    Every logit must be finite."""
+    from repro_torch.data.pipeline import stub_inputs
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import TransformerLM
+
+    bound = 0.35 if (cfg.ssm is not None and cfg.moe is not None) else 0.05
+    b, s = FAMILY_CONSIST_B, FAMILY_CONSIST_S
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s + 1))).to(dev)
+    block = family_block(cfg, params)
+    kinds = [("cut", 1), ("cut", 2)]
+    if block is not None and block[0].n_layers < cfg.n_layers:
+        kinds.append(("block", 0))
+    kinds.append(("served" if block is None or block[0].n_layers < cfg.n_layers else "served block", 0))
+    del block  # views: the served block's float32 copy must free every bf16 leaf
+    out = []
+    for kind, depth in kinds:
+        cut_cfg, cut = (family_cut(cfg, params, depth) if kind == "cut" else
+                        family_block(cfg, params) if kind == "block" else (cfg, params))
+        kw = {"mla_absorb": False}
+        if cfg.moe is not None:
+            kw["moe"] = dataclasses.replace(cut_cfg.moe, capacity_factor=8.0)
+        cut_cfg = dataclasses.replace(cut_cfg, **kw)
+        extra = stub_inputs(cut_cfg, b, device=dev)
+        got = _consistency(TransformerLM(cut_cfg, cut), tokens, s, extra)
+        row = {"layers": cut_cfg.n_layers, "kind": kind, "held": kind == "cut", "bound": bound,
+               "prefill": got["prefill"], "decode": got["decode"]}
+        if cfg.mla is not None:
+            absorbed = TransformerLM(dataclasses.replace(cut_cfg, mla_absorb=True), cut)
+            _, cache = absorbed.prefill(tokens[:, :s], s + 8, **extra)
+            dec_abs, _ = absorbed.decode_step(tokens[:, s], cache)
+            row["absorbed_vs_naive"] = float((dec_abs - got["dec"]).abs().max()) / (
+                float(got["dec"].abs().max()) + 1e-6)
+            del absorbed, cache, dec_abs
+        if kind == "cut":
+            if not (row["prefill"] < bound and row["decode"] < bound
+                    and row.get("absorbed_vs_naive", 0.0) < 0.15):
+                raise AssertionError(f"{cfg.name}: decode consistency at {row['layers']} layers: {row}")
+        else:
+            group = transformer.group_plans(cut_cfg)[0].name
+            s0 = cut[group]["s0"]
+            norm = {**s0["mixer_norm"], "scale": s0["mixer_norm"]["scale"].clone()}
+            norm["scale"][0, 0] += 2.0 ** -7  # one bf16 ulp above 1.0
+            nudged = {**cut, group: {**cut[group], "s0": {**s0, "mixer_norm": norm}}}
+            moved = TransformerLM(cut_cfg, nudged)(tokens, **extra)
+            if not bool(torch.isfinite(moved).all()):
+                raise AssertionError(f"{cfg.name}: non-finite nudged logits at {row['layers']} layers")
+            row["one_ulp"] = float((moved - got["full"]).abs().max()) / got["scale"]
+            del nudged, moved
+        del got
+        if kind in ("block", "served block"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            p32 = _to_float32(cut, in_place=kind == "served block")
+            extra32 = {k: v.float() for k, v in extra.items()}
+            with float32_activations():
+                f32 = _consistency(TransformerLM(cut_cfg, p32), tokens, s, extra32)
+                s0 = p32[group]["s0"]
+                norm = {**s0["mixer_norm"], "scale": s0["mixer_norm"]["scale"].clone()}
+                norm["scale"][0, 0] += 2.0 ** -23  # one float32 ulp above 1.0
+                nudged = {**p32, group: {**p32[group], "s0": {**s0, "mixer_norm": norm}}}
+                moved = TransformerLM(cut_cfg, nudged)(tokens, **extra32)
+            row["float32"] = {"prefill": f32["prefill"], "decode": f32["decode"],
+                              "one_ulp": float((moved - f32["full"]).abs().max()) / f32["scale"],
+                              "bound": FAMILY_F32_BOUND}
+            del nudged, moved
+            if not (f32["prefill"] < FAMILY_F32_BOUND and f32["decode"] < FAMILY_F32_BOUND):
+                raise AssertionError(f"{cfg.name}: float32 decode consistency of the"
+                                     f" {row['layers']}-layer block: {row}")
+            del p32, f32
+        out.append(row)
+        del cut
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def families_phase(seed) -> dict[str, int]:
+    """Every family beside the dense one at its published widths, through
+    ``ServeEngine`` (with the stub frontends' ``extra_inputs``) and the
+    serve entry point: per arch, random weights from ``seed``, 4 requests
+    in one slot group of 4 with 16 new tokens each, generated twice (greedy
+    must repeat), B.6's launches per prefill held to ``FAMILIES``, every
+    logit of one more prefill and decode step finite, then
+    ``family_consistency``; each model freed before the next.  Then
+    ``launch.serve.main`` at full width for qwen2-moe and with ``--smoke``
+    for all six."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import stub_inputs
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import params as params_lib
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    total, report, t_phase = collections.Counter(), [], time.perf_counter()
+    for arch, depth, (lo, hi), per_prefill in FAMILIES:
+        full_cfg = configs.get_config(arch)
+        cfg = dataclasses.replace(full_cfg, n_layers=depth)
+        if flash_per_prefill(cfg) != per_prefill:
+            raise AssertionError(f"{arch}: {flash_per_prefill(cfg)} attention sublayers, expected {per_prefill}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        model = TransformerLM.init(cfg, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        prompts = family_prompts(rng, cfg.vocab_size, lo, hi)
+        max_seq = max(len(p) for p in prompts) + FAMILY_NEW
+        extra = stub_inputs(cfg, FAMILY_REQUESTS, device=dev)
+        engine = ServeEngine(model, batch=FAMILY_REQUESTS, max_seq=max_seq, extra_inputs=extra)
+        runs, wall, counts = [], [], collections.Counter()
+        for _ in range(2):
+            t = time.perf_counter()
+            with path_window(counts):
+                done = engine.generate([Request(prompt=p, max_new=FAMILY_NEW) for p in prompts])
+                torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t)
+            runs.append([r.out for r in done])
+        if runs[0] != runs[1]:
+            raise AssertionError(f"{arch}: two greedy runs gave different tokens")
+        if any(len(out) != FAMILY_NEW for out in runs[0]):
+            raise AssertionError(f"{arch}: a request did not get all its tokens")
+        if counts["flash_attention"] != 2 * per_prefill:
+            raise AssertionError(f"{arch}: flash_attention launched {counts['flash_attention']} times"
+                                 f" in two prefills, expected {2 * per_prefill}")
+        total.update(counts)
+        plen = max(len(p) for p in prompts)
+        toks = np.zeros((FAMILY_REQUESTS, plen), np.int64)
+        for i, p in enumerate(prompts):
+            toks[i, plen - len(p):] = p
+        logits, cache = model.prefill(toks, max_seq, **extra)
+        step_logits, _ = model.decode_step(logits.argmax(-1), cache)
+        if not (bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step_logits).all())):
+            raise AssertionError(f"{arch}: non-finite prefill or decode logits at full depth")
+        del logits, step_logits, cache
+        timings, peak_gb = engine.timings, torch.cuda.max_memory_allocated(dev) / 1e9
+        params = model.params
+        del model, engine, done
+        consistency = family_consistency(cfg, params, rng, dev)
+        decode = sorted(timings["decode_s"])
+        report.append({
+            "arch": arch, "layers": f"{depth} of {full_cfg.n_layers}",
+            "stored_params": params_lib.count(params), "init_s": init_s,
+            "prompt_lens": [len(p) for p in prompts], "max_seq": max_seq,
+            "prefill_ms_per_group": [1e3 * x for x in timings["prefill_s"]],
+            "decode_ms_per_step_mean": 1e3 * sum(decode) / len(decode),
+            "decode_ms_per_step_median": 1e3 * decode[len(decode) // 2],
+            "generate_wall_s": wall, "tokens_per_s": FAMILY_REQUESTS * FAMILY_NEW / wall[-1],
+            "flash_launches_per_prefill": counts["flash_attention"] // 2,
+            "peak_mem_gb": peak_gb,
+            "greedy_repeatable": True, "logits_finite": True, "consistency": consistency,
+            "first_tokens": [o[:4] for o in runs[0]]})
+        del params, extra
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the entry point: full width for the headline, then every family's
+    # reduced config; 8 requests in slot batches of 4 each (2 prefills)
+    serve_main = {}
+    for arch, argv in [("qwen2-moe-a2.7b", [])] + [(a, ["--smoke"]) for a, *_ in FAMILIES]:
+        cfg = configs.get_config(arch)
+        cfg = configs.reduce_config(cfg) if argv else cfg
+        counts, t = collections.Counter(), time.perf_counter()
+        with path_window(counts), contextlib.redirect_stdout(io.StringIO()) as out:
+            served = serve_launch.main(["--arch", arch, *argv])
+            torch.cuda.synchronize()
+        want = flash_per_prefill(cfg) * -(-len(served) // 4)
+        if counts["flash_attention"] != want:
+            raise AssertionError(f"serve.main --arch {arch} {argv}: flash_attention launched"
+                                 f" {counts['flash_attention']} times, expected {want}")
+        total.update(counts)
+        serve_main[f"{arch}{' --smoke' if argv else ''}"] = {
+            "wall_s": time.perf_counter() - t, "tokens": sum(len(r.out) for r in served),
+            "flash_launches": counts["flash_attention"], "line": out.getvalue().splitlines()[0]}
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = check_counts(total, ("flash_attention",), "families path")
+    emit({"phase": "families", "gpu": nvidia_smi(), "archs": report, "serve_main": serve_main,
+          "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the discovery driver, as a user runs it, at the smoke's lake
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
@@ -2107,7 +2506,7 @@ def driver_phase(args, cells) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 11: two-package conformance, the port's half, on the card
+# Phase 12: two-package conformance, the port's half, on the card
 # ---------------------------------------------------------------------------
 
 def conformance_phase() -> dict[str, int]:
@@ -2175,7 +2574,7 @@ def conformance_phase() -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: the example twins on the card
+# Phase 13: the example twins on the card
 # ---------------------------------------------------------------------------
 
 def examples_phase() -> dict[str, int]:
@@ -2297,6 +2696,7 @@ def main() -> int:
     by_path["routed"] = routed_phase(corpus, truth, mixed)
     by_path["serving_tier"] = serving_phase(corpus, truth, mixed, args.seed)
     by_path["serve"] = serve_phase(args.seed)
+    by_path["families"] = families_phase(args.seed)
     by_path["driver"] = driver_phase(args, lake_cells)
     del lake_cells
     by_path["conformance"] = conformance_phase()

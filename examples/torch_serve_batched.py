@@ -6,8 +6,8 @@ interleaved with MATE discovery.
 Two request classes share one host loop:
 
   * token generation — slot-batched prefill+decode (``ServeEngine``, flash
-    attention kernel B.6 on CUDA) for the reduced config of a dense
-    architecture (the other families wait for ROADMAP A.10);
+    attention kernel B.6 on CUDA) for the reduced config of any
+    architecture (whisper and the VLM with their stub frontends' inputs);
   * join discovery — a ``DiscoveryEngine`` over a ``MateSession``: requests
     queue with an arrival-window policy (group size ``--disc-batch``,
     deadline ``--flush-after``) and the loop calls ``pump()`` between decode
@@ -67,13 +67,9 @@ def main(argv=None):
 
     # ---- LLM side: slot-batched decode ----
     cfg = configs.reduce_config(configs.get_config(args.arch))
-    if stub_inputs(cfg, args.batch, device=dev):
-        raise NotImplementedError(
-            f"{args.arch}: encoder frames and vision patches wait for the port"
-            " of those families (ROADMAP A.10)"
-        )
     model = TransformerLM.init(cfg, seed=0, device=dev)
-    engine = ServeEngine(model, batch=args.batch, max_seq=64, temperature=args.temperature)
+    engine = ServeEngine(model, batch=args.batch, max_seq=64, temperature=args.temperature,
+                         extra_inputs=stub_inputs(cfg, args.batch, device=dev))
     rng = np.random.default_rng(1)
     reqs = [
         Request(prompt=list(rng.integers(2, cfg.vocab_size, rng.integers(3, 12))),

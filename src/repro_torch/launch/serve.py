@@ -3,8 +3,11 @@
 Randomly initialises a model (seed 0), runs the slot-batched serve
 engine over a set of demo prompts, and reports decode throughput.  Port of
 ``repro.launch.serve``: the same flags and defaults, plus ``--device``
-(default CUDA; ``--device cpu`` runs the plain PyTorch path).  Restoring a
-checkpoint (``--ckpt-dir``) waits for the ``ckpt/manager.py`` port.
+(default CUDA; ``--device cpu`` runs the plain PyTorch path).  Every arch
+serves; whisper and the VLM get their stub frontends' frames / patches
+from ``data.pipeline.stub_inputs``.  Restoring a checkpoint
+(``--ckpt-dir``) waits for the ``ckpt/manager.py`` port (the training
+slice).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.data.pipeline import stub_inputs
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.serve.engine import Request, ServeEngine
@@ -36,7 +40,8 @@ def main(argv=None):
 
     if args.ckpt_dir:
         raise NotImplementedError(
-            "--ckpt-dir: checkpoint restore waits for the ckpt/manager.py port (ROADMAP A.10)"
+            "--ckpt-dir: checkpoint restore waits for the ckpt/manager.py port"
+            " (the training slice, ROADMAP A.10)"
         )
     dev = resolve_device(args.device)
     cfg = configs.get_config(args.arch)
@@ -44,7 +49,8 @@ def main(argv=None):
         cfg = configs.reduce_config(cfg)
     model = TransformerLM.init(cfg, seed=0, device=dev)
 
-    engine = ServeEngine(model, batch=args.batch, max_seq=args.max_seq, temperature=args.temperature)
+    engine = ServeEngine(model, batch=args.batch, max_seq=args.max_seq, temperature=args.temperature,
+                         extra_inputs=stub_inputs(cfg, args.batch, device=dev))
     rng = np.random.default_rng(0)
     reqs = [
         Request(

@@ -1,16 +1,20 @@
-"""Core layers of the dense decoder: norms, RoPE, attention, MLP.
+"""Core layers: norms, RoPE, attention (self and cross), MLP.
 
-Port of the dense half of ``repro.models.layers``.  Conventions are the
-reference's:
+Port of ``repro.models.layers``.  Conventions are the reference's:
   * activations bf16, softmax/norm statistics f32;
   * attention is computed with KV heads repeated to full heads; the KV
     *cache* stores only ``n_kv_heads``;
   * decode uses a position-indexed cache update; sliding-window layers use a
     ring buffer of ``window`` slots.
 
-Full-sequence self-attention (training / prefill) goes through
-``kernels.ops.flash_attention`` at every length: on CUDA tensors that is the
-hand-written kernel B.6, on CPU tensors its plain version.  Single-token
+Full-sequence attention (training / prefill) goes through kernel B.6's
+wrapper ``kernels.flash_kernel.flash_attention`` at every length: causal
+self-attention, the non-causal encoder self-attention and cross-attention
+to an encoder's memory, whose S and T need no alignment (the kernel masks
+keys past T; ``ops.flash_attention`` keeps the reference wrapper's
+128-alignment refusal for non-causal calls, which the reference's model
+never meets: it runs XLA attention there).  On CUDA tensors that is the
+hand-written kernel, on CPU tensors its plain version.  Single-token
 decode attention stays plain PyTorch, as the reference computes it outside
 any Pallas kernel, but with the kernel's numerics: scores and P·V in
 float32.  The reference's decode rounds scores and probabilities to bf16;
@@ -20,8 +24,7 @@ an H100, past the 0.05 the reference's consistency test allows.  The
 decode cache is updated in place (the reference returns a new cache),
 which saves a copy of the whole cache per step.
 The reference's activation-sharding constraints are no-ops without a mesh
-and are left out; cross-attention waits for the encoder-decoder and vision
-families (ROADMAP A.10).
+and are left out.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import flash_kernel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
 
@@ -92,7 +95,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # attention
 # ---------------------------------------------------------------------------
 
-def attention_specs(cfg: ModelConfig) -> dict:
+def attention_specs(cfg: ModelConfig, cross: bool = False) -> dict:
+    """Q/K/V/O projections.  ``cross`` is the reference's flag: a
+    cross-attention layer has the same shapes (its K/V project the encoder's
+    memory), so the flag changes no spec, there or here."""
     d, h, hd, kv = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.n_kv_heads
     p = {
         "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim")),
@@ -115,16 +121,29 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
-def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _project_q(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    q = _proj(x, p["wq"])
     if cfg.attn_bias:
         q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
     if cfg.qk_norm:
         q = rms_norm_simple(q, p["q_norm"], cfg.norm_eps)
+    return q
+
+
+def _project_kv(p: dict, cfg: ModelConfig, kv_x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    k, v = _proj(kv_x, p["wk"]), _proj(kv_x, p["wv"])
+    if cfg.attn_bias:
+        k = k + p["bk"].to(kv_x.dtype)
+        v = v + p["bv"].to(kv_x.dtype)
+    if cfg.qk_norm:
         k = rms_norm_simple(k, p["k_norm"], cfg.norm_eps)
-    return q, k, v
+    return k, v
+
+
+def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, kv_x: torch.Tensor | None = None):
+    """Q from ``x``; K and V from ``kv_x`` (cross-attention memory) or ``x``."""
+    k, v = _project_kv(p, cfg, x if kv_x is None else kv_x)
+    return _project_q(p, cfg, x), k, v
 
 
 def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -148,20 +167,31 @@ def attention_fwd(
     *,
     causal: bool = True,
     window: int = 0,
+    kv_x: torch.Tensor | None = None,
+    kv_positions: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Full-sequence causal self-attention (prefill / scoring).
+    """Full-sequence attention (prefill / scoring).
 
-    x: [B, S, D]; positions: [S] int.  The flash kernel masks by query and
-    key INDEX (the reference's ``_mask_bias`` rule, kept in
-    ``kernels.flash_kernel``), which equals the position here: the dense
-    path always uses ``positions = arange(S)``, as the reference does.
+    x: [B, S, D]; positions: [S] int; kv_x: cross-attention memory [B, T,
+    D] (no RoPE on either side, as in the reference).  The flash kernel
+    masks by query and key INDEX (the reference's ``_mask_bias`` rule, kept
+    in ``kernels.flash_kernel``), which equals the position here: every
+    caller passes ``positions = arange(S)`` and memory positions
+    ``arange(T)``, as the reference's do.  ``kv_positions`` (the
+    reference's signature) matters only to a causal or windowed mask, which
+    this port builds by index, so such a call with ``kv_positions`` raises;
+    a non-causal call without a window reads no positions, there or here.
     """
-    q, k, v = _project_qkv(p, cfg, x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if kv_positions is not None and (causal or window > 0):
+        raise ValueError("attention_fwd masks by key index: kv_positions is supported only "
+                         "for non-causal calls without a window")
+    q, k, v = _project_qkv(p, cfg, x, kv_x)
+    if kv_x is None:  # self-attention → RoPE
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     k = repeat_kv(k, cfg.n_heads)
     v = repeat_kv(v, cfg.n_heads)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    out = flash_kernel.flash_attention(q, k, v, causal=causal, window=window)
     return _out_proj(out, p["wo"])
 
 
@@ -209,6 +239,19 @@ def attention_decode(
     out = torch.einsum("bhst,bthd->bshd", probs, vv.float()).to(x.dtype)
     pos.add_(1)  # in place: the cache tensors may be views of a layer stack
     return _out_proj(out, p["wo"]), cache
+
+
+def cross_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict) -> torch.Tensor:
+    """One token against the memory K/V cached at prefill ({'k', 'v': [B,
+    T, Kv, D]}), no mask.  Scores and P·V in float32 like
+    ``attention_decode``; the reference rounds both to bf16 here."""
+    q = _project_q(p, cfg, x)
+    kk = repeat_kv(cache["k"], cfg.n_heads)
+    vv = repeat_kv(cache["v"], cfg.n_heads)
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), kk.float()) / math.sqrt(q.shape[-1])
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs, vv.float()).to(x.dtype)
+    return _out_proj(out, p["wo"])
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_seq: int, window: int = 0,

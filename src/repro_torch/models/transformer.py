@@ -1,17 +1,17 @@
-"""Model assembly for the dense decoder: spec trees, layer loops, KV caches.
+"""Model assembly: spec trees, layer loops, caches (port of
+``repro.models.transformer``).
 
-Port of the dense "uniform" plan of ``repro.models.transformer``: n
-identical decoder layers (attention + MLP), their weights stacked on a
-leading 'layers' axis under the reference's key paths.  ``lax.scan`` over
-the stack becomes a Python loop over that axis.  The functions take the
-parameter tree (nested dicts of tensors) as the reference's do;
-``TransformerLM`` is the ``nn.Module`` that owns a tree and runs them under
-``torch.inference_mode()``.
-
-The other families raise ``NotImplementedError`` where they branch off,
-naming their ROADMAP item: MLA, SSM, MoE, cross-attention, the encoder
-(whisper), vision and multi-token prediction (all ROADMAP A.10).  Forward
-passes return no MoE auxiliary loss: a dense model has none.
+Every family of the reference: dense decoders, MoE, MLA with multi-token
+prediction, pure SSM, the jamba hybrid, vision cross-attention and
+whisper's encoder-decoder.  Layers are grouped into the reference's stacks
+of structurally identical blocks (``group_plans``), their weights stacked
+on a leading 'layers' axis under the reference's key paths; ``lax.scan``
+over a stack becomes a Python loop over that axis.  The functions take the
+parameter tree (nested dicts of tensors) as the reference's do, and
+``forward`` / ``forward_hidden`` return ``(…, aux)`` with the MoE
+load-balancing loss; ``TransformerLM`` is the ``nn.Module`` that owns a
+tree and runs them under ``torch.inference_mode()``.  Caches are updated in
+place by ``decode_step`` (the reference returns new ones).
 """
 
 from __future__ import annotations
@@ -22,13 +22,9 @@ from typing import Any
 import torch
 from torch import nn
 
-from repro_torch.models import layers
+from repro_torch.models import layers, mla, moe, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec, materialize
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP A.10)")
 
 
 # ---------------------------------------------------------------------------
@@ -42,40 +38,93 @@ def stack_specs(tree, n: int):
 
 
 def _layer_specs(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
-    if mixer != "attn":
-        raise _not_ported(f"the {mixer!r} mixer")
-    out = {"mixer_norm": layers.norm_specs(cfg), "mixer": layers.attention_specs(cfg)}
+    if mixer == "attn":
+        mix = layers.attention_specs(cfg)
+    elif mixer == "cross":
+        mix = layers.attention_specs(cfg, cross=True)
+    elif mixer == "mla":
+        mix = mla.mla_specs(cfg)
+    elif mixer == "ssm":
+        mix = ssm.ssm_specs(cfg)
+    else:
+        raise ValueError(mixer)
+    out = {"mixer_norm": layers.norm_specs(cfg), "mixer": mix}
     if ffn == "mlp":
         out["ffn_norm"] = layers.norm_specs(cfg)
         out["ffn"] = layers.mlp_specs(cfg)
+    elif ffn == "moe":
+        out["ffn_norm"] = layers.norm_specs(cfg)
+        out["ffn"] = moe.moe_specs(cfg)
     elif ffn != "none":
-        raise _not_ported(f"the {ffn!r} feed-forward")
+        raise ValueError(ffn)
     return out
 
 
-def _layer_fwd(p, cfg, x, positions, mixer, ffn, *, window=0):
-    """Residual decoder layer, full-sequence."""
-    if mixer != "attn":
-        raise _not_ported(f"the {mixer!r} mixer")
-    h = layers.norm_fwd(p["mixer_norm"], cfg, x)
-    x = x + layers.attention_fwd(p["mixer"], cfg, h, positions, causal=True, window=window)
+def _ffn(p, cfg, x, ffn):
+    """The residual feed-forward half of a layer: (x, the MoE aux loss, or
+    None for a layer without MoE — no zero tensor is made per layer)."""
+    aux = None
     if ffn != "none":
         h = layers.norm_fwd(p["ffn_norm"], cfg, x)
-        x = x + layers.mlp_fwd(p["ffn"], cfg, h)
-    return x
+        if ffn == "moe":
+            h, aux = moe.moe_fwd(p["ffn"], cfg, h)
+        else:
+            h = layers.mlp_fwd(p["ffn"], cfg, h)
+        x = x + h
+    return x, aux
+
+
+def _layer_fwd(p, cfg, x, positions, mixer, ffn, *, window=0, enc_out=None,
+               enc_positions=None):
+    """Residual decoder layer, full-sequence. Returns (x, aux or None)."""
+    h = layers.norm_fwd(p["mixer_norm"], cfg, x)
+    if mixer == "attn":
+        h = layers.attention_fwd(p["mixer"], cfg, h, positions, causal=True, window=window)
+    elif mixer == "cross":
+        h = layers.attention_fwd(p["mixer"], cfg, h, positions, causal=False,
+                                 kv_x=enc_out, kv_positions=enc_positions)
+    elif mixer == "enc_attn":
+        h = layers.attention_fwd(p["mixer"], cfg, h, positions, causal=False)
+    elif mixer == "mla":
+        h = mla.mla_fwd(p["mixer"], cfg, h, positions)
+    elif mixer == "ssm":
+        h, _ = ssm.ssm_fwd(p["mixer"], cfg, h)
+    else:
+        raise ValueError(mixer)
+    return _ffn(p, cfg, x + h, ffn)
 
 
 def _layer_decode(p, cfg, x, cache, mixer, ffn, *, window=0):
-    """Residual decoder layer, one token, with cache (updated in place)."""
-    if mixer != "attn":
-        raise _not_ported(f"the {mixer!r} mixer")
+    """Residual decoder layer, one token, with cache (updated in place).
+    Returns (x, cache)."""
     h = layers.norm_fwd(p["mixer_norm"], cfg, x)
-    h, cache = layers.attention_decode(p["mixer"], cfg, h, cache, window=window)
-    x = x + h
-    if ffn != "none":
-        h = layers.norm_fwd(p["ffn_norm"], cfg, x)
-        x = x + layers.mlp_fwd(p["ffn"], cfg, h)
+    if mixer == "attn":
+        h, cache = layers.attention_decode(p["mixer"], cfg, h, cache, window=window)
+    elif mixer == "cross":  # memory K/V cached at prefill, no mask
+        h = layers.cross_attention_decode(p["mixer"], cfg, h, cache)
+    elif mixer == "mla":
+        h, cache = mla.mla_decode(p["mixer"], cfg, h, cache, absorb=cfg.mla_absorb)
+    elif mixer == "ssm":
+        h, cache = ssm.ssm_decode(p["mixer"], cfg, h, cache)
+    else:
+        raise ValueError(mixer)
+    x, _ = _ffn(p, cfg, x + h, ffn)
     return x, cache
+
+
+def _layer_cache(cfg, mixer, batch, max_seq, window=0, enc_len=0, dtype=torch.bfloat16,
+                 device=None) -> dict:
+    if mixer == "attn":
+        return layers.init_attn_cache(cfg, batch, max_seq, window, dtype, device)
+    if mixer == "cross":
+        shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if mixer == "mla":
+        return mla.init_mla_cache(cfg, batch, max_seq, dtype, device)
+    if mixer == "ssm":
+        return ssm.init_ssm_state(cfg, batch, dtype, device)
+    raise ValueError(mixer)
 
 
 # ---------------------------------------------------------------------------
@@ -133,11 +182,6 @@ def group_plans(cfg: ModelConfig) -> list[GroupPlan]:
 # ---------------------------------------------------------------------------
 
 def model_specs(cfg: ModelConfig) -> dict:
-    for family, present in (("the encoder (whisper)", cfg.encoder is not None),
-                            ("vision cross-attention", cfg.vision is not None),
-                            ("multi-token prediction", cfg.mtp_depth > 0)):
-        if present:
-            raise _not_ported(family)
     d, v = cfg.d_model, cfg.vocab_size
     out: dict[str, Any] = {
         "embed": ParamSpec((v, d), ("vocab", "embed"), init="embed"),
@@ -148,6 +192,19 @@ def model_specs(cfg: ModelConfig) -> dict:
     for plan in group_plans(cfg):
         block = {f"s{i}": _layer_specs(cfg, m, f) for i, (m, f) in enumerate(plan.sublayers)}
         out[plan.name] = stack_specs(block, plan.n)
+    if cfg.encoder is not None:
+        # encoder self-attention is bidirectional; same spec shapes
+        out["encoder"] = stack_specs({"s0": _layer_specs(cfg, "attn", "mlp")}, cfg.encoder.n_layers)
+        out["enc_final_norm"] = layers.norm_specs(cfg)
+        out["enc_pos"] = ParamSpec((cfg.encoder.n_frames, d), ("frames", "embed"), init="embed")
+    if cfg.vision is not None:
+        out["vision_norm"] = layers.norm_specs(cfg)
+    if cfg.mtp_depth:
+        out["mtp"] = {
+            "proj": ParamSpec((2 * d, d), ("embed", None)),
+            "norm": layers.norm_specs(cfg),
+            "layer": _layer_specs(cfg, "mla" if cfg.mla else "attn", "mlp"),
+        }
     return out
 
 
@@ -167,46 +224,103 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return (x @ head.to(x.dtype)).float()
 
 
+def _encode(params, cfg: ModelConfig, frames, patches, dtype=torch.bfloat16):
+    """The stub-fronted encoder side: whisper's frames through its encoder
+    stack, or the VLM's patches through ``vision_norm``.  Returns
+    (enc_out, enc_positions), or (None, None) for a decoder-only model."""
+    if cfg.encoder is not None:
+        if frames is None:
+            raise ValueError("whisper needs frame embeddings (stub frontend): frames=[B, n_frames, D]")
+        e = frames.to(dtype) + params["enc_pos"].to(dtype)[None]
+        e_pos = torch.arange(frames.shape[1], device=e.device)
+        enc = params["encoder"]
+        for li in range(cfg.encoder.n_layers):
+            e, _ = _layer_fwd(_index(enc, li)["s0"], cfg, e, e_pos, "enc_attn", "mlp")
+        return layers.norm_fwd(params["enc_final_norm"], cfg, e), e_pos
+    if cfg.vision is not None:
+        if patches is None:
+            raise ValueError("the VLM needs patch embeddings (stub frontend): patches=[B, n_tokens, D]")
+        enc_out = layers.norm_fwd(params["vision_norm"], cfg, patches.to(dtype))
+        return enc_out, torch.arange(patches.shape[1], device=enc_out.device)
+    return None, None
+
+
+def _blocks(params, cfg: ModelConfig):
+    """(plan, block index, block parameters) over every stacked block."""
+    for plan in group_plans(cfg):
+        for li in range(plan.n):
+            yield plan, li, _index(params[plan.name], li)
+
+
 # ---------------------------------------------------------------------------
 # forward (scoring)
 # ---------------------------------------------------------------------------
 
-def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+                   frames: torch.Tensor | None = None,
+                   patches: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward WITHOUT the LM head.
 
-    tokens: int[B, S] -> hidden bf16[B, S, D] after the final norm.
+    tokens: int[B, S] -> (hidden bf16[B, S, D] after the final norm, aux
+    f32 — the MoE load-balancing loss summed over layers).
     """
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed(params, tokens)
-    for plan in group_plans(cfg):
-        for li in range(plan.n):
-            lp = _index(params[plan.name], li)
-            for i, (mixer, ffn) in enumerate(plan.sublayers):
-                window = cfg.sliding_window if mixer == "attn" else 0
-                x = _layer_fwd(lp[f"s{i}"], cfg, x, positions, mixer, ffn, window=window)
-    return layers.norm_fwd(params["final_norm"], cfg, x)
+    aux = torch.zeros((), device=x.device)
+    enc_out, enc_positions = _encode(params, cfg, frames, patches)
+    for plan, _li, lp in _blocks(params, cfg):
+        for i, (mixer, ffn) in enumerate(plan.sublayers):
+            window = cfg.sliding_window if mixer == "attn" else 0
+            x, a = _layer_fwd(lp[f"s{i}"], cfg, x, positions, mixer, ffn, window=window,
+                              enc_out=enc_out, enc_positions=enc_positions)
+            if a is not None:
+                aux = aux + a
+    return layers.norm_fwd(params["final_norm"], cfg, x), aux
 
 
-def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward. tokens: int[B, S] -> logits f32[B, S, V]."""
-    return _logits(params, cfg, forward_hidden(params, cfg, tokens))
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            frames: torch.Tensor | None = None,
+            patches: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. tokens: int[B, S] -> (logits f32[B, S, V], aux)."""
+    x, aux = forward_hidden(params, cfg, tokens, frames=frames, patches=patches)
+    return _logits(params, cfg, x), aux
+
+
+def mtp_hidden(params, cfg: ModelConfig, tokens: torch.Tensor, hidden: torch.Tensor):
+    """DeepSeek MTP module hidden states: predict token t+2 from
+    [h_t ; emb(token_{t+1})].  None without an MTP module."""
+    if not cfg.mtp_depth:
+        return None
+    p = params["mtp"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    nxt = params["embed"].to(hidden.dtype)[torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)]
+    h = torch.cat([hidden, nxt], dim=-1) @ p["proj"].to(hidden.dtype)
+    h, _ = _layer_fwd(p["layer"], cfg, h, positions, "mla" if cfg.mla else "attn", "mlp")
+    return layers.norm_fwd(p["norm"], cfg, h)
 
 
 # ---------------------------------------------------------------------------
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
 
+def _enc_len(cfg: ModelConfig) -> int:
+    if cfg.encoder is not None:
+        return cfg.encoder.n_frames
+    return cfg.vision.n_tokens if cfg.vision is not None else 0
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device=None) -> dict:
-    """{plan name: {'s<i>': {'k','v': [n, B, slots, Kv, D], 'pos': [n, B],
-    'slot_pos': [n, B, slots]}}} — the reference's cache tree."""
+               enc_len: int = 0, device=None) -> dict:
+    """{plan name: {'s<i>': per-mixer cache, each leaf with a leading block
+    axis}} — the reference's cache tree: attention {'k', 'v', 'pos',
+    'slot_pos'}, cross-attention {'k', 'v'} over ``enc_len`` memory
+    positions, MLA {'ckv', 'kr', 'pos'}, SSM {'h', 'conv', 'pos'}."""
     cache: dict[str, Any] = {}
     for plan in group_plans(cfg):
         sub = {}
         for i, (mixer, _f) in enumerate(plan.sublayers):
-            if mixer != "attn":
-                raise _not_ported(f"the {mixer!r} cache")
-            one = layers.init_attn_cache(cfg, batch, max_seq, cfg.sliding_window, dtype, device)
+            window = cfg.sliding_window if mixer == "attn" else 0
+            one = _layer_cache(cfg, mixer, batch, max_seq, window, enc_len, dtype, device)
             sub[f"s{i}"] = {k: t.expand(plan.n, *t.shape).clone() for k, t in one.items()}
         cache[plan.name] = sub
     return cache
@@ -216,25 +330,46 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor, cache: dict
     """One decode step: next-token logits f32[B, V] + the cache, updated in
     place."""
     x = _embed(params, token)[:, None, :]
-    for plan in group_plans(cfg):
-        for li in range(plan.n):
-            lp = _index(params[plan.name], li)
-            lc = _index(cache[plan.name], li)
-            for i, (mixer, ffn) in enumerate(plan.sublayers):
-                window = cfg.sliding_window if mixer == "attn" else 0
-                x, _ = _layer_decode(lp[f"s{i}"], cfg, x, lc[f"s{i}"], mixer, ffn, window=window)
+    for plan, li, lp in _blocks(params, cfg):
+        lc = _index(cache[plan.name], li)
+        for i, (mixer, ffn) in enumerate(plan.sublayers):
+            window = cfg.sliding_window if mixer == "attn" else 0
+            x, _ = _layer_decode(lp[f"s{i}"], cfg, x, lc[f"s{i}"], mixer, ffn, window=window)
     x = layers.norm_fwd(params["final_norm"], cfg, x)
     return _logits(params, cfg, x[:, 0]), cache
 
 
-def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int):
+def _prefill_attn(spec, cfg, hh, positions, c, li) -> None:
+    """Write one attention layer's prompt K/V into its cache slice ``li``.
+    A sliding-window layer whose ring of ``window`` slots is shorter than
+    the prompt keeps the last ``window`` positions, each at slot
+    ``pos % window``."""
+    s = hh.shape[1]
+    k, v = layers._project_kv(spec["mixer"], cfg, hh)
+    k = layers.rope(k, positions, cfg.rope_theta)
+    slots = c["k"].shape[2]
+    if cfg.sliding_window > 0 and slots < s:
+        kept = torch.arange(s - slots, s, device=hh.device)
+        order = torch.argsort(kept % slots)  # ring layout: slot = pos % slots
+        c["k"][li] = k[:, s - slots :][:, order]
+        c["v"][li] = v[:, s - slots :][:, order]
+        c["slot_pos"][li] = kept[order].to(torch.int32)[None]
+    else:
+        c["k"][li, :, :s] = k
+        c["v"][li, :, :s] = v
+        c["slot_pos"][li, :, :s] = positions.to(torch.int32)[None]
+    c["pos"][li] = s
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int, *,
+            frames: torch.Tensor | None = None, patches: torch.Tensor | None = None):
     """Run the prompt, build the cache. Returns (last-token logits f32[B, V],
     cache).
 
-    Full-sequence forward + cache writeback, as in the reference: each
-    attention layer recomputes its K/V into the cache.  A sliding-window
-    layer whose ring of ``window`` slots is shorter than the prompt keeps
-    the last ``window`` positions, each at slot ``pos % window``.
+    Full-sequence forward + cache writeback, as in the reference: attention
+    layers recompute their K/V into the cache, MLA layers their latents,
+    cross-attention layers the memory's K/V; SSM layers keep the final
+    state of the chunked scan.
     """
     b, s = tokens.shape
     if cfg.sliding_window == 0 and s > max_seq:
@@ -242,32 +377,30 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int):
     dev = tokens.device
     positions = torch.arange(s, device=dev)
     x = _embed(params, tokens)
-    cache = init_cache(cfg, b, max_seq, device=dev)
-    for plan in group_plans(cfg):
-        for li in range(plan.n):
-            lp = _index(params[plan.name], li)
-            for i, (mixer, ffn) in enumerate(plan.sublayers):
-                if mixer != "attn":
-                    raise _not_ported(f"the {mixer!r} mixer")
-                window = cfg.sliding_window
-                spec = lp[f"s{i}"]
-                hh = layers.norm_fwd(spec["mixer_norm"], cfg, x)
-                _q, k, v = layers._project_qkv(spec["mixer"], cfg, hh)
-                k = layers.rope(k, positions, cfg.rope_theta)
-                c = cache[plan.name][f"s{i}"]
-                slots = c["k"].shape[2]
-                if window > 0 and slots < s:
-                    kept = torch.arange(s - slots, s, device=dev)
-                    order = torch.argsort(kept % slots)  # ring layout: slot = pos % slots
-                    c["k"][li] = k[:, s - slots :][:, order]
-                    c["v"][li] = v[:, s - slots :][:, order]
-                    c["slot_pos"][li] = kept[order].to(torch.int32)[None]
-                else:
-                    c["k"][li, :, :s] = k
-                    c["v"][li, :, :s] = v
-                    c["slot_pos"][li, :, :s] = positions.to(torch.int32)[None]
+    cache = init_cache(cfg, b, max_seq, enc_len=_enc_len(cfg), device=dev)
+    enc_out, enc_positions = _encode(params, cfg, frames, patches)
+    for plan, li, lp in _blocks(params, cfg):
+        for i, (mixer, ffn) in enumerate(plan.sublayers):
+            spec, c = lp[f"s{i}"], cache[plan.name][f"s{i}"]
+            if mixer == "ssm":  # the layer by hand: ssm_fwd also gives the state
+                y, st = ssm.ssm_fwd(spec["mixer"], cfg, layers.norm_fwd(spec["mixer_norm"], cfg, x))
+                x, _ = _ffn(spec, cfg, x + y, ffn)
+                for name, t in st.items():
+                    c[name][li] = t
+                continue
+            hh = layers.norm_fwd(spec["mixer_norm"], cfg, x)
+            if mixer == "attn":
+                _prefill_attn(spec, cfg, hh, positions, c, li)
+            elif mixer == "mla":
+                _q, ckv, kr = mla._latents(spec["mixer"], cfg, hh, positions)
+                c["ckv"][li, :, :s] = ckv
+                c["kr"][li, :, :s] = kr
                 c["pos"][li] = s
-                x = _layer_fwd(spec, cfg, x, positions, mixer, ffn, window=window)
+            elif mixer == "cross":
+                c["k"][li], c["v"][li] = layers._project_kv(spec["mixer"], cfg, enc_out)
+            window = cfg.sliding_window if mixer == "attn" else 0
+            x, _ = _layer_fwd(spec, cfg, x, positions, mixer, ffn, window=window,
+                              enc_out=enc_out, enc_positions=enc_positions)
     x = layers.norm_fwd(params["final_norm"], cfg, x)
     return _logits(params, cfg, x[:, -1]), cache
 
@@ -294,13 +427,15 @@ class _Tree(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """A dense decoder LM that owns its parameter tree (the reference's key
+    """An LM of any family that owns its parameter tree (the reference's key
     paths, e.g. ``layers.s0.mixer.wq`` with a leading layer axis).
 
     Build it from a tree (``params.materialize`` or ``params.from_reference``)
     or with ``TransformerLM.init(cfg, seed, device=...)``.  ``forward``,
     ``prefill`` and ``decode_step`` take token ids (tensors or arrays) and
-    run under ``torch.inference_mode()`` on the parameters' device.
+    run under ``torch.inference_mode()`` on the parameters' device;
+    ``frames`` (whisper) and ``patches`` (the VLM) are the stub frontends'
+    embeddings [B, n, D].
     """
 
     def __init__(self, cfg: ModelConfig, params: dict):
@@ -323,15 +458,23 @@ class TransformerLM(nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
-    @torch.inference_mode()
-    def forward(self, tokens) -> torch.Tensor:
-        """int[B, S] -> logits f32[B, S, V]."""
-        return forward(self.params, self.cfg, self._tokens(tokens))
+    def _extra(self, frames, patches) -> dict:
+        return {name: None if t is None else torch.as_tensor(t, device=self.device)
+                for name, t in (("frames", frames), ("patches", patches))}
 
     @torch.inference_mode()
-    def prefill(self, tokens, max_seq: int):
+    def forward(self, tokens, frames=None, patches=None) -> torch.Tensor:
+        """int[B, S] -> logits f32[B, S, V] (``transformer.forward`` gives
+        the aux loss too)."""
+        logits, _aux = forward(self.params, self.cfg, self._tokens(tokens),
+                               **self._extra(frames, patches))
+        return logits
+
+    @torch.inference_mode()
+    def prefill(self, tokens, max_seq: int, frames=None, patches=None):
         """int[B, S] -> (last-token logits f32[B, V], cache)."""
-        return prefill(self.params, self.cfg, self._tokens(tokens), max_seq)
+        return prefill(self.params, self.cfg, self._tokens(tokens), max_seq,
+                       **self._extra(frames, patches))
 
     @torch.inference_mode()
     def decode_step(self, token, cache: dict):

@@ -48,9 +48,8 @@ slot-batching philosophy (fixed-size groups, one device launch per group):
     token is never appended).  Greedy decoding is ``argmax``; temperature
     sampling draws from a ``torch.Generator`` seeded with 0 at each
     ``generate`` (the reference starts from ``PRNGKey(0)``) and does not
-    reproduce ``jax.random``'s bits.  The reference's ``extra_inputs``
-    (encoder frames, vision patches) wait for those families (ROADMAP
-    A.10).
+    reproduce ``jax.random``'s bits.  ``extra_inputs`` (encoder frames,
+    vision patches) go to every prefill, as in the reference.
 """
 
 from __future__ import annotations
@@ -557,6 +556,9 @@ def make_serve_step(model: TransformerLM, temperature: float = 0.0):
 class ServeEngine:
     """Host-side loop around prefill / serve_step.
 
+    ``extra_inputs`` (optional) are passed to every prefill: the stub
+    frontends' ``frames`` (whisper) or ``patches`` (the VLM), [batch, n,
+    D] — one row per slot, as ``data.pipeline.stub_inputs`` makes them.
     ``on_tick`` (optional, ``callable(step)``) runs between decode steps —
     the interleave point for another host-side scheduler while the freshly
     launched decode step is in flight.  ``timings`` holds, after
@@ -565,9 +567,11 @@ class ServeEngine:
     readback).
     """
 
-    def __init__(self, model: TransformerLM, batch: int, max_seq: int, temperature: float = 0.0):
+    def __init__(self, model: TransformerLM, batch: int, max_seq: int, temperature: float = 0.0,
+                 extra_inputs: dict | None = None):
         self.model = model
         self.batch, self.max_seq = batch, max_seq
+        self.extra = extra_inputs or {}
         self.on_tick = None
         self.step_fn = make_serve_step(model, temperature)
         self.timings: dict[str, list[float]] = {"prefill_s": [], "decode_s": []}
@@ -583,7 +587,7 @@ class ServeEngine:
             for i, r in enumerate(group):
                 toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
             t0 = time.perf_counter()
-            logits, cache = self.model.prefill(toks, self.max_seq)
+            logits, cache = self.model.prefill(toks, self.max_seq, **self.extra)
             token = torch.argmax(logits, dim=-1).to(torch.int32)
             host = token.tolist()
             self.timings["prefill_s"].append(time.perf_counter() - t0)

@@ -78,3 +78,17 @@ def test_serve_batched_twin_served_every_submitted_request():
         ["--requests", "2", "--max-new", "12", "--disc-requests", "3", "--device", "cpu"]))
     assert any(ln.startswith("qwen1.5-0.5b-smoke: 2 requests, 24 new tokens") for ln in got)
     assert any(ln.startswith("discovery: 3/3 requests served") for ln in got)
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-11b"])
+def test_serve_batched_twin_runs_the_encoder_families(arch, monkeypatch):
+    """The serve-batched pair with an encoder-decoder and a VLM arch: the
+    twin passes the stub frontends' inputs to its engine as the reference
+    example does, and prints the same lines (LM tokens masked)."""
+    argv, masks = CASES["serve_batched"]
+    argv = [*argv, "--arch", arch]
+    monkeypatch.setattr(sys, "argv", ["serve_batched.py", *argv])
+    want = _lines(_load("serve_batched").main)
+    got = _lines(lambda: _load("torch_serve_batched").main([*argv, "--device", "cpu"]))
+    assert _mask(got, masks) == _mask(want, masks)
+    assert any(ln.startswith(f"{arch}-smoke: 2 requests, 8 new tokens") for ln in got)

@@ -89,3 +89,11 @@ def test_every_kernel_source_is_built():
     assert sorted(p.name for p in (PKG / "kernels" / "csrc").glob("*.cu")) == sorted(
         src for src, _ in _build.LIBRARIES.values()
     )
+
+
+def test_every_reference_model_module_has_a_port():
+    """Each module of the reference's ``models`` package has its port,
+    among the modules the guards above import and scan."""
+    ref = sorted(p.stem for p in (ROOT / "src" / "repro" / "models").glob("*.py"))
+    assert [m for m in ref if f"repro_torch.models.{m}" not in MODULES] == []
+    assert {"repro_torch.models.moe", "repro_torch.models.ssm", "repro_torch.models.mla"} <= set(MODULES)

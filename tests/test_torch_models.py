@@ -45,7 +45,6 @@ from repro_torch.models import params, transformer
 from repro_torch.models.transformer import TransformerLM
 
 DENSE = ["qwen1.5-0.5b", "qwen3-32b", "h2o-danube-3-4b", "starcoder2-3b"]
-OTHER = sorted(set(configs.ARCHS) - set(DENSE))
 TOL = 0.05
 B, S = 2, 20
 
@@ -71,8 +70,16 @@ def reference_flash(monkeypatch):
     """The reference's ``_sdpa_full`` routed to its Pallas flash kernel, for
     this test only.  ``attention_fwd`` builds the mask with ``_mask_bias``
     just before it calls ``_sdpa_full``; the causal flag and window it asked
-    for are static, so they are read there and handed to the kernel."""
-    mask_bias = ref_layers._mask_bias
+    for are static, so they are read there and handed to the kernel.
+
+    The Pallas wrapper refuses non-causal calls whose S or T is not a
+    multiple of its block (the encoder's and the cross-attention's memory
+    at reduced sizes: 16 frames, 8 patches, prompts of 20), so those run
+    the reference's own unpatched XLA ``_sdpa_full``, which rounds scores
+    and probabilities to bf16; the port's B.6 keeps them in float32
+    (``test_torch_families.py`` gives the bounds of the families that take
+    that path)."""
+    mask_bias, sdpa_full = ref_layers._mask_bias, ref_layers._sdpa_full
     asked = {}
 
     def record(q_pos, k_pos, causal, window):
@@ -80,7 +87,9 @@ def reference_flash(monkeypatch):
         return mask_bias(q_pos, k_pos, causal, window)
 
     def sdpa(q, k, v, bias):
-        return ref_ops.flash_attention(q, k, v, causal=asked["causal"], window=asked["window"])
+        if not asked["causal"]:
+            return sdpa_full(q, k, v, bias)
+        return ref_ops.flash_attention(q, k, v, causal=True, window=asked["window"])
 
     monkeypatch.setattr(ref_layers, "_mask_bias", record)
     monkeypatch.setattr(ref_layers, "_sdpa_full", sdpa)
@@ -179,10 +188,3 @@ def test_decode_consistency_within_port(pair):
     scale = float(full.abs().max()) + 1e-6
     assert float((pre - full[:, S - 1]).abs().max()) / scale < TOL
     assert float((dec - full[:, S]).abs().max()) / scale < TOL
-
-
-@pytest.mark.parametrize("name", OTHER)
-def test_non_dense_archs_raise(name):
-    _, cfg = _cfgs(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        transformer.model_specs(cfg)

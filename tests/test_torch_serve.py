@@ -117,3 +117,16 @@ def test_serve_main_smoke_on_cpu(capsys):
     if not torch.cuda.is_available():  # the default device is CUDA
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_serve.main(["--smoke"])
+
+
+@pytest.mark.parametrize("arch", list(configs.ARCHS))
+def test_serve_main_smoke_every_arch_on_cpu(arch, capsys):
+    """Every arch serves through the entry point at its reduced config:
+    whisper and the VLM with their stub frontends' inputs, the MoE archs
+    through the grouped dispatch, the SSM archs through their state."""
+    done = port_serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+                            "--max-seq", "48", "--max-new", "4", "--n-requests", "3"])
+    assert [len(r.out) for r in done] == [4, 4, 4]
+    vocab = configs.reduce_config(configs.get_config(arch)).vocab_size
+    assert all(0 <= t < vocab for r in done for t in r.out)
+    assert "[serve] 3 requests, 12 tokens" in capsys.readouterr().out

@@ -315,3 +315,125 @@ def test_route_accounting_matches_the_routed_stats(n_shards, backend):
     assert len(calls) > 1 and "routed_counts" not in vars(idx)
     assert (st.shard_launches, st.route_bytes_merged) == chip_smoke.route_accounting(calls)
     assert st.route_bytes_merged == sum(sh * n * 4 for sh, n in calls)
+
+
+@pytest.mark.parametrize("arch,depth,lo_hi,per_prefill", chip_smoke.FAMILIES)
+def test_family_table_counts_attention_sublayers(arch, depth, lo_hi, per_prefill):
+    """The families table's B.6 launches per prefill are the attention,
+    cross-attention and MLA sublayers (and encoder layers) of the cut
+    model, and the cut keeps the published widths."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    full = configs.get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=depth)
+    assert chip_smoke.flash_per_prefill(cfg) == per_prefill
+    assert (cfg.d_model, cfg.n_heads, cfg.vocab_size) == (full.d_model, full.n_heads, full.vocab_size)
+    lo, hi = lo_hi
+    assert lo < hi and hi % 64 == 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("lo,hi", [(512, 2048), (256, 1024), (64, 256)])
+def test_family_prompts_fit_moe_grouping(seed, lo, hi):
+    prompts = chip_smoke.family_prompts(np.random.default_rng(seed), 1000, lo, hi)
+    lens = [len(p) for p in prompts]
+    assert len(lens) == chip_smoke.FAMILY_REQUESTS and all(lo <= n <= hi for n in lens)
+    assert max(lens) % 64 == 0 and (chip_smoke.FAMILY_REQUESTS * max(lens)) % 256 == 0
+    assert all(2 <= t < 1000 for p in prompts for t in p)
+
+
+@pytest.mark.parametrize("arch", [a for a, *_ in chip_smoke.FAMILIES])
+def test_family_cut_keeps_the_first_layers(arch):
+    """``family_cut`` at depth 1 and 2 on the reduced config: a model of
+    that many layers whose stacks are views of the served ones."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.models.params import materialize
+
+    cfg = configs.reduce_config(configs.get_config(arch))
+    if cfg.layer_pattern == "jamba":  # the served model holds one block
+        cfg = dataclasses.replace(cfg, n_layers=cfg.attn_every)
+    params = materialize(transformer.model_specs(cfg), seed=0, device="cpu")
+    for depth in (1, 2):
+        cut_cfg, cut = chip_smoke.family_cut(cfg, params, depth)
+        for plan in transformer.group_plans(cut_cfg):
+            for leaf in _leaves(cut[plan.name]):
+                assert leaf.shape[0] == plan.n
+        assert cut["embed"] is params["embed"]
+        if cfg.encoder is not None:
+            assert cut_cfg.encoder.n_layers == depth
+        if cfg.moe is not None and cfg.moe.first_dense:
+            assert [p.n for p in transformer.group_plans(cut_cfg)] == ([1] if depth == 1 else [1, 1])
+        tokens = torch.zeros(2, 3, dtype=torch.long)
+        out = transformer.TransformerLM(cut_cfg, cut)(tokens, **_stub(cut_cfg))
+        assert out.shape == (2, 3, cfg.vocab_size) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("arch,n_layers", [("llama-3.2-vision-11b", 10), ("jamba-v0.1-52b", 8),
+                                           ("deepseek-v3-671b", 3)])
+def test_family_consistency_rows(arch, n_layers):
+    """``family_consistency`` on the CPU at reduced widths: the 1- and
+    2-layer cuts held; where the cut rebuilt the block, the first whole
+    block printed beside its one-ulp witness and held in float32 (the VLM
+    at two blocks: a block row, then the served depth; jamba's block is
+    its served depth, whose float32 copy replaces the bf16 leaves in
+    place); the uniform stacks without a block row or a float32 one."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.models.params import materialize
+
+    cfg = dataclasses.replace(configs.reduce_config(configs.get_config(arch)), n_layers=n_layers)
+    params = materialize(transformer.model_specs(cfg), seed=0, device="cpu")
+    rows = chip_smoke.family_consistency(cfg, params, np.random.default_rng(0), torch.device("cpu"))
+    kinds = {"llama-3.2-vision-11b": ["cut", "cut", "block", "served"],
+             "jamba-v0.1-52b": ["cut", "cut", "served block"],
+             "deepseek-v3-671b": ["cut", "cut", "served"]}[arch]
+    assert [r["kind"] for r in rows] == kinds
+    assert [r["layers"] for r in rows][:2] == [1, 2] and rows[-1]["layers"] == n_layers
+    for r in rows:
+        assert r["held"] == (r["kind"] == "cut")
+        assert ("one_ulp" in r) != r["held"]
+        assert ("float32" in r) == (r["kind"] in ("block", "served block"))
+        if "float32" in r:
+            assert r["float32"]["bound"] == chip_smoke.FAMILY_F32_BOUND and "one_ulp" in r["float32"]
+            assert r["float32"]["prefill"] < 1e-3 and r["float32"]["decode"] < 1e-3
+    assert ("absorbed_vs_naive" in rows[0]) == (cfg.mla is not None)
+    dtypes = {leaf.dtype for leaf in _leaves(params)}
+    assert dtypes == ({torch.float32} if arch == "jamba-v0.1-52b" else {torch.bfloat16})
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _stub(cfg):
+    from repro_torch.data.pipeline import stub_inputs
+
+    return stub_inputs(cfg, 2, device="cpu")
+
+
+def test_flash_mask_mutation_plants_one_change(tmp_path):
+    """``tools/flash_mask_mutation.py`` copies the tree and removes only the
+    bf16 edge mask's key bound from the copy; the checkout is untouched."""
+    spec = importlib.util.spec_from_file_location(
+        "flash_mask_mutation", Path(__file__).resolve().parents[1] / "tools" / "flash_mask_mutation.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    sound = (tool.ROOT / tool.CU).read_text()
+    copy = tool.planted_copy(tmp_path)
+    planted = (copy / tool.CU).read_text()
+    assert sound.count(tool.SOUND_MASK) == 1 and (tool.ROOT / tool.CU).read_text() == sound
+    assert planted == sound.replace(tool.SOUND_MASK, tool.PLANTED_MASK)
+    assert (copy / "chip_smoke.py").read_text() == (tool.ROOT / "chip_smoke.py").read_text()
+    assert (copy / "tools" / "flash_mask_mutation.py").exists()
+    assert not (copy / "build").exists()  # the copy builds its own kernels
