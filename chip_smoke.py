@@ -46,7 +46,13 @@ Phases, each printing one JSON line:
    tensor cores; ``flash_work``, ``gather_bytes``, ``counts_work``,
    ``match_work``, ``count_work`` and ``xash_work`` count them), and for B.6
    the time of ``scaled_dot_product_attention`` on the same inputs
-   (``library_ms``; the port never calls it);
+   (``library_ms``; the port never calls it); then the ``flash_grad`` line:
+   B.6 under autograd (the kernel's forward, ``flash_attention_backward``)
+   at qwen1.5-0.5b's training shape [8, 2048, 16, 64], MLA's d 192 / dv 128
+   and whisper's non-causal S 256 × T 1500, bf16 and f32, dq, dk and dv
+   against autograd through the plain version on float32 copies
+   (‖Δ‖/‖ref‖ <= 1e-2 / 1e-5), with the forward's, the backward's (bound:
+   ``flash_bwd_work``) and SDPA's forward + backward times;
 3. main path — ``synthetic.make_corpus`` → ``MateSession.build`` (default
    ``DiscoveryConfig``: 128 bits, rank='quality', profile gate on, backend
    resolved on CUDA to 'fused-gather') → ``discover`` on ground-truth
@@ -121,7 +127,21 @@ Phases, each printing one JSON line:
    consistency on the first 1 and 2 layers or blocks (``family_cut``,
    ``family_consistency``); then ``launch.serve.main`` at full width for
    qwen2-moe and with ``--smoke`` for all six;
-11. driver — ``repro_torch.launch.discovery.main`` in this process at the
+11. train — ``repro_torch.launch.train.main`` at full-width qwen1.5-0.5b
+   (``TRAIN_ARGV``: [8, 2048] ``TokenPipeline`` batches, AdamW, remat,
+   chunked CE, random weights from ``--seed``), ``TRAIN_STEPS`` steps with a
+   checkpoint at ``TRAIN_RESUME_AT``, then the same command resumed from
+   it, then ``TRAIN_FALL_STEPS`` steps from a step-0 checkpoint of the same
+   draw with its attention projections rescaled (``conditioned``): every
+   parameter leaf with a finite, nonzero gradient after step 1, the first
+   loss within 0.5 of ln(vocab), 2 B.6 launches per attention layer per
+   step (the forward and the remat recompute), the resumed losses equal to
+   the uninterrupted run's within 1e-3, the conditioned run's loss falling
+   by ``TRAIN_LOSS_FALL``; then one float32 step at 2 layers through B.6
+   against the same step with the plain attention (loss and
+   attention-weight gradients within 1e-3); ms per step, tokens/s, peak GB,
+   the gradient norms and the attention backward's share of the step;
+12. driver — ``repro_torch.launch.discovery.main`` in this process at the
    same lake (its tables reused from phase 1's draw, copied before any
    planting) with ``DRIVER_ARGV``: 4 mixed queries of 20 rows, FDs, the
    serving caches, a 4-shard routed lake, the build across 2 spawned ranks
@@ -130,16 +150,16 @@ Phases, each printing one JSON line:
    every request served and replayed from the cache, the 2-rank build
    byte-identical, the 2-rank counts equal to
    ``ops.filter_hits_table_counts`` on the card for the same keys);
-12. conformance — ``tests/test_conformance.py``'s scenario on the card:
+13. conformance — ``tests/test_conformance.py``'s scenario on the card:
    every backend of the port's registry × 128/256/512 bits exactly equal to
    'numpy' on ``discover_batched``, ``discover_many``, ``plan_and_count`` +
    ``score_from_counts`` and ``discover_fds``, fused backends with no match
    matrix;
-13. examples — each ``examples/torch_*.py`` twin at its defaults on the
+14. examples — each ``examples/torch_*.py`` twin at its defaults on the
    card, exit 0, its lines equal to its ``--device cpu`` run's (times,
-   rates, sampled tokens and backend names masked).
+   rates, sampled tokens, losses and backend names masked).
 
-Launch counters are zeroed just before each path's own calls (3–13) and
+Launch counters are zeroed just before each path's own calls (3–14) and
 read just after; index builds of paths 5, 6, 8 and 12, their references and
 their checks (numpy backends, full-width runs, cold ``discover``s, the serve
 and families phases' consistency checks and finite-logit prefills, the
@@ -148,7 +168,7 @@ windows (the driver's and the examples' own builds are part of their runs
 and are counted).  Each kernel must
 have launched on its path.  Then the ``kernels`` summary line (each
 kernel's ``launches`` on its own path — the main path for B.1–B.4, the ops
-path for B.5, the serve path for B.6 (the families path beside it) — and
+path for B.5, the serve path for B.6 (the families and train paths beside it) — and
 ``launches_by_path``, every
 path's own count; the driver's spawned ranks report their launches in the
 ``driver`` line), the card's name and power limit, and last
@@ -237,6 +257,14 @@ FLASH_NONCAUSAL = [(2, 1500, 1500, 8, 64), (2, 512, 1601, 32, 128), (2, 2048, 16
 # is held at 2.5e-3 and the mean at FLASH_NONCAUSAL_MEAN_REL
 FLASH_NONCAUSAL_DTYPES = ((torch.bfloat16, 2.5e-3), (torch.float32, 1e-5))
 FLASH_NONCAUSAL_MEAN_REL = 1e-3
+# B.6 under autograd (the flash_grad line): (B, S, T, H, d, dv, causal) —
+# qwen1.5-0.5b's training shape, MLA's head dims, whisper's cross-attention
+# (non-causal, T = 1500 frames); dq, dk, dv held by ‖Δ‖/‖ref‖ against
+# autograd through the plain version on float32 copies
+FLASH_GRAD = [(8, 2048, 2048, 16, 64, 64, True), (2, 2048, 2048, 16, 192, 128, True),
+              (2, 256, 1500, 8, 64, 64, False)]
+FLASH_GRAD_DTYPES = ((torch.bfloat16, 1e-2), (torch.float32, 1e-5))
+GRAD_REPS = 3  # timed backward calls
 # the discovery serving tier: a 512-bit session that degrades to 128 bits,
 # driven on a ManualClock by bursts of requests (their sizes sum to
 # SERVING_REQUESTS) drawn with a Zipf skew from the ground-truth and mixed
@@ -279,6 +307,7 @@ EXAMPLE_EXPECT = {
     "torch_distributed_discovery": ("(impl=fused)", "most candidate-dense tables"),
     "torch_serve_batched": ("8 requests, 128 new tokens", "(CUDA, reduced config)",
                             "discovery: 6/6 requests served", "backend=fused-gather"),
+    "torch_enrich_and_train": ("(backend=fused-gather)", "[2] enriched 3 -> 5 cols", "[3] done: loss"),
 }
 # B.1 (the distributed twin's fused shard impl), B.2, B.3, B.6 (serve_batched)
 EXAMPLE_KERNELS = ("filter_table_counts", "gather_filter_table_counts", "xash_superkey",
@@ -306,6 +335,18 @@ FAMILY_CONSIST_B, FAMILY_CONSIST_S = 2, 127  # B·S and B·(S + 1) within MoE's 
 # A fifth of the bf16 bound: the VLM's 5-layer block read 0.143 in bf16 and
 # 0.0013 in float32 (one H100), its float32 one-ulp move printed beside
 FAMILY_F32_BOUND = 1e-2
+# train phase: launch.train.main at full-width qwen1.5-0.5b, as users run
+# it, a checkpoint at TRAIN_RESUME_AT and a resume from it (the resumed
+# losses match within TRAIN_RESUME_REL); then TRAIN_FALL_STEPS steps from
+# the same draw with its attention projections rescaled, whose loss must
+# fall by TRAIN_LOSS_FALL (PERF.md §6's prediction); the 2-layer float32
+# step through B.6 matches the plain attention's within TRAIN_PARITY_TOL
+TRAIN_SEQ, TRAIN_BATCH = 2048, 8
+TRAIN_ARGV = ["--arch", SERVE_ARCH, "--seq-len", str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH)]
+TRAIN_STEPS, TRAIN_RESUME_AT, TRAIN_FALL_STEPS = 9, 5, 20
+TRAIN_LOSS_FALL = 0.1
+TRAIN_RESUME_REL = 1e-3
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_TOL = 2, 1e-3
 
 
 def emit(obj) -> None:
@@ -408,16 +449,31 @@ def make_elig(rng, dev, n, q, kind, blocks: int = 8):
     return elig
 
 
-def flash_work(b, s, t, h, d, dv, window, elem, causal: bool = True) -> tuple[int, int]:
-    """(bytes, FLOPs) of one flash call: q, k, v read once and out written
-    once; 2·d + 2·dv FLOPs per admissible (query i, key j) pair — j < t,
-    j <= i when causal, i - j < window when window > 0 — counted for this
-    shape."""
+def flash_pairs(s, t, window, causal: bool = True) -> int:
+    """Admissible (query i, key j) pairs of one head: j < t, j <= i when
+    causal, i - j < window when window > 0."""
     i = np.arange(s, dtype=np.int64)
     hi = np.minimum(i, t - 1) if causal else np.full(s, t - 1, dtype=np.int64)
     lo = np.maximum(i - window + 1, 0) if window else np.zeros(s, dtype=np.int64)
-    pairs = int(np.maximum(hi - lo + 1, 0).sum())
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_work(b, s, t, h, d, dv, window, elem, causal: bool = True) -> tuple[int, int]:
+    """(bytes, FLOPs) of one flash call: q, k, v read once and out written
+    once; 2·d + 2·dv FLOPs per admissible pair (``flash_pairs``), counted
+    for this shape."""
+    pairs = flash_pairs(s, t, window, causal)
     return b * h * (s * d + t * d + t * dv + s * dv) * elem, b * h * pairs * 2 * (d + dv)
+
+
+def flash_bwd_work(b, s, t, h, d, dv, window, elem, causal: bool = True) -> tuple[int, int]:
+    """(bytes, FLOPs) of one attention backward (``flash_attention_backward``):
+    q, k, v and dout read once, dq, dk and dv written once; per admissible
+    pair 2·(3·d + 2·dv) FLOPs — the scores recomputed (2·d), dV += Pᵀ·dO
+    (2·dv), dP = dO·Vᵀ (2·dv), dQ = dS·K (2·d), dK = dSᵀ·Q (2·d)."""
+    pairs = flash_pairs(s, t, window, causal)
+    return (b * h * (2 * s * d + 2 * t * d + 2 * t * dv + s * dv) * elem,
+            b * h * pairs * 2 * (3 * d + 2 * dv))
 
 
 def gather_bytes(rows, store_stride: int, lanes: int, q: int, n_tables: int,
@@ -610,6 +666,65 @@ def flash_edge_phase(seed) -> None:
     emit({"phase": "flash_edge", "checks": checks,
           "ptxas_d192": None if log is None else ptxas_entries(log, "flash_tc_kernelILi192E"),
           "dynamic_smem_bytes_d192": {"dv<=64": flash_tc_smem(192, 64), "dv<=128": flash_tc_smem(192, 128)}})
+
+
+def flash_grad_phase(seed) -> None:
+    """B.6 under autograd (``flash_attention`` through ``_FlashAttention``:
+    the kernel's forward, then ``flash_attention_backward``) at the
+    ``FLASH_GRAD`` shapes, in bf16 and f32: dq, dk and dv against torch
+    autograd through the plain version on float32 copies, by ‖Δ‖/‖ref‖.
+    CUDA-event times of the kernel's forward, the backward, the plain
+    version's forward + backward, and ``scaled_dot_product_attention``'s
+    forward + backward on the same inputs; the backward's bound from
+    ``flash_bwd_work``."""
+    from repro_torch.kernels import flash_kernel as flk
+
+    dev = torch.device("cuda")
+    checks = []
+    for b, s, t, h, d, dv, causal in FLASH_GRAD:
+        for dtype, tol in FLASH_GRAD_DTYPES:
+            gen = torch.Generator(device=dev).manual_seed(seed + s + d)
+            q, k, v = (torch.randn(b, n, h, e, generator=gen, device=dev).to(dtype)
+                       for n, e in ((s, d), (t, d), (t, dv)))
+            do = torch.randn(b, s, h, dv, generator=gen, device=dev).to(dtype)
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            before = flk.flash_attention.launches
+            flk.flash_attention(*leaves, causal=causal).backward(do)
+            if flk.flash_attention.launches != before + 1:
+                raise AssertionError("the autograd path did not launch B.6's forward")
+            got = [x.grad for x in leaves]
+            ref = [x.float().requires_grad_(True) for x in (q, k, v)]
+            flk.flash_attention_plain(*ref, causal=causal).backward(do.float())
+            rel = {name: float((g.float() - r.grad).norm() / r.grad.norm())
+                   for name, g, r in zip(("dq", "dk", "dv"), got, ref)}
+            if any(g.dtype != dtype for g in got) or not max(rel.values()) <= tol:
+                raise AssertionError(f"flash_attention backward [{b},{s},{t},{h},d={d},dv={dv}]"
+                                     f" {dtype}: {rel} against {tol}")
+            del leaves, got, ref
+
+            def plain_fwd_bwd():
+                xs = [x.float().requires_grad_(True) for x in (q, k, v)]
+                flk.flash_attention_plain(*xs, causal=causal).backward(do.float())
+
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal).backward(dot)
+            nbytes, flops = flash_bwd_work(b, s, t, h, d, dv, 0, q.element_size(), causal)
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
+            checks.append({
+                "shape": f"[{b},S={s},T={t},{h},d={d},dv={dv}] {str(dtype)[6:]} "
+                         + ("causal" if causal else "non-causal"),
+                "rel_err": rel, "tolerance": tol,
+                "forward_ms": cuda_ms(lambda: flk.flash_attention(q, k, v, causal=causal), REPS),
+                "backward_ms": cuda_ms(lambda: flk.flash_attention_backward(q, k, v, do, causal=causal),
+                                       GRAD_REPS),
+                "backward_bound_ms": b_ms, "backward_bound_by": b_by,
+                "plain_fwd_bwd_ms": cuda_ms(plain_fwd_bwd, 1),
+                "sdpa_fwd_bwd_ms": cuda_ms(sdpa, GRAD_REPS)})
+            del q, k, v, do, qt, kt, vt, dot
+            torch.cuda.empty_cache()
+    emit({"phase": "flash_grad", "checks": checks})
 
 
 def kernel_phase(seed, corpus) -> tuple[dict[str, dict], list[dict]]:
@@ -2351,7 +2466,243 @@ def families_phase(seed) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 11: the discovery driver, as a user runs it, at the smoke's lake
+# Phase 11: LM training through the train entry point, at full width
+# ---------------------------------------------------------------------------
+
+def train_parity(seed, cfg, batch) -> dict:
+    """One step's loss and attention-weight gradients at the first
+    ``TRAIN_PARITY_LAYERS`` layers of full-width ``cfg``, float32 weights
+    and activations: through B.6 (its float32 kernel forward, the torch-ops
+    backward) against the same step with the plain attention under
+    autograd, within ``TRAIN_PARITY_TOL``."""
+    from repro_torch.ckpt.manager import leaves_with_paths
+    from repro_torch.kernels import flash_kernel as flk
+    from repro_torch.models import params as params_lib, transformer
+    from repro_torch.train import step as step_lib
+
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_PARITY_LAYERS)
+    weights = params_lib.materialize(transformer.model_specs(cut), seed, dtype=torch.float32,
+                                     device=torch.device("cuda"))
+    tcfg = step_lib.TrainConfig(ce_chunk=1024)
+    kernel = flk.flash_attention
+    out = {}
+    for name in ("kernel", "plain"):
+        p = _tree_clone(weights)
+        if name == "plain":
+            flk.flash_attention = lambda q, k, v, *, causal=True, window=0: flk.flash_attention_plain(
+                q, k, v, causal=causal, window=window)
+        before = kernel.launches
+        try:
+            with float32_activations():
+                loss, _ = step_lib.loss_fn(p, cut, tcfg, batch)
+                loss.backward()
+        finally:
+            flk.flash_attention = kernel
+        out[name] = (float(loss.detach()), {path: leaf.grad for path, leaf in leaves_with_paths(p)
+                                   if "['mixer']" in path}, kernel.launches - before)
+        del p, loss
+    (loss_k, grads_k, launched), (loss_p, grads_p, _) = out["kernel"], out["plain"]
+    rel = {path: float((grads_k[path] - g).abs().max() / g.abs().max()) for path, g in grads_p.items()}
+    report = {"layers": TRAIN_PARITY_LAYERS, "loss_kernel": loss_k, "loss_plain": loss_p,
+              "loss_rel": abs(loss_k - loss_p) / abs(loss_p), "grad_rel": rel,
+              "b6_launches": launched, "tolerance": TRAIN_PARITY_TOL}
+    if launched != 2 * TRAIN_PARITY_LAYERS:
+        raise AssertionError(f"train parity: B.6 launched {launched} times, expected {2 * TRAIN_PARITY_LAYERS}")
+    if not report["loss_rel"] <= TRAIN_PARITY_TOL or not max(rel.values()) <= TRAIN_PARITY_TOL:
+        raise AssertionError(f"train parity at {TRAIN_PARITY_LAYERS} layers: {report}")
+    return report
+
+
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    return tree.detach().clone().requires_grad_(True)
+
+
+def conditioned(specs, tree) -> None:
+    """Rescale, in place, every attention projection of ``tree`` (a leaf
+    whose spec has a heads axis) from the init rule's 1/sqrt(shape[-2]) to
+    1/sqrt(its input width): the model axis for Q/K/V, heads × head_dim
+    for the output projection (``tests/test_torch_families._conditioned``'s
+    rule).  At full width the init rule draws Q/K/V with a standard
+    deviation of 0.25, not 1/32, and the gradient's global norm reaches
+    ~1e12 (PERF.md §6; ROADMAP C.18)."""
+    if isinstance(specs, dict):
+        for k in specs:
+            conditioned(specs[k], tree[k])
+        return
+    if specs.init != "normal" or not {"heads", "kv_heads"} & set(specs.axes):
+        return
+    dims = [(ax, n) for ax, n in zip(specs.axes, specs.shape) if ax not in ("layers", "experts")]
+    fan_in = dims[0][1] * dims[1][1] if dims[0][0] in ("heads", "kv_heads") else dims[0][1]
+    tree.mul_(float(np.sqrt(specs.shape[-2] / fan_in)))
+
+
+def train_phase(seed) -> dict[str, int]:
+    """``launch.train.main`` at full-width qwen1.5-0.5b (``TRAIN_ARGV``:
+    [8, 2048] batches of ``TokenPipeline``, AdamW at the default lr, remat,
+    chunked CE), three runs, each timed per step (host clock, ending in a
+    sync) inside a launch window, B.6's backward calls carrying CUDA events:
+
+    * ``uninterrupted`` — as users run it, weights drawn from ``--seed``:
+      ``TRAIN_STEPS`` steps with a checkpoint at ``TRAIN_RESUME_AT``;
+    * ``resumed`` — the checkpoints past ``TRAIN_RESUME_AT`` deleted and
+      the same command run again, resuming there;
+    * ``conditioned`` — the same draw with its attention projections
+      rescaled (``conditioned``), written with a fresh optimizer state as
+      the step-0 checkpoint of a new directory, from which the same
+      command (``TRAIN_FALL_STEPS`` steps) starts.
+
+    Held: every parameter leaf has a finite, nonzero gradient after the
+    first step; the first loss is within 0.5 of ln(vocab); B.6 launches 2
+    per attention layer per step (forward and remat recompute); the
+    resumed steps' losses are the uninterrupted run's within
+    ``TRAIN_RESUME_REL``; the conditioned run's last loss is at least
+    ``TRAIN_LOSS_FALL`` below its first (the init rule's weights do not
+    train at this lr: their gradient norm is printed beside); and
+    ``train_parity``."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.ckpt.manager import leaves_with_paths
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import flash_kernel as flk
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import params as params_lib, transformer
+    from repro_torch.train import optimizer as opt, step as step_lib
+
+    dev = torch.device("cuda")
+    cfg = configs.get_config(SERVE_ARCH)
+    total, steps, grad_check, bwd_events = collections.Counter(), [], {}, []
+    make_train_step, backward = step_lib.make_train_step, flk.flash_attention_backward
+
+    def timed_backward(*args, **kwargs):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = backward(*args, **kwargs)
+        stop.record()
+        bwd_events.append((start, stop))
+        return out
+
+    def instrumented(cfg_, tcfg):
+        inner = make_train_step(cfg_, tcfg)
+
+        def train_step(params, opt_state, batch):
+            bwd_events.clear()
+            t = time.perf_counter()
+            with path_window(total):
+                out = inner(params, opt_state, batch)
+                torch.cuda.synchronize()
+                launches = counters()["flash_attention"].launches
+            ms = 1e3 * (time.perf_counter() - t)
+            if not grad_check:  # after the first step: every leaf's gradient
+                for path, leaf in leaves_with_paths(params):
+                    g = leaf.grad
+                    grad_check[path] = g is not None and bool(torch.isfinite(g).all()) and bool((g != 0).any())
+                bad = [p for p, ok in grad_check.items() if not ok]
+                if bad:
+                    raise AssertionError(f"after step 1 these leaves have no finite nonzero gradient: {bad}")
+            steps.append({"ms": ms, "b6_launches": launches,
+                          "attn_bwd_ms": sum(a.elapsed_time(b) for a, b in bwd_events)})
+            return out
+
+        return train_step
+
+    runs = {}
+    common = TRAIN_ARGV + ["--log-every", "1", "--seed", str(seed)]
+    with tempfile.TemporaryDirectory() as tmp:
+        plain_dir, cond_dir = os.path.join(tmp, "plain"), os.path.join(tmp, "conditioned")
+        step_lib.make_train_step, flk.flash_attention_backward = instrumented, timed_backward
+        try:
+            # the conditioned run keeps the driver's --ckpt-every (50): one
+            # save at its end, not one every TRAIN_RESUME_AT steps
+            resume_at = ["--ckpt-every", str(TRAIN_RESUME_AT)]
+            for name, n_steps, ckpt, extra in (("uninterrupted", TRAIN_STEPS, plain_dir, resume_at),
+                                               ("resumed", TRAIN_STEPS, plain_dir, resume_at),
+                                               ("conditioned", TRAIN_FALL_STEPS, cond_dir, [])):
+                if name == "resumed":  # back to the checkpoint at TRAIN_RESUME_AT
+                    for st in CheckpointManager(plain_dir).all_steps():
+                        if st > TRAIN_RESUME_AT:
+                            shutil.rmtree(os.path.join(plain_dir, f"step_{st:06d}"))
+                if name == "conditioned":  # the step-0 checkpoint it starts from
+                    specs = transformer.model_specs(cfg)
+                    weights = params_lib.materialize(specs, seed, device=dev)
+                    conditioned(specs, weights)
+                    CheckpointManager(cond_dir).save(0, {"params": weights, "opt": opt.init_state(
+                        weights, opt.AdamWConfig())})
+                    del weights
+                torch.cuda.reset_peak_memory_stats(dev)
+                first, t = len(steps), time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()) as buf:
+                    losses = train_launch.main(common + extra + ["--steps", str(n_steps), "--ckpt-dir", ckpt])
+                lines = buf.getvalue().splitlines()
+                runs[name] = {"losses": losses, "wall_s": time.perf_counter() - t, "steps": steps[first:],
+                              "lines": lines, "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                              "grad_norm": [float(m) for m in re.findall(r"gnorm=([\d.]+)", "\n".join(lines))]}
+                emit({"phase": "train_run", "run": name, "losses": losses,
+                      "grad_norm": runs[name]["grad_norm"],
+                      "ms_per_step": [st["ms"] for st in steps[first:]],
+                      "peak_gb": runs[name]["peak_gb"], "wall_s": runs[name]["wall_s"]})
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            step_lib.make_train_step, flk.flash_attention_backward = make_train_step, backward
+    full, resumed, cond = runs["uninterrupted"], runs["resumed"], runs["conditioned"]
+
+    launches = check_counts(total, ("flash_attention",), "train path")
+    want_b6 = 2 * cfg.n_layers
+    if any(st["b6_launches"] != want_b6 for st in steps):
+        raise AssertionError(f"B.6 launches per step {[st['b6_launches'] for st in steps]}, expected {want_b6}")
+    losses = full["losses"]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses + cond["losses"])):
+        raise AssertionError(f"losses {losses}, conditioned {cond['losses']}")
+    for run in (full, cond):
+        if not abs(run["losses"][0] - np.log(cfg.vocab_size)) <= 0.5:
+            raise AssertionError(f"first loss {run['losses'][0]} is not within 0.5 of ln({cfg.vocab_size})")
+    if not cond["losses"][-1] <= cond["losses"][0] - TRAIN_LOSS_FALL:
+        raise AssertionError(f"the conditioned run's loss went from {cond['losses'][0]} to"
+                             f" {cond['losses'][-1]}, not down by {TRAIN_LOSS_FALL}")
+    for run, at in ((resumed, TRAIN_RESUME_AT), (cond, 0)):
+        if run["lines"][0] != f"[train] resumed from step {at}":
+            raise AssertionError(f"a run did not start from its checkpoint: {run['lines'][:2]}")
+    tail = losses[TRAIN_RESUME_AT:]
+    resume_rel = [abs(a - b) / abs(b) for a, b in zip(resumed["losses"], tail)]
+    if len(resumed["losses"]) != len(tail) or not max(resume_rel) <= TRAIN_RESUME_REL:
+        raise AssertionError(f"resumed losses {resumed['losses']} against {tail}")
+
+    batch = {k: torch.from_numpy(v).to(dev, torch.long) for k, v in TokenPipeline(
+        DataConfig(TRAIN_SEQ, TRAIN_BATCH, cfg.vocab_size, seed)).batch(0).items()}
+    parity = train_parity(seed, cfg, batch)
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steady = [st for run in runs.values() for st in run["steps"][1:]]
+    ms = sorted(st["ms"] for st in steady)
+    median = ms[len(ms) // 2]
+    emit({"phase": "train", "gpu": nvidia_smi(), "arch": cfg.name,
+          "argv": common + ["--ckpt-every", "<5, or the default 50>", "--steps", "<n>", "--ckpt-dir", "<tmp>"],
+          "losses": losses, "resumed_losses": resumed["losses"], "resume_rel": resume_rel,
+          "conditioned_losses": cond["losses"], "conditioned_loss_fall": cond["losses"][0] - cond["losses"][-1],
+          "grad_norm": {name: run["grad_norm"] for name, run in runs.items()},
+          "ln_vocab": float(np.log(cfg.vocab_size)),
+          "ms_per_step": {name: [st["ms"] for st in run["steps"]] for name, run in runs.items()},
+          "ms_per_step_median": median, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
+          "attn_bwd_ms_per_step_median": sorted(st["attn_bwd_ms"] for st in steady)[len(steady) // 2],
+          "attn_bwd_share": sum(st["attn_bwd_ms"] for st in steady) / sum(st["ms"] for st in steady),
+          "b6_launches_per_step": sorted(set(st["b6_launches"] for st in steps)),
+          "peak_gb": {name: run["peak_gb"] for name, run in runs.items()},
+          "wall_s": {name: run["wall_s"] for name, run in runs.items()},
+          "grads_finite_nonzero": len(grad_check), "deterministic_algorithms": False,
+          "parity": parity, "lines": {name: run["lines"] for name, run in runs.items()},
+          "launches": launches})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the discovery driver, as a user runs it, at the smoke's lake
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
@@ -2506,7 +2857,7 @@ def driver_phase(args, cells) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: two-package conformance, the port's half, on the card
+# Phase 13: two-package conformance, the port's half, on the card
 # ---------------------------------------------------------------------------
 
 def conformance_phase() -> dict[str, int]:
@@ -2574,7 +2925,7 @@ def conformance_phase() -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 13: the example twins on the card
+# Phase 14: the example twins on the card
 # ---------------------------------------------------------------------------
 
 def examples_phase() -> dict[str, int]:
@@ -2593,7 +2944,9 @@ def examples_phase() -> dict[str, int]:
              (re.compile(r"^latency: .*"), "latency: <masked>"),
              (re.compile(r"\((CPU|CUDA), reduced"), "(<device>, reduced"),
              (re.compile(r"backend(=|: )[\w-]+(\[\w+\]| \[resolved from \w+\])?"), "backend <b>"),
-             (re.compile(r"impl=[\w-]+"), "impl=<impl>")]
+             (re.compile(r"impl=[\w-]+"), "impl=<impl>"),
+             (re.compile(r"loss \d+\.\d+( -> \d+\.\d+)?"), "loss <l>"),
+             (re.compile(r"\(\d+\.\d+ steps/s\)"), "(<rate> steps/s)")]
 
     def masked(lines):
         out = []
@@ -2676,6 +3029,7 @@ def main() -> int:
           "cells": int((corpus.cell_value_ids >= 0).sum()), "wall_s": time.perf_counter() - t0})
 
     rows, lane_prefixes = kernel_phase(args.seed, corpus)
+    flash_grad_phase(args.seed)
     from repro_torch.core.session import DiscoveryConfig, MateSession
     from repro_torch.kernels import filter_kernel as fk
     from repro_torch.kernels import xash_kernel as xk
@@ -2697,6 +3051,7 @@ def main() -> int:
     by_path["serving_tier"] = serving_phase(corpus, truth, mixed, args.seed)
     by_path["serve"] = serve_phase(args.seed)
     by_path["families"] = families_phase(args.seed)
+    by_path["train"] = train_phase(args.seed)
     by_path["driver"] = driver_phase(args, lake_cells)
     del lake_cells
     by_path["conformance"] = conformance_phase()

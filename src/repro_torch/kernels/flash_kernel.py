@@ -1,4 +1,5 @@
-"""Flash attention (forward): the wrapper of the hand-written CUDA kernel.
+"""Flash attention: the wrapper of the hand-written CUDA kernel, and its
+backward.
 
 ``flash_attention`` computes causal / sliding-window softmax attention on
 the reference's ``[B, S, H, d]`` layout.  On CUDA tensors it launches
@@ -7,6 +8,18 @@ the reference's ``[B, S, H, d]`` layout.  On CUDA tensors it launches
 bfloat16, its float32 FMA kernel for float32; on CPU tensors it runs the
 plain PyTorch version below, and only there.  It counts its launches in
 ``flash_attention.launches``.
+
+Training differentiates through it: when grad is enabled and an input
+requires it, the call goes through ``_FlashAttention``, a
+``torch.autograd.Function`` whose forward is that same launch (the plain
+version on CPU tensors) and whose backward is ``flash_attention_backward``.
+The Pallas kernel has no backward; the reference trains through XLA
+attention (``layers._sdpa_flash``, whose backward is autodiff with the
+scores recomputed per KV block under ``jax.checkpoint``).  So the backward
+here is the counterpart of that autodiff, written as torch ops: the scores
+and the softmax recomputed in float32 per block of queries, then dV = PᵀdO,
+dS = P∘(dP − rowsum(P∘dP)), dQ = dS·K/√d, dK = dSᵀ·Q/√d.  It is not the
+plain version of a kernel.
 
 Semantics (the Pallas kernel's): query ``i`` may attend to key ``j`` iff
 ``j < T``, ``i - j >= 0`` when causal, and ``i - j < window`` when
@@ -30,10 +43,11 @@ MAX_VALUE_DIM = 128  # dv
 _PLAIN_ELEMS = 1 << 26
 
 
-def _admissible(s: int, t: int, causal: bool, window: int, device, q0: int = 0) -> torch.Tensor:
-    """bool[s, t] mask of admissible (query q0 + i, key j) pairs."""
+def _admissible(s: int, t: int, causal: bool, window: int, device, q0: int = 0,
+                k0: int = 0) -> torch.Tensor:
+    """bool[s, t] mask of admissible (query q0 + i, key k0 + j) pairs."""
     diff = (torch.arange(q0, q0 + s, device=device)[:, None]
-            - torch.arange(t, device=device)[None, :])
+            - torch.arange(k0, k0 + t, device=device)[None, :])
     ok = torch.ones_like(diff, dtype=torch.bool)
     if causal:
         ok &= diff >= 0
@@ -42,27 +56,89 @@ def _admissible(s: int, t: int, causal: bool, window: int, device, q0: int = 0) 
     return ok
 
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The accumulation dtype: float32, or float64 for float64 inputs (the
+    CPU's ``gradcheck``)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _probs(qf, kf, scale, ok):
+    """Masked softmax of q·k·scale over the keys: qf [B, H, rows, d], kf [B,
+    H, d, T], ok [rows, T] -> (P [B, H, rows, T], its row sums before
+    normalising); a row with no admissible key is all zeros.  The masked
+    scores are -inf before the exponential, so autograd through this
+    (``flash_attention_plain`` as a yardstick) never multiplies a zero
+    gradient by a masked score's overflowed exp."""
+    sc = (torch.matmul(qf, kf) * scale).masked_fill(~ok, float("-inf"))
+    m = sc.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(sc - m)
+    return p, p.sum(dim=-1, keepdim=True)
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
     """Plain version of ``flash_attention``: masked softmax attention in
     float32, blocked over the query axis so long sequences fit."""
     b, s, h, d = q.shape
     t = k.shape[1]
     scale = 1.0 / math.sqrt(d)
+    acc = _acc(q.dtype)
     out = torch.empty(b, s, h, v.shape[3], dtype=q.dtype, device=q.device)
-    kf = k.float().permute(0, 2, 3, 1)  # [B, H, d, T]
-    vf = v.float().transpose(1, 2)  # [B, H, T, dv]
+    kf = k.to(acc).permute(0, 2, 3, 1)  # [B, H, d, T]
+    vf = v.to(acc).transpose(1, 2)  # [B, H, T, dv]
     step = max(1, _PLAIN_ELEMS // max(b * h * t, 1))
     for q0 in range(0, s, step):
-        qf = q[:, q0 : q0 + step].float().transpose(1, 2)  # [B, H, rows, d]
-        sc = torch.matmul(qf, kf) * scale  # [B, H, rows, T]
-        ok = _admissible(qf.shape[2], t, causal, window, q.device, q0)
-        m = sc.masked_fill(~ok, float("-inf")).amax(dim=-1, keepdim=True)
-        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-        p = torch.where(ok, torch.exp(sc - m), torch.zeros_like(sc))
-        l = p.sum(dim=-1, keepdim=True)
+        qf = q[:, q0 : q0 + step].to(acc).transpose(1, 2)  # [B, H, rows, d]
+        p, l = _probs(qf, kf, scale, _admissible(qf.shape[2], t, causal, window, q.device, q0))
         o = torch.matmul(p, vf) / torch.clamp(l, min=1e-30)
         out[:, q0 : q0 + step] = o.transpose(1, 2).to(q.dtype)
     return out
+
+
+def _key_span(q0: int, rows: int, t: int, causal: bool, window: int) -> tuple[int, int]:
+    """[lo, hi): the keys that queries q0 .. q0 + rows - 1 may admit."""
+    lo = max(0, q0 - window + 1) if window > 0 else 0
+    hi = min(t, q0 + rows) if causal else t
+    return lo, max(lo, hi)
+
+
+def flash_attention_backward(q, k, v, dout, *, causal: bool = True, window: int = 0):
+    """Gradients of ``flash_attention`` (dq, dk, dv) for the output
+    gradient ``dout`` [B, S, H, dv], each in its input's dtype.
+
+    Blocked over the query axis with the plain version's budget; per block
+    the scores and the softmax are recomputed in float32 under the
+    forward's mask, over the keys the block may admit only, and
+    dV += PᵀdO, dS = P∘(dP − rowsum(P∘dP)) with dP = dO·Vᵀ, dQ = dS·K/√d,
+    dK += dSᵀ·Q/√d.  Torch ops: the counterpart of the reference's XLA
+    autodiff (module docstring), on CPU and CUDA tensors alike."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    acc = _acc(q.dtype)
+    kf = k.to(acc).transpose(1, 2)  # [B, H, T, d]
+    vf = v.to(acc).transpose(1, 2)  # [B, H, T, dv]
+    dq = torch.zeros(b, s, h, d, dtype=q.dtype, device=q.device)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    step = max(1, _PLAIN_ELEMS // max(b * h * t, 1))
+    for q0 in range(0, s, step):
+        rows = min(step, s - q0)
+        lo, hi = _key_span(q0, rows, t, causal, window)
+        if hi == lo:  # no admissible key: the output rows are zeros
+            continue
+        qf = q[:, q0 : q0 + rows].to(acc).transpose(1, 2)  # [B, H, rows, d]
+        do = dout[:, q0 : q0 + rows].to(acc).transpose(1, 2)  # [B, H, rows, dv]
+        kb, vb = kf[:, :, lo:hi], vf[:, :, lo:hi]
+        ok = _admissible(rows, hi - lo, causal, window, q.device, q0, lo)
+        p, l = _probs(qf, kb.transpose(2, 3), scale, ok)
+        p = p / torch.clamp(l, min=1e-30)
+        dv[:, :, lo:hi] += torch.matmul(p.transpose(2, 3), do)
+        dp = torch.matmul(do, vb.transpose(2, 3))  # [B, H, rows, T']
+        ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+        dq[:, q0 : q0 + rows] = (torch.matmul(ds, kb) * scale).transpose(1, 2).to(q.dtype)
+        dk[:, :, lo:hi] += torch.matmul(ds.transpose(2, 3), qf) * scale
+    return dq, dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
 
 
 def _pad8(x: torch.Tensor) -> torch.Tensor:
@@ -92,7 +168,8 @@ def _strides(x: torch.Tensor, bf16: bool) -> tuple[int, int, int]:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Blocked online-softmax attention forward.
+    """Blocked online-softmax attention forward; differentiable (through
+    ``_FlashAttention``) when grad is enabled and an input requires it.
 
     Args:
       q: [B, S, H, d]; k: [B, T, H, d]; v: [B, T, H, dv] — float32 or
@@ -116,6 +193,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.T
         raise ValueError(f"shapes differ: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window)
+
+
+def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """The forward: the kernel's launch on CUDA tensors, the plain version
+    on CPU tensors."""
+    b, s, h, d = q.shape
+    t, dv = k.shape[1], v.shape[3]
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
@@ -151,3 +238,21 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.T
 
 
 flash_attention.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` under autograd: the forward's launch (plain
+    version on CPU tensors), q, k and v saved as passed in, and
+    ``flash_attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, dout, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None

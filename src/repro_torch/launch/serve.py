@@ -19,8 +19,10 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.data.pipeline import stub_inputs
 from repro_torch.device import resolve_device
+from repro_torch.models import params as params_lib, transformer
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -38,16 +40,17 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
 
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: checkpoint restore waits for the ckpt/manager.py port"
-            " (the training slice, ROADMAP A.10)"
-        )
     dev = resolve_device(args.device)
     cfg = configs.get_config(args.arch)
     if args.smoke:
         cfg = configs.reduce_config(cfg)
-    model = TransformerLM.init(cfg, seed=0, device=dev)
+    params = params_lib.materialize(transformer.model_specs(cfg), 0, device=dev)
+    if args.ckpt_dir:
+        step, restored = CheckpointManager(args.ckpt_dir).restore_latest({"params": params})
+        if restored is not None:
+            params = restored["params"]
+            print(f"[serve] restored checkpoint step {step}")
+    model = TransformerLM(cfg, params)
 
     engine = ServeEngine(model, batch=args.batch, max_seq=args.max_seq, temperature=args.temperature,
                          extra_inputs=stub_inputs(cfg, args.batch, device=dev))

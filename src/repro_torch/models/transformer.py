@@ -12,6 +12,15 @@ parameter tree (nested dicts of tensors) as the reference's do, and
 load-balancing loss; ``TransformerLM`` is the ``nn.Module`` that owns a
 tree and runs them under ``torch.inference_mode()``.  Caches are updated in
 place by ``decode_step`` (the reference returns new ones).
+
+Training (``train/step.py``) calls ``forward_hidden`` / ``mtp_hidden``
+with grad enabled on the stacked leaves.  With ``remat`` (the reference's
+default) each block runs under ``torch.utils.checkpoint`` — the
+reference's ``jax.checkpoint`` of its scan body — so only the blocks'
+inputs are kept for the backward, and each block's forward, its B.6
+launches included, runs again there.  The blocks' weights are ``unbind``
+views of the stacked leaves, so the backward stacks each leaf's gradient
+once.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers, mla, moe, ssm
 from repro_torch.models.config import ModelConfig
@@ -209,10 +219,20 @@ def model_specs(cfg: ModelConfig) -> dict:
 
 
 def _index(tree, i: int):
-    """Layer ``i`` of a stacked tree (views, not copies)."""
+    """Layer ``i`` of a stacked tree (views, not copies): the caches, which
+    decode updates in place."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` blocks of a stacked tree, as per-block trees of ``unbind``
+    views (one backward node per leaf, which stacks the blocks' gradients)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: part[i] for k, part in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
@@ -233,9 +253,8 @@ def _encode(params, cfg: ModelConfig, frames, patches, dtype=torch.bfloat16):
             raise ValueError("whisper needs frame embeddings (stub frontend): frames=[B, n_frames, D]")
         e = frames.to(dtype) + params["enc_pos"].to(dtype)[None]
         e_pos = torch.arange(frames.shape[1], device=e.device)
-        enc = params["encoder"]
-        for li in range(cfg.encoder.n_layers):
-            e, _ = _layer_fwd(_index(enc, li)["s0"], cfg, e, e_pos, "enc_attn", "mlp")
+        for lp in _unstack(params["encoder"], cfg.encoder.n_layers):
+            e, _ = _layer_fwd(lp["s0"], cfg, e, e_pos, "enc_attn", "mlp")
         return layers.norm_fwd(params["enc_final_norm"], cfg, e), e_pos
     if cfg.vision is not None:
         if patches is None:
@@ -248,41 +267,57 @@ def _encode(params, cfg: ModelConfig, frames, patches, dtype=torch.bfloat16):
 def _blocks(params, cfg: ModelConfig):
     """(plan, block index, block parameters) over every stacked block."""
     for plan in group_plans(cfg):
-        for li in range(plan.n):
-            yield plan, li, _index(params[plan.name], li)
+        for li, lp in enumerate(_unstack(params[plan.name], plan.n)):
+            yield plan, li, lp
 
 
 # ---------------------------------------------------------------------------
 # forward (scoring)
 # ---------------------------------------------------------------------------
 
+def _block_fwd(lp, cfg: ModelConfig, plan: GroupPlan, x, positions, enc_out, enc_positions):
+    """One stacked block's sublayers. Returns (x, the MoE aux loss summed
+    over them, or None)."""
+    aux = None
+    for i, (mixer, ffn) in enumerate(plan.sublayers):
+        window = cfg.sliding_window if mixer == "attn" else 0
+        x, a = _layer_fwd(lp[f"s{i}"], cfg, x, positions, mixer, ffn, window=window,
+                          enc_out=enc_out, enc_positions=enc_positions)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                    frames: torch.Tensor | None = None,
-                   patches: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                   patches: torch.Tensor | None = None,
+                   remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward WITHOUT the LM head.
 
     tokens: int[B, S] -> (hidden bf16[B, S, D] after the final norm, aux
-    f32 — the MoE load-balancing loss summed over layers).
+    f32 — the MoE load-balancing loss summed over layers).  ``remat``:
+    with grad enabled, each block under ``torch.utils.checkpoint`` (module
+    docstring); without grad it changes nothing.
     """
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed(params, tokens)
     aux = torch.zeros((), device=x.device)
     enc_out, enc_positions = _encode(params, cfg, frames, patches)
+    remat = remat and torch.is_grad_enabled()
     for plan, _li, lp in _blocks(params, cfg):
-        for i, (mixer, ffn) in enumerate(plan.sublayers):
-            window = cfg.sliding_window if mixer == "attn" else 0
-            x, a = _layer_fwd(lp[f"s{i}"], cfg, x, positions, mixer, ffn, window=window,
-                              enc_out=enc_out, enc_positions=enc_positions)
-            if a is not None:
-                aux = aux + a
+        args = (lp, cfg, plan, x, positions, enc_out, enc_positions)
+        x, a = checkpoint(_block_fwd, *args, use_reentrant=False) if remat else _block_fwd(*args)
+        if a is not None:
+            aux = aux + a
     return layers.norm_fwd(params["final_norm"], cfg, x), aux
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             frames: torch.Tensor | None = None,
-            patches: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+            patches: torch.Tensor | None = None,
+            remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. tokens: int[B, S] -> (logits f32[B, S, V], aux)."""
-    x, aux = forward_hidden(params, cfg, tokens, frames=frames, patches=patches)
+    x, aux = forward_hidden(params, cfg, tokens, frames=frames, patches=patches, remat=remat)
     return _logits(params, cfg, x), aux
 
 

@@ -1,0 +1,116 @@
+"""Training step: chunked cross-entropy, the MTP loss, remat (port of
+``repro.train.step``).
+
+The loss head is CHUNKED over the sequence: hidden states are projected to
+vocab logits one chunk at a time, each chunk under
+``torch.utils.checkpoint``, so a ``[B, chunk, V]`` logits tensor never
+outlives its chunk, in the forward or the backward (at a 151,936-token
+vocab the float32 ``[B, S, V]`` logits are the largest activation of LM
+training).
+
+``make_train_step`` returns ``train_step(params, opt_state, batch) ->
+(params, opt_state, metrics)``: zero-grad, the loss, its backward through
+the model (remat blocks, B.6's autograd path) and ``adamw_update``, which
+writes the new parameters and moments into the tensors it was given, as
+``decode_step`` updates its caches.  After a step each parameter leaf
+keeps its gradient in ``.grad`` until the next step clears it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.train import optimizer as opt
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    adamw: opt.AdamWConfig = dataclasses.field(default_factory=opt.AdamWConfig)
+    remat: bool = True
+    ce_chunk: int = 1024  # seq chunk for the loss head (0 → unchunked)
+    mtp_weight: float = 0.3
+    z_loss: float = 1e-4
+
+
+def _ce_from_logits(logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
+    """(sum of CE + z-loss over valid (label >= 0) positions, their count),
+    float32."""
+    valid = labels >= 0
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    ce = (lse - gold) + z_loss * lse**2
+    ce = torch.where(valid, ce, torch.zeros_like(ce))
+    return ce.sum(), valid.sum().float()
+
+
+def _chunk_ce(h, head, labels, z_loss: float):
+    return _ce_from_logits((h @ head).float(), labels, z_loss)
+
+
+def chunked_ce(hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+               chunk: int, z_loss: float) -> torch.Tensor:
+    """Mean CE of hidden [B, S, D] @ head [D, V] against labels [B, S],
+    without a whole [B, S, V] logits tensor."""
+    b, s, d = hidden.shape
+    if chunk <= 0 or s <= chunk:
+        tot, cnt = _chunk_ce(hidden, head, labels, z_loss)
+        return tot / torch.clamp(cnt, min=1)
+    pad = (-s) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    remat = torch.is_grad_enabled()
+    tot = cnt = torch.zeros((), device=hidden.device)
+    for c0 in range(0, s + pad, chunk):
+        args = (hidden[:, c0 : c0 + chunk], head, labels[:, c0 : c0 + chunk], z_loss)
+        t, n = checkpoint(_chunk_ce, *args, use_reentrant=False) if remat else _chunk_ce(*args)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1)
+
+
+def loss_fn(params, cfg: ModelConfig, tcfg: TrainConfig, batch: dict):
+    """batch: tokens int[B, S], labels int[B, S] (-1: no target), and
+    frames / patches for whisper / the VLM.  Returns (loss, metrics)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    kw = {k: batch[k] for k in ("frames", "patches") if k in batch}
+    hidden, aux = transformer.forward_hidden(params, cfg, tokens, remat=tcfg.remat, **kw)
+    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(hidden.dtype)
+    loss = chunked_ce(hidden, head, labels, tcfg.ce_chunk, tcfg.z_loss)
+    metrics = {"ce": loss, "aux": aux}
+    if cfg.mtp_depth:
+        mtp_h = transformer.mtp_hidden(params, cfg, tokens, hidden)
+        # MTP predicts token t+2: labels shifted one extra step
+        mtp_labels = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)], dim=1)
+        mtp_loss = chunked_ce(mtp_h, head, mtp_labels, tcfg.ce_chunk, tcfg.z_loss)
+        loss = loss + tcfg.mtp_weight * mtp_loss
+        metrics["mtp"] = mtp_loss
+    loss = loss + aux
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics), updating ``params`` and ``opt_state`` in place."""
+
+    def train_step(params, opt_state, batch):
+        leaves = opt.leaves(params)
+        for p in leaves:
+            p.grad = None
+            p.requires_grad_(True)
+        loss, metrics = loss_fn(params, cfg, tcfg, batch)
+        loss.backward()
+        # a leaf the loss never reached gets a zero gradient, as under jax.grad
+        grads = opt.tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, params)
+        params, opt_state, om = opt.adamw_update(params, grads, opt_state, tcfg.adamw)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(om)
+        return params, opt_state, metrics
+
+    return train_step

@@ -7,7 +7,10 @@ except where a line reports a time, a rate or sampled tokens: those parts
 are masked, and the rest of the line is still compared.  The LM tokens of
 ``torch_serve_batched.py`` are not compared: the port samples from a
 ``torch.Generator``, not ``jax.random``; its prompts, token counts and
-discovery side are.
+discovery side are.  Nor are ``torch_enrich_and_train.py``'s losses (its
+weights are the port's own draw); its lake, enrichment, provenance,
+records and step lines are, and the twin itself asserts that its loss
+fell.
 """
 
 import contextlib
@@ -34,6 +37,11 @@ CASES = {
         ["--requests", "2", "--max-new", "4", "--disc-requests", "3"],
         [(re.compile(r"\d+\.\d+ tok/s"), "<rate> tok/s"),
          (re.compile(r"\.\.\. -> \[.*\]$"), "... -> <sampled tokens>")],
+    ),
+    "enrich_and_train": (
+        ["--steps", "11", "--seq-len", "32", "--batch", "4"],
+        [(re.compile(r"loss \d+\.\d+( -> \d+\.\d+)?"), "loss <l>"),
+         (re.compile(r"\(\d+\.\d+ steps/s\)"), "(<rate> steps/s)")],
     ),
 }
 

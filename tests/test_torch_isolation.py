@@ -2,8 +2,10 @@
 
 * Importing every module of ``repro_torch`` and every example twin
   (``examples/torch_*.py``), in a fresh interpreter, leaves ``jax``,
-  ``repro`` and ``triton`` out of ``sys.modules``, and neither the package,
-  the twins nor ``chip_smoke.py`` has an import statement naming them.
+  ``repro``, ``triton`` and ``ml_dtypes`` out of ``sys.modules``, and
+  neither the package, the twins nor ``chip_smoke.py`` has an import
+  statement naming them (the card's machine has no ``ml_dtypes``: bf16
+  checkpoint leaves are read as bytes).
 * ``MATE_FILTER_BACKEND`` has one reader in the port: ``kernels/registry.py``.
 * No module builds or imports a kernel toolchain at import time.
 """
@@ -23,7 +25,7 @@ MODULES = sorted(
     for p in PKG.rglob("*.py")
 )
 TWINS = sorted((ROOT / "examples").glob("torch_*.py"))
-FORBIDDEN = ("jax", "jaxlib", "repro", "triton")
+FORBIDDEN = ("jax", "jaxlib", "repro", "triton", "ml_dtypes")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -66,7 +68,8 @@ def test_no_import_statement_names_reference_or_jax(path):
 def test_every_reference_example_has_a_twin():
     assert [p.name for p in TWINS] == sorted(
         f"torch_{name}.py" for name in
-        ("quickstart", "async_serving", "distributed_discovery", "serve_batched")
+        ("quickstart", "async_serving", "distributed_discovery", "serve_batched",
+         "enrich_and_train")
     )
 
 

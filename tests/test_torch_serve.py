@@ -34,7 +34,9 @@ from repro.models import params as ref_params
 from repro.models import transformer as ref_tf
 from repro.serve import engine as ref_engine
 from repro_torch import configs
+from repro_torch.ckpt.manager import CheckpointManager, leaves_with_paths
 from repro_torch.launch import serve as port_serve
+from repro_torch.launch import train as port_train
 from repro_torch.models import params
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.serve import engine
@@ -107,13 +109,25 @@ def test_sampling_is_seeded():
     assert all(0 <= t < model.cfg.vocab_size for out in runs[0] for t in out)
 
 
-def test_serve_main_smoke_on_cpu(capsys):
+def test_serve_main_smoke_on_cpu(capsys, tmp_path, monkeypatch):
     done = port_serve.main(["--smoke", "--device", "cpu", "--batch", "2", "--max-seq", "48",
                             "--max-new", "4", "--n-requests", "3"])
     assert [len(r.out) for r in done] == [4, 4, 4]
     assert "[serve] 3 requests, 12 tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ckpt/manager.py"):
-        port_serve.main(["--smoke", "--device", "cpu", "--ckpt-dir", "x"])
+    # --ckpt-dir: the parameters of the port's trainer's latest checkpoint
+    port_train.main(["--smoke", "--steps", "2", "--seq-len", "16", "--global-batch", "2",
+                     "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+    served = []
+    monkeypatch.setattr(port_serve, "TransformerLM",
+                        lambda cfg, p: served.append(p) or TransformerLM(cfg, p))
+    done = port_serve.main(["--smoke", "--device", "cpu", "--batch", "2", "--max-seq", "48",
+                            "--max-new", "4", "--n-requests", "3", "--ckpt-dir", str(tmp_path)])
+    assert [len(r.out) for r in done] == [4, 4, 4]
+    assert "[serve] restored checkpoint step 2" in capsys.readouterr().out
+    like = {"params": served[0]}
+    _, want = CheckpointManager(str(tmp_path)).restore_latest(like)
+    for (path, got), (_, w) in zip(leaves_with_paths(served[0]), leaves_with_paths(want["params"])):
+        assert torch.equal(got, w), path
     if not torch.cuda.is_available():  # the default device is CUDA
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_serve.main(["--smoke"])

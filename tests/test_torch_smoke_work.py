@@ -46,6 +46,39 @@ def test_flash_work_matches_brute_force(s, t, window, causal, dtype):
     assert got == want
 
 
+@pytest.mark.parametrize("s,t,window,causal", [
+    (64, 64, 0, True),
+    (100, 37, 0, True),
+    (37, 100, 0, True),
+    (128, 128, 16, True),
+    (50, 70, 9, False),
+    (7, 3, 5, True),
+    (2048, 2048, 0, True),  # the training shape's mask
+    (256, 1500, 0, False),  # whisper's cross-attention
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_work_matches_brute_force(s, t, window, causal, dtype):
+    """The backward's yardstick: q, k, v and dout read, dq, dk and dv
+    written; 2·(3·d + 2·dv) FLOPs per admissible pair — the five products
+    of ``flash_attention_backward`` counted over the pairs it needs."""
+    b, h, d, dv = 2, 3, 32, 16
+    diff = np.arange(s)[:, None] - np.arange(t)[None, :]
+    ok = np.ones((s, t), dtype=bool)
+    if causal:
+        ok &= diff >= 0
+    if window:
+        ok &= diff < window
+    pairs = b * h * int(ok.sum())
+    # the backward's products per admissible (query, key) pair: Q·Kᵀ
+    # (d MACs), Pᵀ·dO (dv), dO·Vᵀ (dv), dS·K (d), dSᵀ·Q (d)
+    macs = pairs * (d + dv + dv + d + d)
+    reads = [torch.empty(b, n, h, e, dtype=dtype) for n, e in ((s, d), (t, d), (t, dv), (s, dv))]
+    writes = [torch.empty(b, n, h, e, dtype=dtype) for n, e in ((s, d), (t, d), (t, dv))]
+    want = (sum(x.numel() * x.element_size() for x in reads + writes), 2 * macs)
+    got = chip_smoke.flash_bwd_work(b, s, t, h, d, dv, window, reads[0].element_size(), causal)
+    assert got == want
+
+
 @pytest.mark.parametrize("store_stride,lanes,n_store", [
     (4, 4, 64),  # 16-byte rows: neighbours share a sector
     (16, 16, 64),  # 64-byte rows: two sectors each

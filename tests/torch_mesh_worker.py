@@ -158,3 +158,20 @@ def fail_on_rank_one(mesh):
     if mesh.rank == 1:
         raise ValueError("rank one fails on purpose")
     return mesh.rank
+
+
+def compressed_reduce(mesh, grads):
+    """``train.compression.compressed_all_reduce`` over the group for each
+    step's gradients (``grads[step][rank]``, numpy trees), errors carried
+    between steps.  Returns [(reduced, new errors)] per step, numpy trees."""
+    import torch
+
+    from repro_torch.train import compression, optimizer as opt
+
+    errors = compression.init_error(opt.tree_map(torch.from_numpy, grads[0][mesh.rank]))
+    out = []
+    for step in grads:
+        g = opt.tree_map(torch.from_numpy, step[mesh.rank])
+        red, errors = compression.compressed_all_reduce(g, errors, mesh.group)
+        out.append((opt.tree_map(lambda t: t.numpy(), red), opt.tree_map(lambda t: t.numpy(), errors)))
+    return out
