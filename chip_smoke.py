@@ -141,6 +141,22 @@ Phases, each printing one JSON line:
    against the same step with the plain attention (loss and
    attention-weight gradients within 1e-3); ms per step, tokens/s, peak GB,
    the gradient norms and the attention backward's share of the step;
+11b. train_mesh — ``launch.train.run`` (``main``'s work) at full-width
+   qwen1.5-0.5b with ``--mesh 2x2`` (``TRAIN_MESH``: 4 gloo ranks on the one
+   card, FSDP over 'data', tensor parallel over 'model', [8, 512] batches,
+   4 steps, a checkpoint every 2), then ``--mesh 1x1``, both from one
+   step-0 checkpoint of the driver's draw with its attention projections
+   rescaled, then ``--mesh 1x1`` resumed from the mesh run's step-2
+   checkpoint: parameters and moments on the card on every rank, 48 B.6
+   launches per rank and step at [4, 512, 8, 64], the first step's loss and
+   gradient norm and the resumed losses within 2e-2 of 1x1's / the mesh
+   run's; ms per step, tokens/s, peak GB and the collectives' share per
+   rank;
+11c. pipeline — ``train.pipeline.pipeline_loss_fn`` at full-width
+   qwen1.5-0.5b over 2 gloo ranks (one stage of 12 layers each), [8, 512]
+   in 4 microbatches, ``loss.backward()`` on both: the loss within 1e-2 of
+   the un-pipelined chunked CE on the same weights, every gradient finite
+   and every used leaf's nonzero, 96 B.6 launches per rank;
 12. driver — ``repro_torch.launch.discovery.main`` in this process at the
    same lake (its tables reused from phase 1's draw, copied before any
    planting) with ``DRIVER_ARGV``: 4 mixed queries of 20 rows, FDs, the
@@ -168,7 +184,9 @@ windows (the driver's and the examples' own builds are part of their runs
 and are counted).  Each kernel must
 have launched on its path.  Then the ``kernels`` summary line (each
 kernel's ``launches`` on its own path — the main path for B.1–B.4, the ops
-path for B.5, the serve path for B.6 (the families and train paths beside it) — and
+path for B.5, the serve path for B.6 (the families, train, train_mesh and
+pipeline paths beside it; the mesh phases' spawned ranks report their own
+launches) — and
 ``launches_by_path``, every
 path's own count; the driver's spawned ranks report their launches in the
 ``driver`` line), the card's name and power limit, and last
@@ -347,6 +365,15 @@ TRAIN_STEPS, TRAIN_RESUME_AT, TRAIN_FALL_STEPS = 9, 5, 20
 TRAIN_LOSS_FALL = 0.1
 TRAIN_RESUME_REL = 1e-3
 TRAIN_PARITY_LAYERS, TRAIN_PARITY_TOL = 2, 1e-3
+# training over a mesh (phase 11b): full-width qwen1.5-0.5b over gloo ranks
+# on the one card, its first step and a 1x1 resume of its step-2
+# checkpoint held against --mesh 1x1 within TRAIN_MESH_REL (bf16)
+TRAIN_MESH, TRAIN_MESH_SEQ, TRAIN_MESH_BATCH, TRAIN_MESH_STEPS, TRAIN_MESH_CKPT = "2x2", 512, 8, 4, 2
+TRAIN_MESH_REL = 2e-2
+TRAIN_MESH_TIMEOUT_S = 600.0
+# GPipe (phase 11c): 2 stages x 1 data rank, [8, 512], 4 microbatches; the
+# loss within PIPE_TOL (absolute, bf16) of the un-pipelined chunked CE
+PIPE_STAGES, PIPE_SEQ, PIPE_BATCH, PIPE_MICRO, PIPE_TOL = 2, 512, 8, 4, 1e-2
 
 
 def emit(obj) -> None:
@@ -2586,8 +2613,8 @@ def train_phase(seed) -> dict[str, int]:
         bwd_events.append((start, stop))
         return out
 
-    def instrumented(cfg_, tcfg):
-        inner = make_train_step(cfg_, tcfg)
+    def instrumented(cfg_, tcfg, *mesh_args):
+        inner = make_train_step(cfg_, tcfg, *mesh_args)
 
         def train_step(params, opt_state, batch):
             bwd_events.clear()
@@ -2698,6 +2725,235 @@ def train_phase(seed) -> dict[str, int]:
           "grads_finite_nonzero": len(grad_check), "deterministic_algorithms": False,
           "parity": parity, "lines": {name: run["lines"] for name, run in runs.items()},
           "launches": launches})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 11b: training over a mesh; phase 11c: GPipe
+# ---------------------------------------------------------------------------
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def _rank_timing(report: dict, tokens_per_step: int) -> dict:
+    """A rank's steady-step timing (steps after the first): ms per step
+    (host clock, ending in a sync), tokens/s of the global batch, the
+    share of the step in collectives (host clock, host copies included)."""
+    steady = list(zip(report["ms"], report["comm_s"]))[1:] or list(zip(report["ms"], report["comm_s"]))
+    ms = _median([m for m, _ in steady])
+    return {"ms_per_step": report["ms"], "ms_per_step_median": ms, "tokens_per_s": tokens_per_step / (ms / 1e3),
+            "comm_share": sum(c for _, c in steady) / (sum(m for m, _ in steady) / 1e3),
+            "peak_gb": report["peak_gb"]}
+
+
+def train_mesh_phase(seed, extra=(), device="cuda:0") -> dict[str, int]:
+    """``launch.train.run`` (``main``'s work) at full-width qwen1.5-0.5b with
+    ``--mesh TRAIN_MESH``: 4 gloo ranks on the one card (FSDP over 'data',
+    tensor parallel over 'model', B.6 on each rank's 8 of 16 heads), a
+    checkpoint every ``TRAIN_MESH_CKPT`` steps; then ``--mesh 1x1``, and
+    ``--mesh 1x1`` resumed from the mesh run's step-2 checkpoint (full
+    arrays).  Both first runs resume the same step-0 checkpoint: the
+    driver's draw from ``seed`` with its attention projections rescaled
+    (``conditioned``), since on the init rule's own draw the backward
+    explodes (gradient norm ~1e12, ROADMAP C.18): there one bf16 ulp on
+    one weight moves the first step's gradient norm by 30%, and the mesh
+    run's parts from 1x1's by 40% (``tools/train_ulp_witness.py``).  Held: every
+    rank's parameters and moments on the card; 48 B.6 launches per rank
+    per step (24 layers, forward and remat recompute), all at [4, 512, 8,
+    64]; the first step's loss and gradient norm within ``TRAIN_MESH_REL``
+    of 1x1's; the resumed losses within ``TRAIN_MESH_REL`` of the mesh
+    run's.  Printed, not held: ms per step, tokens/s, peak GB and the
+    collectives' share, per rank.  The line is printed before a failed
+    check raises."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import params as params_lib, transformer
+    from repro_torch.train import optimizer as opt
+
+    argv = ["--arch", SERVE_ARCH, "--seq-len", str(TRAIN_MESH_SEQ), "--global-batch", str(TRAIN_MESH_BATCH),
+            "--steps", str(TRAIN_MESH_STEPS), "--ckpt-every", str(TRAIN_MESH_CKPT), "--log-every", "1",
+            "--seed", str(seed), *extra]
+    cfg = train_launch._config(train_launch.parse_args(argv))
+    d, m = (int(x) for x in TRAIN_MESH.split("x"))
+    total, runs = collections.Counter(), {}
+    timeout = train_launch.RANK_TIMEOUT_S
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {name: os.path.join(tmp, name) for name in ("start", "mesh", "1x1", "resumed")}
+        specs = transformer.model_specs(cfg)
+        weights = params_lib.materialize(specs, seed, device=torch.device(device))
+        conditioned(specs, weights)
+        state = {"params": weights, "opt": opt.init_state(weights, opt.AdamWConfig())}
+        CheckpointManager(dirs["start"]).save(0, state)
+        del state, weights
+        for name in ("mesh", "1x1"):  # the runs write their own checkpoints beside a link to step 0
+            shutil.copytree(dirs["start"], dirs[name], copy_function=os.link)
+        train_launch.RANK_TIMEOUT_S = TRAIN_MESH_TIMEOUT_S
+        try:
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as buf:
+                ranks = train_launch.run(argv + ["--mesh", TRAIN_MESH, "--ckpt-dir", dirs["mesh"]])
+            runs["mesh"] = {"wall_s": time.perf_counter() - t, "lines": buf.getvalue().splitlines()}
+        finally:
+            train_launch.RANK_TIMEOUT_S = timeout
+        os.makedirs(dirs["resumed"])
+        shutil.copytree(os.path.join(dirs["mesh"], f"step_{TRAIN_MESH_CKPT:06d}"),
+                        os.path.join(dirs["resumed"], f"step_{TRAIN_MESH_CKPT:06d}"))
+        for name in ("1x1", "resumed"):  # no save before the last step: only the mesh run's step 2 is read
+            t = time.perf_counter()
+            with path_window(total), contextlib.redirect_stdout(io.StringIO()) as buf:
+                (report,) = train_launch.run(argv + ["--mesh", "1x1", "--ckpt-dir", dirs[name],
+                                                     "--ckpt-every", str(TRAIN_MESH_STEPS + 1)])
+            runs[name] = {"report": report, "wall_s": time.perf_counter() - t,
+                          "lines": buf.getvalue().splitlines()}
+    single, resumed = runs["1x1"]["report"], runs["resumed"]["report"]
+    want_b6 = 2 * cfg.n_layers
+    local = [TRAIN_MESH_BATCH // d, TRAIN_MESH_SEQ, cfg.n_heads // m, cfg.head_dim]
+    failed = []
+    for r in ranks:
+        if r["devices"] != [device]:
+            failed.append(f"rank {r['rank']}: parameters and moments on {r['devices']}, not {device}")
+        if any(n != want_b6 for n in r["b6_launches"]):
+            failed.append(f"rank {r['rank']}: B.6 launches per step {r['b6_launches']}, expected {want_b6}")
+        if r["attention_shapes"] != {str(local): want_b6 * TRAIN_MESH_STEPS}:
+            failed.append(f"rank {r['rank']}: B.6 calls {r['attention_shapes']}, expected {local}")
+    full = ranks[0]
+    first = {"loss": abs(full["losses"][0] - single["losses"][0]) / abs(single["losses"][0]),
+             "grad_norm": abs(full["grad_norm"][0] - single["grad_norm"][0]) / abs(single["grad_norm"][0])}
+    tail = full["losses"][TRAIN_MESH_CKPT:]
+    resume_rel = [abs(a - b) / abs(b) for a, b in zip(resumed["losses"], tail)]
+    if not max(first.values()) <= TRAIN_MESH_REL:
+        failed.append(f"{TRAIN_MESH} first step against 1x1: {first}")
+    if runs["resumed"]["lines"][0] != f"[train] resumed from step {TRAIN_MESH_CKPT}" or len(resume_rel) != len(
+            tail) or not max(resume_rel) <= TRAIN_MESH_REL:
+        failed.append(f"resumed losses {resumed['losses']} against {tail}: {runs['resumed']['lines'][:1]}")
+    tokens = TRAIN_MESH_BATCH * TRAIN_MESH_SEQ
+    launches = {name: int(total[name]) for name in counters()}
+    launches["flash_attention"] += sum(r["b6_total"] for r in ranks)
+    emit({"phase": "train_mesh", "gpu": nvidia_smi(), "arch": cfg.name, "mesh": TRAIN_MESH,
+          "argv": argv + ["--mesh", TRAIN_MESH, "--ckpt-dir", "<tmp: the conditioned step 0>"],
+          "losses": full["losses"], "grad_norm": full["grad_norm"], "losses_1x1": single["losses"],
+          "grad_norm_1x1": single["grad_norm"], "first_step_rel": first, "resumed_losses": resumed["losses"],
+          "resume_rel": resume_rel, "tolerance": TRAIN_MESH_REL, "b6_launches_per_rank_step": want_b6,
+          "b6_shape": local,
+          "ranks": [{"rank": r["rank"], "coords": r["coords"], "devices": r["devices"],
+                     **_rank_timing(r, tokens)} for r in ranks],
+          "timing_1x1": _rank_timing(single, tokens), "wall_s": {k: v["wall_s"] for k, v in runs.items()},
+          "lines": {k: v["lines"] for k, v in runs.items()}, "launches": launches, "failed": failed})
+    if failed:
+        raise AssertionError(f"train_mesh: {failed}")
+    check_counts(launches, ("flash_attention",), "train_mesh path")
+    return launches
+
+
+def pipeline_rank(mesh, seed, device_check: str) -> dict:
+    """One rank of the GPipe phase: full-width qwen1.5-0.5b drawn from
+    ``seed`` on this rank's device, its stage's block of the staged layers,
+    ``pipeline_loss_fn`` over the first batch of ``TokenPipeline`` and
+    ``loss.backward()``; rank 0 also computes the un-pipelined
+    ``chunked_ce`` on the same weights.  Returns the losses, the gradient
+    checks, timings and this rank's B.6 launches."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import flash_kernel as flk
+    from repro_torch.models import params as params_lib, transformer
+    from repro_torch.train import pipeline, sharding, step as step_lib
+
+    dev = mesh.device
+    cfg = configs.get_config(SERVE_ARCH)
+    params = params_lib.materialize(transformer.model_specs(cfg), seed, device=dev)
+    batch = TokenPipeline(DataConfig(PIPE_SEQ, PIPE_BATCH, cfg.vocab_size, seed)).batch(0)
+    tokens, labels = (torch.from_numpy(batch[k]).to(dev, torch.long) for k in ("tokens", "labels"))
+    out = {"rank": mesh.rank, "coords": mesh.coords, "unpiped": None}
+    if mesh.rank == 0:
+        with torch.no_grad():
+            hidden, _ = transformer.forward_hidden(params, cfg, tokens, remat=False)
+            head = transformer._head(params, cfg).to(hidden.dtype)
+            out["unpiped"] = float(step_lib.chunked_ce(hidden, head, labels, 0, 0.0))
+            del hidden, head
+    staged = pipeline.stage_view(params, mesh.shape["pod"])
+    local = sharding.local_tree(staged, pipeline.stage_placement(staged), mesh)
+    del params, staged
+    leaves = [leaf for _, leaf in pipeline._flatten(local)]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    out["devices"] = sorted({str(t.device) for t in leaves})
+    share = PIPE_BATCH // mesh.shape["data"]
+    rows = slice(mesh.coords["data"] * share, (mesh.coords["data"] + 1) * share)
+    fn = pipeline.pipeline_loss_fn(cfg, mesh, PIPE_MICRO, local, batch_axes=("data",))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    flk.flash_attention.launches, comm, t = 0, sharding.COMM["seconds"], time.perf_counter()
+    loss = fn(local, tokens[rows], labels[rows])
+    loss.backward()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    ms = 1e3 * (time.perf_counter() - t)
+    out.update(loss=float(loss.detach()), ms=ms, comm_share=(sharding.COMM["seconds"] - comm) / (ms / 1e3),
+               ticks=PIPE_MICRO + mesh.shape["pod"] - 1, b6_launches=flk.flash_attention.launches,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None)
+    out["grads"] = {"/".join(path): {"finite": bool(torch.isfinite(leaf.grad).all()),
+                                     "nonzero": bool((leaf.grad != 0).any())}
+                    for path, leaf in pipeline._flatten(local)}
+    out["device_ok"] = out["devices"] == [device_check]
+    return out
+
+
+def pipeline_phase(seed, devices=None, device="cuda:0") -> dict[str, int]:
+    """``train.pipeline.pipeline_loss_fn`` at full-width qwen1.5-0.5b on
+    ``PIPE_STAGES`` gloo ranks on the one card (one stage each, 12 layers,
+    one data shard), [8, 512] tokens in ``PIPE_MICRO`` microbatches, then
+    ``loss.backward()`` on every rank.  Held: the loss (the same on every
+    rank) within ``PIPE_TOL`` of the un-pipelined ``chunked_ce`` on the same
+    weights; every leaf's gradient finite on every rank, and every leaf a
+    stage uses (its layers; the embedding on the first stage, the final
+    norm and the tied head on the last) nonzero; 2 × microbatches × 12 B.6
+    launches per rank (forward and the backward's recompute).  Printed:
+    ms per step and per tick, tokens/s, peak GB, the collectives' share."""
+    from repro_torch import configs
+    from repro_torch.launch import mesh as meshlib
+
+    cfg = configs.get_config(SERVE_ARCH)
+    world = PIPE_STAGES
+    t = time.perf_counter()
+    ranks = meshlib.run_ranks(pipeline_rank, world, backend="gloo", devices=devices, args=(seed, device),
+                              grid={"pod": PIPE_STAGES, "data": 1}, timeout_s=TRAIN_MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    losses = {r["loss"] for r in ranks}
+    unpiped = ranks[0]["unpiped"]
+    gap = abs(ranks[0]["loss"] - unpiped)
+    failed = []
+    if len(losses) != 1 or not gap <= PIPE_TOL:
+        failed.append(f"pipeline losses {sorted(losses)} against the un-pipelined {unpiped}")
+    per_stage = cfg.n_layers // PIPE_STAGES
+    for r in ranks:
+        stage = r["coords"]["pod"]
+        used = [p for p in r["grads"] if p.startswith("layers/")]
+        used += ["embed"] if stage == 0 else []
+        used += ["embed", "final_norm/scale"] if stage == PIPE_STAGES - 1 else []
+        bad = [p for p, g in r["grads"].items() if not g["finite"] or (p in used and not g["nonzero"])]
+        if bad or not r["device_ok"]:
+            failed.append(f"stage {stage}: gradients not finite / zero: {bad}; devices {r['devices']}")
+        if r["b6_launches"] != 2 * PIPE_MICRO * per_stage:
+            failed.append(f"stage {stage}: {r['b6_launches']} B.6 launches, expected {2 * PIPE_MICRO * per_stage}")
+    launches = {name: 0 for name in counters()}
+    launches["flash_attention"] = sum(r["b6_launches"] for r in ranks)
+    emit({"phase": "pipeline", "gpu": nvidia_smi(), "arch": cfg.name, "stages": PIPE_STAGES, "data": 1,
+          "tokens": [PIPE_BATCH, PIPE_SEQ], "n_micro": PIPE_MICRO, "loss": ranks[0]["loss"],
+          "unpipelined_loss": unpiped, "gap": gap, "tolerance": PIPE_TOL,
+          "ranks": [{"coords": r["coords"], "ms_per_step": r["ms"], "ms_per_tick": r["ms"] / r["ticks"],
+                     "tokens_per_s": PIPE_BATCH * PIPE_SEQ / (r["ms"] / 1e3), "peak_gb": r["peak_gb"],
+                     "comm_share": r["comm_share"], "b6_launches": r["b6_launches"],
+                     "grads_checked": len(r["grads"])} for r in ranks],
+          "wall_s": wall, "launches": launches, "failed": failed})
+    if failed:
+        raise AssertionError(f"pipeline: {failed}")
+    check_counts(launches, ("flash_attention",), "pipeline path")
     return launches
 
 
@@ -3052,6 +3308,8 @@ def main() -> int:
     by_path["serve"] = serve_phase(args.seed)
     by_path["families"] = families_phase(args.seed)
     by_path["train"] = train_phase(args.seed)
+    by_path["train_mesh"] = train_mesh_phase(args.seed)
+    by_path["pipeline"] = pipeline_phase(args.seed)
     by_path["driver"] = driver_phase(args, lake_cells)
     del lake_cells
     by_path["conformance"] = conformance_phase()

@@ -17,6 +17,14 @@ its ``ml_dtypes`` leaves.  So a checkpoint written by either package
 restores in the other.  Restore reads each leaf by path into the structure
 of ``like``, on the device of ``like``'s leaf.  A SIGTERM handler sets
 ``preempted`` so the caller saves before it exits; ``keep`` bounds disk.
+
+Over a mesh (``mesh`` a ``GridMesh``, ``placement`` the tree's placements)
+every rank calls ``save`` and ``restore``: save gathers each leaf to the
+FULL array on rank 0 (``train.sharding.gather_to_root``), which writes it,
+so the format, and restoring across the two packages, do not change;
+restore maps each full array and reads only this rank's shard of it
+(``train.sharding.shard_index``) — the reference's elastic restore onto
+whatever mesh the run has now.
 """
 
 from __future__ import annotations
@@ -30,11 +38,14 @@ import signal
 import numpy as np
 import torch
 
+from repro_torch.train import sharding
+
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
 
 def leaves_with_paths(tree, path: str = ""):
-    """(keystr path, leaf) pairs, dict keys in sorted order."""
+    """(keystr path, leaf) pairs, dict keys in sorted order (a placement
+    tuple is a leaf)."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in leaves_with_paths(tree[k], f"{path}[{k!r}]")]
     return [(path, tree)]
@@ -59,14 +70,24 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, tree) -> str:
+    def save(self, step: int, tree, *, placement=None, mesh=None) -> str:
+        """Write ``tree`` as step ``step``.  With ``mesh``: every rank calls
+        this with its shards and ``placement``; rank 0 writes the full
+        arrays, and every rank returns once they are published."""
         final = os.path.join(self.dir, f"step_{step:06d}")
         tmp = final + ".tmp"
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
+        writer = mesh is None or mesh.rank == 0
+        if writer:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+        specs = dict(leaves_with_paths(placement)) if mesh is not None else {}
         manifest = {"step": step, "leaves": []}
         for i, (path, leaf) in enumerate(leaves_with_paths(tree)):
+            if mesh is not None:
+                leaf = sharding.gather_to_root(leaf, specs[path], mesh)
+            if not writer:
+                continue
             t = torch.as_tensor(leaf).detach().cpu()
             fname = f"arr_{i:05d}.npy"
             if t.dtype == torch.bfloat16:  # raw bytes, as the reference's ml_dtypes leaves
@@ -75,14 +96,17 @@ class CheckpointManager:
             manifest["leaves"].append(
                 {"path": path, "file": fname, "shape": list(leaf.shape), "dtype": _dtype_name(leaf)}
             )
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
-            f.flush()
-            os.fsync(f.fileno())
-        if os.path.exists(final):  # idempotent re-save of the same step
-            shutil.rmtree(final)
-        os.rename(tmp, final)  # atomic publish
-        self._gc()
+        if writer:
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+                f.flush()
+                os.fsync(f.fileno())
+            if os.path.exists(final):  # idempotent re-save of the same step
+                shutil.rmtree(final)
+            os.rename(tmp, final)  # atomic publish
+            self._gc()
+        if mesh is not None:  # no rank reads the directory before rank 0 has published
+            sharding.all_reduce(torch.zeros(1), mesh, tuple(mesh.axis_names))
         return final
 
     def _gc(self):
@@ -104,9 +128,11 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like):
+    def restore(self, step: int, like, *, placement=None, mesh=None):
         """Restore into the structure of ``like``, each leaf on the device of
-        ``like``'s leaf at the same path, in the dtype it was saved in."""
+        ``like``'s leaf at the same path, in the dtype it was saved in.  With
+        ``mesh``: each leaf is this rank's shard under ``placement``."""
+        specs = dict(leaves_with_paths(placement)) if mesh is not None else {}
         path = os.path.join(self.dir, f"step_{step:06d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -114,9 +140,19 @@ class CheckpointManager:
 
         def load(kpath: str, leaf):
             entry = by_path[kpath]
-            t = torch.from_numpy(np.load(os.path.join(path, entry["file"])))
-            if entry["dtype"] == "bfloat16":
-                t = t.view(torch.bfloat16).reshape(entry["shape"])
+            a = np.load(os.path.join(path, entry["file"]), mmap_mode="r")
+            bf16 = entry["dtype"] == "bfloat16"
+            shape = entry["shape"]
+            if mesh is not None:  # this rank's shard only (a bf16 leaf's last dim is 2 bytes a value)
+                idx = sharding.shard_index(shape, specs[kpath], mesh)
+                shape = [len(range(n)[i]) for n, i in zip(shape, idx)]
+                if bf16 and idx:
+                    last = idx[-1]
+                    idx = idx[:-1] + (slice(None) if last.start is None else slice(2 * last.start, 2 * last.stop),)
+                a = a[idx]
+            t = torch.from_numpy(np.array(a))
+            if bf16:
+                t = t.view(torch.bfloat16).reshape(shape)
             elif _dtype_name(t) != entry["dtype"]:
                 raise ValueError(f"{kpath}: saved as {t.dtype}, manifest says {entry['dtype']}")
             return t.to(torch.as_tensor(leaf).device)

@@ -23,8 +23,22 @@ forward by 0.058 of max|logit| at one layer of full-width qwen1.5-0.5b on
 an H100, past the 0.05 the reference's consistency test allows.  The
 decode cache is updated in place (the reference returns a new cache),
 which saves a copy of the whole cache per step.
-The reference's activation-sharding constraints are no-ops without a mesh
-and are left out.
+
+Over a mesh (``enable_activation_sharding``, set by the training driver on
+each rank of a ``launch.mesh.GridMesh``) the layers run tensor parallel on
+the model axis, following each leaf's placement, read from its local shape
+against ``cfg``: attention is column-parallel (this rank's H/M query heads
+and Kv/M KV heads; B.6 on the local heads) and its output projection
+row-parallel, ending in the model all-reduce; the MLP is column-parallel
+``wi_gate`` / ``wi_up`` / ``wi`` and row-parallel ``wo``.  A leaf that
+``validate_divisibility`` replicated over 'model' is computed whole on
+every model rank: K/V whose heads do not divide (each rank projects every
+KV head and keeps those its query heads read), or a whole sublayer, which
+then needs no all-reduce.  The region's edges are ``train.sharding``'s
+``copy_to`` / ``reduce_from``; a replicated weight used inside a region
+passes through ``copy_to`` too, so its gradient is summed over the model
+ranks.  ``constrain_batch`` / ``constrain_seq`` check a local activation
+against the placement the reference's constraint would give it.
 """
 
 from __future__ import annotations
@@ -37,8 +51,100 @@ import torch.nn.functional as F
 from repro_torch.kernels import flash_kernel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
+from repro_torch.train import sharding
 
 NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# activation sharding: the model-axis context of the layers
+#
+# Disabled (None) unless a mesh is installed; then the batch axes
+# ('pod'/'data') and the model axis of the rank's GridMesh.
+# ---------------------------------------------------------------------------
+
+_ACT_MESH = None
+_ACT_BATCH_AXES: tuple | None = None
+_ACT_MODEL_AXIS: str | None = None
+_ACT_BATCH_SIZE: int = 1
+_ACT_MODEL_SIZE: int = 1
+_ACT_VOCAB: int | None = None
+
+
+def enable_activation_sharding(mesh, model_axis: str = "model", vocab_size: int | None = None):
+    """Run the layers on this rank of ``mesh`` (a ``GridMesh``): batch over
+    'pod'/'data', heads / mlp / vocabulary over ``model_axis``.
+    ``vocab_size`` (the model's) tells the embedding and the loss head
+    whether the vocabulary is split (it is when the model axis divides it,
+    ``validate_divisibility``'s rule)."""
+    global _ACT_MESH, _ACT_BATCH_AXES, _ACT_MODEL_AXIS, _ACT_BATCH_SIZE, _ACT_MODEL_SIZE, _ACT_VOCAB
+    if SEQ_SHARD and model_axis in mesh.axis_names and mesh.shape[model_axis] > 1:
+        raise NotImplementedError("SEQ_SHARD (sequence parallelism over the model axis) is not ported:"
+                                  " ROADMAP A.10.13")
+    _ACT_MESH = mesh
+    _ACT_BATCH_AXES = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    _ACT_MODEL_AXIS = model_axis if model_axis in mesh.axis_names else None
+    _ACT_BATCH_SIZE = math.prod(mesh.shape[a] for a in _ACT_BATCH_AXES)
+    _ACT_MODEL_SIZE = mesh.shape[model_axis] if _ACT_MODEL_AXIS else 1
+    _ACT_VOCAB = vocab_size
+
+
+def disable_activation_sharding():
+    global _ACT_MESH, _ACT_BATCH_AXES, _ACT_MODEL_AXIS, _ACT_BATCH_SIZE, _ACT_MODEL_SIZE, _ACT_VOCAB
+    _ACT_MESH = _ACT_BATCH_AXES = _ACT_MODEL_AXIS = _ACT_VOCAB = None
+    _ACT_BATCH_SIZE = _ACT_MODEL_SIZE = 1
+
+
+SEQ_SHARD = False  # Megatron-style sequence parallelism for the residual
+# stream (the reference's flag): not ported; set with a model axis > 1,
+# ``enable_activation_sharding`` raises.
+
+
+def model_parallel():
+    """The mesh when the layers run tensor parallel (model axis > 1), else
+    None."""
+    return _ACT_MESH if _ACT_MODEL_SIZE > 1 else None
+
+
+def vocab_parallel():
+    """The mesh when the vocabulary is split over the model axis, else None."""
+    if _ACT_MODEL_SIZE > 1 and _ACT_VOCAB is not None and _ACT_VOCAB % _ACT_MODEL_SIZE == 0:
+        return _ACT_MESH
+    return None
+
+
+def batch_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the batch axes (no gradient): a count or metric
+    over the global batch.  Itself without a mesh."""
+    if _ACT_BATCH_SIZE == 1:
+        return t
+    return sharding.all_reduce(t, _ACT_MESH, _ACT_BATCH_AXES)
+
+
+def constrain_seq(x: torch.Tensor, global_shape: tuple | None = None):
+    """[B, S, D]: the reference shards S over 'model' when ``SEQ_SHARD``
+    (not ported: ``enable_activation_sharding`` refuses it), else this is
+    ``constrain_batch(x, 0, global_shape=...)``."""
+    return constrain_batch(x, 0, global_shape=global_shape)
+
+
+def constrain_batch(x: torch.Tensor, batch_dim: int = 0, heads_dim: int | None = None,
+                    global_shape: tuple | None = None):
+    """Check that the local activation ``x`` is this rank's shard of a
+    tensor of ``global_shape`` under the reference's constraint: batch dim
+    over ('pod', 'data') and ``heads_dim`` over 'model' where they divide,
+    other dims whole.  Returns ``x``; a no-op without a mesh or a
+    ``global_shape``."""
+    if _ACT_MESH is None or global_shape is None or x.ndim == 0:
+        return x
+    want = list(global_shape)
+    if want[batch_dim] % _ACT_BATCH_SIZE == 0:
+        want[batch_dim] //= _ACT_BATCH_SIZE
+    if heads_dim is not None and _ACT_MODEL_AXIS is not None and want[heads_dim] % _ACT_MODEL_SIZE == 0:
+        want[heads_dim] //= _ACT_MODEL_SIZE
+    if tuple(x.shape) != tuple(want):
+        raise ValueError(f"activation {tuple(x.shape)} is not this rank's shard {tuple(want)} of"
+                         f" {tuple(global_shape)} (batch dim {batch_dim}, heads dim {heads_dim})")
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -185,14 +291,31 @@ def attention_fwd(
     if kv_positions is not None and (causal or window > 0):
         raise ValueError("attention_fwd masks by key index: kv_positions is supported only "
                          "for non-causal calls without a window")
+    mesh = model_parallel()
+    tp = mesh is not None and p["wq"].shape[-2] < cfg.n_heads  # heads split over 'model'
+    kv_whole = p["wk"].shape[-2] == cfg.n_kv_heads
+    if tp:  # column-parallel Q/K/V: the region's entry, its replicated weights
+        x = sharding.copy_to(x, mesh)
+        kv_x = None if kv_x is None else sharding.copy_to(kv_x, mesh)
+        whole = ("q_norm", "k_norm") + (("wk", "wv", "bk", "bv") if kv_whole else ())
+        p = {n: sharding.copy_to(w, mesh) if n in whole else w for n, w in p.items()}
     q, k, v = _project_qkv(p, cfg, x, kv_x)
     if kv_x is None:  # self-attention → RoPE
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    k = repeat_kv(k, cfg.n_heads)
-    v = repeat_kv(v, cfg.n_heads)
+    hl = q.shape[-2]
+    if tp and kv_whole:  # every KV head here: keep those this rank's query heads read
+        lo = mesh.axis_index(_ACT_MODEL_AXIS) * hl
+        k = repeat_kv(k, cfg.n_heads)[..., lo : lo + hl, :]
+        v = repeat_kv(v, cfg.n_heads)[..., lo : lo + hl, :]
+    else:
+        k = repeat_kv(k, hl)
+        v = repeat_kv(v, hl)
     out = flash_kernel.flash_attention(q, k, v, causal=causal, window=window)
-    return _out_proj(out, p["wo"])
+    constrain_batch(out, 0, 2, global_shape=(out.shape[0] * _ACT_BATCH_SIZE, out.shape[1], cfg.n_heads,
+                                             out.shape[3]))
+    y = _out_proj(out, p["wo"])
+    return sharding.reduce_from(y, mesh) if tp else y  # row-parallel wo
 
 
 def _cache_write(buf: torch.Tensor, slot: torch.Tensor, val: torch.Tensor) -> None:
@@ -290,8 +413,15 @@ def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Under a model axis whose ranks split the hidden width (``wo``'s
+    rows fewer than ``cfg.d_ff``): column-parallel in, row-parallel out."""
+    mesh = model_parallel()
+    tp = mesh is not None and p["wo"].shape[0] < cfg.d_ff
+    if tp:
+        x = sharding.copy_to(x, mesh)
     if cfg.glu:
         h = _act(cfg, x @ p["wi_gate"].to(x.dtype)) * (x @ p["wi_up"].to(x.dtype))
     else:
         h = _act(cfg, x @ p["wi"].to(x.dtype))
-    return h @ p["wo"].to(x.dtype)
+    y = h @ p["wo"].to(x.dtype)
+    return sharding.reduce_from(y, mesh) if tp else y

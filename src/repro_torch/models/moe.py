@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
+from repro_torch.train import sharding
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
@@ -70,10 +71,21 @@ def _router(p: dict, cfg: ModelConfig, x: torch.Tensor):
 
 
 def _aux_loss(cfg: ModelConfig, probs: torch.Tensor, top_e: torch.Tensor) -> torch.Tensor:
-    """Switch-style load balancing: E · Σ_e mean prob_e · routed share_e."""
+    """Switch-style load balancing: E · Σ_e mean prob_e · routed share_e.
+
+    Over the batch axes of a mesh both means are the global batch's: the
+    sums are all-reduced (the probabilities' with the gradient passed
+    through, so each rank's backward gives its rows' share)."""
     e = cfg.moe.n_routed
-    me = probs.reshape(-1, e).mean(dim=0)
-    ce = torch.bincount(top_e.reshape(-1), minlength=e).float() / top_e.numel()
+    counts = torch.bincount(top_e.reshape(-1), minlength=e).float()
+    if layers._ACT_BATCH_SIZE == 1:
+        me = probs.reshape(-1, e).mean(dim=0)
+        ce = counts / top_e.numel()
+    else:
+        mesh, axes = layers._ACT_MESH, layers._ACT_BATCH_AXES
+        rows = probs.numel() // e * layers._ACT_BATCH_SIZE  # every rank routes as many rows
+        me = sharding.reduce_from(probs.reshape(-1, e).sum(dim=0), mesh, axes) / rows
+        ce = layers.batch_sum(counts) / (top_e.numel() * layers._ACT_BATCH_SIZE)
     return (me * ce).sum() * e * cfg.moe.aux_loss_weight
 
 

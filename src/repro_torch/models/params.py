@@ -5,8 +5,18 @@ Models are described as nested dicts of ``ParamSpec`` (shape + logical axes
 ``torch.Generator`` on the target device, with the reference's init rule;
 ``from_reference`` carries the reference's own parameter tree across (numpy
 arrays in, tensors out), so the port can be held against the reference on
-the same weights.  The sharding helpers (``partition_specs``, ``shardings``,
-``validate_divisibility``) wait for the mesh port.
+the same weights.  ``abstract`` gives meta-device tensors (shapes and
+dtypes, no storage).
+
+The placement half: ``DEFAULT_RULES`` maps logical axes to mesh axes;
+``partition_specs``, ``validate_divisibility`` and ``shardings`` turn a spec
+tree into per-leaf placements.  A placement is the reference's
+``PartitionSpec`` as a plain tuple, one entry per dim: a mesh axis name, a
+tuple of axis names, or None (replicated), normalised as JAX normalises
+its specs (a one-axis tuple is the axis itself, an empty tuple None), so
+``tuple(reference spec) == placement``.  A mesh is anything with ``.shape``
+(a dict of axis sizes) and ``.axis_names``: the port's process-group
+meshes (``launch.mesh``), or a plain namespace for device-free checks.
 """
 
 from __future__ import annotations
@@ -82,6 +92,84 @@ def from_reference(tree, device=None) -> dict:
     paths, same leading layer axis, same dtype, bit for bit."""
     dev = resolve_device(device)
     return _map_tree(lambda a: _to_tensor(a, dev), tree)
+
+
+def abstract(specs, dtype=torch.bfloat16) -> dict:
+    """Meta-device tensors for a spec tree: shapes and dtypes, no storage."""
+    return _map_tree(lambda s: torch.empty(s.shape, dtype=dtype, device="meta"), specs)
+
+
+# default logical→mesh rules (single- and multi-pod): TP on 'model',
+# FSDP on 'data' (embed/contract dims), experts on 'model' (EP).
+DEFAULT_RULES: dict[str, Any] = {
+    "vocab": "model",
+    "embed": "data",  # FSDP shard of the contracting dim
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "experts": "model",
+    "expert_mlp": None,
+    "ssm_inner": "model",
+    "ssm_state": None,
+    "layers": None,
+    "q_lora": None,
+    "kv_lora": None,
+    "frames": None,
+}
+
+
+def _norm_entry(axis):
+    """One placement entry as JAX's ``PartitionSpec`` keeps it."""
+    if isinstance(axis, tuple):
+        if not axis:
+            return None
+        return axis[0] if len(axis) == 1 else axis
+    return axis
+
+
+def spec_to_pspec(spec: ParamSpec, rules: dict[str, Any]) -> tuple:
+    return tuple(_norm_entry(rules.get(a)) if a is not None else None for a in spec.axes)
+
+
+def partition_specs(specs, rules: dict[str, Any] | None = None):
+    rules = rules or DEFAULT_RULES
+    return _map_tree(lambda s: spec_to_pspec(s, rules), specs)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A placement on a mesh (the reference's ``jax.sharding.NamedSharding``)."""
+
+    mesh: Any
+    spec: tuple
+
+
+def shardings(specs, mesh, rules: dict[str, Any] | None = None):
+    return _map_tree(lambda p: NamedSharding(mesh, p), partition_specs(specs, rules))
+
+
+def axis_size(mesh, axes) -> int:
+    """The number of ranks over ``axes`` (a mesh axis or a tuple of them)."""
+    return math.prod(mesh.shape[a] for a in (axes if isinstance(axes, tuple) else (axes,)))
+
+
+def validate_divisibility(specs, mesh, rules: dict[str, Any] | None = None):
+    """Replace rules that don't divide evenly by replication (e.g. 8 KV heads
+    on a 16-way model axis).  Returns adjusted per-leaf placements."""
+    rules = rules or DEFAULT_RULES
+
+    def fix(spec: ParamSpec) -> tuple:
+        out = []
+        for dim, axis in zip(spec.shape, spec.axes):
+            mesh_axis = rules.get(axis) if axis is not None else None
+            if mesh_axis is None:
+                out.append(None)
+                continue
+            out.append(_norm_entry(mesh_axis) if dim % axis_size(mesh, mesh_axis) == 0 else None)
+        return tuple(out)
+
+    return _map_tree(fix, specs)
 
 
 def count(tree) -> int:

@@ -20,7 +20,10 @@ reference's ``jax.checkpoint`` of its scan body — so only the blocks'
 inputs are kept for the backward, and each block's forward, its B.6
 launches included, runs again there.  The blocks' weights are ``unbind``
 views of the stacked leaves, so the backward stacks each leaf's gradient
-once.
+once.  Over a mesh (``layers.enable_activation_sharding``) the embedding
+and the head run vocab-parallel when the model axis splits the vocabulary
+(``_embed``, ``_logits``; the training loss uses ``train.sharding``'s
+vocab-parallel CE on ``_head``); the layers do the rest.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import layers, mla, moe, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec, materialize
+from repro_torch.train import sharding
 
 
 # ---------------------------------------------------------------------------
@@ -235,13 +239,29 @@ def _unstack(tree, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
-def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"].to(torch.bfloat16)[tokens]
+def _embed(params, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Embedding rows of ``tokens`` in ``dtype``; vocab-parallel when the
+    table's rows are split over the model axis (``layers.vocab_parallel``)."""
+    table = params["embed"].to(dtype)
+    mesh = layers.vocab_parallel()
+    return table[tokens] if mesh is None else sharding.vocab_parallel_embed(table, tokens, mesh)
+
+
+def _head(params, cfg: ModelConfig) -> torch.Tensor:
+    """The LM head [D, V] (this rank's V/M columns when the vocabulary is
+    split over the model axis)."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ head.to(x.dtype)).float()
+    """f32 logits over the whole vocabulary; vocab-parallel, each rank's
+    columns are gathered over the model axis."""
+    head = _head(params, cfg)
+    mesh = layers.vocab_parallel()
+    if mesh is None:
+        return (x @ head.to(x.dtype)).float()
+    local = (sharding.copy_to(x, mesh) @ head.to(x.dtype)).float()
+    return sharding.gather_from(local, mesh, "model", -1)
 
 
 def _encode(params, cfg: ModelConfig, frames, patches, dtype=torch.bfloat16):

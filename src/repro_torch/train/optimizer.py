@@ -130,12 +130,14 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig):
+def adamw_update(params, grads, state, cfg: AdamWConfig, grad_norm: torch.Tensor | None = None):
     """One AdamW step, in place.  Returns (params, state, metrics), the
-    first two the trees passed in."""
+    first two the trees passed in.  ``grad_norm``: the clip's global norm
+    when ``grads`` are shards (``train.sharding.global_norm``; default:
+    ``global_norm(grads)``)."""
     state["step"] += 1
     step = state["step"].float()
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
     lr = schedule(cfg, step)
     bc1 = 1 - torch.tensor(cfg.b1, dtype=torch.float32, device=step.device) ** step

@@ -1,0 +1,343 @@
+"""What GSPMD does for the reference implicitly, written out over process
+groups.
+
+The reference has no such module: it places each parameter with a
+``NamedSharding`` and XLA's SPMD partitioner inserts every collective.  The
+port runs one process per grid point of a ``launch.mesh.GridMesh`` and
+does that work here, by placement (``models.params`` tuples):
+
+* ``shard_of`` / ``local_tree`` slice full tensors into this rank's shards,
+  and ``gather_to_root`` gathers every rank's shard back whole on rank 0
+  (checkpoints);
+* ``fsdp_gather`` all-gathers the dims a leaf keeps over the batch axes
+  ('pod', 'data') before the leaf is used; its backward sums the gradient
+  over those ranks and keeps this rank's slice (a reduce-scatter);
+* ``copy_to`` (identity forward, all-reduce backward) and ``reduce_from``
+  (all-reduce forward, identity backward): Megatron's two operators at the
+  edges of a tensor-parallel region on the model axis;
+* ``vocab_parallel_embed`` and ``vocab_parallel_ce``: the embedding lookup
+  and the cross-entropy with the vocabulary split over the model axis (a
+  max and two sum all-reduces for the log-sum-exp, the gold logit from the
+  rank that owns it);
+* ``sync_grads`` sums the gradient of a leaf over the batch axes it is
+  replicated on, and ``global_norm`` counts each distinct shard once.
+
+Every differentiable operator is a ``torch.autograd.Function``.  Over gloo
+a CUDA tensor's collective runs on a host copy (the ranks share one card,
+or there is none); over NCCL it runs on the card.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+import torch.distributed as dist
+
+# -- collectives (host copies under gloo) --------------------------------------
+
+# this process's collectives so far: host-clock seconds (host copies
+# included; a collective waits for its peers), calls, bytes sent
+COMM = {"seconds": 0.0, "calls": 0, "bytes": 0}
+
+
+def _count(t0: float, t: torch.Tensor) -> None:
+    COMM["seconds"] += time.perf_counter() - t0
+    COMM["calls"] += 1
+    COMM["bytes"] += t.numel() * t.element_size()
+
+
+def _wire(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` where ``mesh``'s backend can run a collective on it."""
+    t = t.detach()
+    return t.cpu() if mesh.backend == "gloo" and t.is_cuda else t.contiguous()
+
+
+def all_reduce(t: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """A new tensor: ``t`` reduced over the ranks of ``axes``."""
+    if mesh.axis_size(axes) == 1:
+        return t.detach().clone()
+    t0 = time.perf_counter()
+    w = _wire(t, mesh)
+    w = w.clone() if w.data_ptr() == t.data_ptr() else w
+    dist.all_reduce(w, op=op, group=mesh.group(axes))
+    out = w.to(t.device)
+    _count(t0, w)
+    return out
+
+
+def all_gather(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The shards of ``axes`` concatenated along ``dim`` (shard i from the
+    rank at index i over ``axes``)."""
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return t.detach()
+    t0 = time.perf_counter()
+    w = _wire(t, mesh)
+    parts = [torch.empty_like(w) for _ in range(n)]
+    dist.all_gather(parts, w, group=mesh.group(axes))
+    out = torch.cat(parts, dim=dim).to(t.device)
+    _count(t0, w)
+    return out
+
+
+def send(t: torch.Tensor, mesh, dst: int) -> None:
+    """``t`` to global rank ``dst`` (point to point, blocking)."""
+    t0 = time.perf_counter()
+    w = _wire(t, mesh)
+    dist.send(w, dst)
+    _count(t0, w)
+
+
+def recv(shape, dtype, device, mesh, src: int) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` from global rank ``src``, on
+    ``device``."""
+    t0 = time.perf_counter()
+    on_card = mesh.backend == "nccl" and torch.device(device).type == "cuda"
+    w = torch.empty(shape, dtype=dtype, device=device if on_card else "cpu")
+    dist.recv(w, src)
+    out = w.to(device)
+    _count(t0, w)
+    return out
+
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _chunk(t: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
+    size = t.shape[dim] // n
+    return t.narrow(dim, i * size, size)
+
+
+# -- placement: slicing and gathering whole tensors -----------------------------
+
+
+def shard_of(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's shard of ``full`` under placement ``spec`` (a copy)."""
+    return full[shard_index(full.shape, spec, mesh)].contiguous().clone()
+
+
+def gather_to_root(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor | None:
+    """The whole tensor on rank 0 (None on the others), from every rank's
+    shard in one gather over the world: a checkpoint's writer needs it
+    whole, the other ranks do not."""
+    if mesh.size == 1:
+        return local.detach()
+    t0 = time.perf_counter()
+    w = _wire(local, mesh)
+    parts = [torch.empty_like(w) for _ in range(mesh.size)] if mesh.rank == 0 else None
+    dist.gather(w, parts, dst=0, group=mesh.group(tuple(mesh.axis_names)))
+    _count(t0, w)
+    if mesh.rank:
+        return None
+    shape = [n * (mesh.axis_size(e) if e is not None else 1) for n, e in zip(local.shape, spec)]
+    out = torch.empty(shape, dtype=w.dtype, device=w.device)
+    for r, part in enumerate(parts):  # a replicated shard arrives from each replica: the same values
+        idx = tuple(slice(None) if e is None else slice(mesh.axis_index(e, r) * n, (mesh.axis_index(e, r) + 1) * n)
+                    for n, e in zip(local.shape, spec))
+        out[idx] = part
+    return out.to(local.device)
+
+
+def shard_index(shape, spec: tuple, mesh) -> tuple:
+    """The index of this rank's shard in a whole tensor of ``shape``."""
+    idx = []
+    for n, e in zip(shape, spec):
+        if e is None:
+            idx.append(slice(None))
+        else:
+            size = n // mesh.axis_size(e)
+            idx.append(slice(mesh.axis_index(e) * size, (mesh.axis_index(e) + 1) * size))
+    return tuple(idx)
+
+
+def zip_map(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tensor tree and its placement tree."""
+    if isinstance(tree, dict):
+        return {k: zip_map(fn, tree[k], specs[k]) for k in tree}
+    return fn(tree, specs)
+
+
+def local_tree(tree, specs, mesh):
+    """Every leaf's shard on this rank."""
+    return zip_map(lambda t, s: shard_of(t, s, mesh), tree, specs)
+
+
+def _batch_entry(entry, mesh) -> bool:
+    axes = _entry_axes(entry)
+    return bool(axes) and all(a in ("pod", "data") and a in mesh.axis_names for a in axes)
+
+
+# -- FSDP ------------------------------------------------------------------------
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        out = local
+        for dim, axes in dims:
+            out = all_gather(out, mesh, axes, dim)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh = ctx.mesh
+        for dim, axes in reversed(ctx.dims):  # reduce-scatter: the sum, then this rank's slice
+            grad = _chunk(all_reduce(grad, mesh, axes), dim, mesh.axis_size(axes), mesh.axis_index(axes))
+        return grad.contiguous(), None, None
+
+
+def fsdp_gather(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """``local`` with the dims it keeps over the batch axes gathered whole
+    (its dims over 'model' stay this rank's); the gradient is summed over
+    those ranks and sliced back to this rank's shard."""
+    dims = tuple((d, _entry_axes(e)) for d, e in enumerate(spec)
+                 if _batch_entry(e, mesh) and mesh.axis_size(e) > 1)
+    return _FsdpGather.apply(local, mesh, dims) if dims else local
+
+
+def gather_tree(tree, specs, mesh):
+    return zip_map(lambda t, s: fsdp_gather(t, s, mesh), tree, specs)
+
+
+# -- Megatron's operators on the model axis -------------------------------------
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad, ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def copy_to(x: torch.Tensor, mesh, axes="model") -> torch.Tensor:
+    """Identity forward, gradient all-reduced over ``axes``: the entry of a
+    tensor-parallel region (and a replicated weight used inside one)."""
+    return _CopyTo.apply(x, mesh, axes)
+
+
+def reduce_from(x: torch.Tensor, mesh, axes="model") -> torch.Tensor:
+    """Partial sums all-reduced over ``axes``, gradient passed through: the
+    exit of a tensor-parallel region."""
+    return _ReduceFrom.apply(x, mesh, axes)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        m = ctx.mesh
+        return _chunk(grad, ctx.dim, m.axis_size(ctx.axes), m.axis_index(ctx.axes)).contiguous(), None, None, None
+
+
+def gather_from(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """Shards over ``axes`` concatenated along ``dim``; the gradient is this
+    rank's slice (every rank holds the same upstream gradient)."""
+    return _Gather.apply(x, mesh, axes, dim)
+
+
+# -- the vocabulary over the model axis -----------------------------------------
+
+
+def vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor, mesh, axes="model") -> torch.Tensor:
+    """Rows ``tokens`` of an embedding whose vocabulary is split over
+    ``axes`` (``table`` this rank's [V/M, D] rows): each rank looks up the
+    tokens it owns, zeros elsewhere, and the partial rows are summed."""
+    v = table.shape[0]
+    local = tokens - mesh.axis_index(axes) * v
+    mine = (local >= 0) & (local < v)
+    rows = table[local.clamp(0, v - 1)]
+    return reduce_from(torch.where(mine[..., None], rows, torch.zeros_like(rows)), mesh, axes)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, z_loss, mesh, axes):
+        v = logits.shape[-1]
+        local = labels - mesh.axis_index(axes) * v
+        mine = (local >= 0) & (local < v)
+        m = all_reduce(logits.amax(dim=-1), mesh, axes, dist.ReduceOp.MAX)
+        s = all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), mesh, axes)
+        lse = m + torch.log(s)
+        gold = logits.gather(-1, local.clamp(0, v - 1)[..., None])[..., 0]
+        gold = all_reduce(torch.where(mine, gold, torch.zeros_like(gold)), mesh, axes)
+        ctx.save_for_backward(logits, lse, local.clamp(0, v - 1), mine)
+        ctx.z_loss = z_loss
+        return (lse - gold) + z_loss * lse**2
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse, idx, mine = ctx.saved_tensors
+        d = torch.exp(logits - lse[..., None]) * (grad * (1 + 2 * ctx.z_loss * lse))[..., None]
+        d.scatter_add_(-1, idx[..., None], torch.where(mine, -grad, torch.zeros_like(grad))[..., None])
+        return d, None, None, None, None
+
+
+def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, z_loss: float, mesh,
+                      axes="model") -> torch.Tensor:
+    """Per-position CE + z-loss, float32, of logits whose vocabulary is split
+    over ``axes`` (``logits`` this rank's [..., V/M] columns; ``labels``
+    global ids, any value at positions the caller masks)."""
+    return _VocabParallelCE.apply(logits, labels.clamp(min=0), z_loss, mesh, axes)
+
+
+# -- gradients -------------------------------------------------------------------
+
+
+def sync_grads(params, specs, mesh) -> None:
+    """Sum, in place, each leaf's ``.grad`` over the batch axes its
+    placement does not shard it on (the axes its FSDP gather does shard it
+    on were summed by that gather's backward).  A leaf without a gradient
+    gets zeros first, as under ``jax.grad``."""
+    batch = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+    def go(p, spec):
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        used = {a for e in spec for a in _entry_axes(e)}
+        rest = tuple(a for a in batch if a not in used)
+        if mesh.axis_size(rest) > 1:
+            p.grad.copy_(all_reduce(p.grad, mesh, rest))
+
+    zip_map(go, params, specs)
+
+
+def global_norm(grads, specs, mesh) -> torch.Tensor:
+    """The global L2 norm of a sharded gradient tree: each leaf's sum of
+    squares counted on one replica of each shard (the rank at index 0 on
+    every axis the leaf is not split over), summed over the world."""
+    pairs = _pairs(grads, specs)
+    total = torch.zeros((), device=pairs[0][0].device)
+    for g, spec in pairs:
+        used = {a for e in spec for a in _entry_axes(e)}
+        if not any(mesh.coords[a] for a in mesh.axis_names if a not in used):
+            total = total + (g.float() ** 2).sum()
+    return torch.sqrt(all_reduce(total, mesh, tuple(mesh.axis_names)))
+
+
+def _pairs(tree, specs) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _pairs(tree[k], specs[k])]
+    return [(tree, specs)]

@@ -24,9 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import transformer
+from repro_torch.models import layers, transformer
 from repro_torch.models.config import ModelConfig
-from repro_torch.train import optimizer as opt
+from repro_torch.train import optimizer as opt, sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,17 +50,32 @@ def _ce_from_logits(logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
 
 
 def _chunk_ce(h, head, labels, z_loss: float):
-    return _ce_from_logits((h @ head).float(), labels, z_loss)
+    logits = (h @ head).float()
+    mesh = layers.vocab_parallel()
+    if mesh is None:
+        return _ce_from_logits(logits, labels, z_loss)
+    layers.constrain_batch(logits, 0, 2, global_shape=(
+        logits.shape[0] * layers._ACT_BATCH_SIZE, logits.shape[1], logits.shape[2] * layers._ACT_MODEL_SIZE))
+    valid = labels >= 0
+    ce = sharding.vocab_parallel_ce(logits, labels, z_loss, mesh)
+    return torch.where(valid, ce, torch.zeros_like(ce)).sum(), valid.sum().float()
 
 
 def chunked_ce(hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
                chunk: int, z_loss: float) -> torch.Tensor:
     """Mean CE of hidden [B, S, D] @ head [D, V] against labels [B, S],
-    without a whole [B, S, V] logits tensor."""
+    without a whole [B, S, V] logits tensor.
+
+    Over a mesh: the mean is over the GLOBAL batch's valid positions (the
+    count summed over the batch axes), so that the ranks' losses sum to the
+    1×1 loss; with the vocabulary split over the model axis, ``head`` is
+    this rank's [D, V/M] columns and each chunk's CE is vocab-parallel."""
     b, s, d = hidden.shape
+    if layers.vocab_parallel() is not None:
+        hidden = sharding.copy_to(hidden, layers.vocab_parallel())
     if chunk <= 0 or s <= chunk:
         tot, cnt = _chunk_ce(hidden, head, labels, z_loss)
-        return tot / torch.clamp(cnt, min=1)
+        return tot / torch.clamp(layers.batch_sum(cnt), min=1)
     pad = (-s) % chunk
     if pad:
         hidden = F.pad(hidden, (0, 0, 0, pad))
@@ -71,7 +86,7 @@ def chunked_ce(hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
         args = (hidden[:, c0 : c0 + chunk], head, labels[:, c0 : c0 + chunk], z_loss)
         t, n = checkpoint(_chunk_ce, *args, use_reentrant=False) if remat else _chunk_ce(*args)
         tot, cnt = tot + t, cnt + n
-    return tot / torch.clamp(cnt, min=1)
+    return tot / torch.clamp(layers.batch_sum(cnt), min=1)
 
 
 def loss_fn(params, cfg: ModelConfig, tcfg: TrainConfig, batch: dict):
@@ -80,7 +95,7 @@ def loss_fn(params, cfg: ModelConfig, tcfg: TrainConfig, batch: dict):
     tokens, labels = batch["tokens"], batch["labels"]
     kw = {k: batch[k] for k in ("frames", "patches") if k in batch}
     hidden, aux = transformer.forward_hidden(params, cfg, tokens, remat=tcfg.remat, **kw)
-    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(hidden.dtype)
+    head = transformer._head(params, cfg).to(hidden.dtype)
     loss = chunked_ce(hidden, head, labels, tcfg.ce_chunk, tcfg.z_loss)
     metrics = {"ce": loss, "aux": aux}
     if cfg.mtp_depth:
@@ -95,21 +110,43 @@ def loss_fn(params, cfg: ModelConfig, tcfg: TrainConfig, batch: dict):
     return loss, metrics
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, placement=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics), updating ``params`` and ``opt_state`` in place."""
+    metrics), updating ``params`` and ``opt_state`` in place.
+
+    Over a mesh (a ``GridMesh`` with ``layers.enable_activation_sharding``
+    on it) ``params`` and ``opt_state`` are this rank's shards under
+    ``placement`` and ``batch`` its rows: each leaf is gathered over the
+    batch axes before use (``sharding.gather_tree``, FSDP; the backward
+    reduce-scatters its gradient), the layers run tensor parallel on the
+    model axis, the gradients of leaves replicated over a batch axis are
+    summed over it (``sharding.sync_grads``), the clip's norm counts each
+    shard once (``sharding.global_norm``), and AdamW runs elementwise on
+    the shards.  The metrics are the global batch's."""
 
     def train_step(params, opt_state, batch):
         leaves = opt.leaves(params)
         for p in leaves:
             p.grad = None
             p.requires_grad_(True)
-        loss, metrics = loss_fn(params, cfg, tcfg, batch)
+        used = params if mesh is None else sharding.gather_tree(params, placement, mesh)
+        loss, metrics = loss_fn(used, cfg, tcfg, batch)
         loss.backward()
-        # a leaf the loss never reached gets a zero gradient, as under jax.grad
-        grads = opt.tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, params)
-        params, opt_state, om = opt.adamw_update(params, grads, opt_state, tcfg.adamw)
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is None:
+            # a leaf the loss never reached gets a zero gradient, as under jax.grad
+            grads = opt.tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, params)
+            norm = None
+        else:
+            sharding.sync_grads(params, placement, mesh)
+            grads = opt.tree_map(lambda p: p.grad, params)
+            norm = sharding.global_norm(grads, placement, mesh)
+            # each rank's CE / MTP is its rows' share of the global mean; aux is global already
+            for k in ("ce", "mtp"):
+                if k in metrics:
+                    metrics[k] = layers.batch_sum(metrics[k])
+            metrics["loss"] = metrics["ce"] + tcfg.mtp_weight * metrics.get("mtp", 0.0) + metrics["aux"]
+        params, opt_state, om = opt.adamw_update(params, grads, opt_state, tcfg.adamw, grad_norm=norm)
         metrics.update(om)
         return params, opt_state, metrics
 

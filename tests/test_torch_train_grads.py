@@ -1,6 +1,7 @@
 """The training loss and every parameter's gradient against the
 reference's ``jax.value_and_grad``, family by family (this file: dense
-qwen1.5-0.5b, qwen2-moe, mamba2; ``test_torch_train_grads_mla.py``,
+qwen1.5-0.5b, qwen3-32b (qk_norm), h2o-danube-3-4b (a window of 8 at S =
+24) and starcoder2-3b, qwen2-moe, mamba2; ``test_torch_train_grads_mla.py``,
 ``_hybrid.py`` and ``_encdec.py`` the other four, so that the reference's
 slow CPU draws and eager backwards spread over workers).
 
@@ -106,7 +107,8 @@ def check_family_grads(name: str, monkeypatch) -> None:
                                                                       np.max(np.abs(g - w)))
 
 
-@pytest.mark.parametrize("name", ["qwen1.5-0.5b", "qwen2-moe-a2.7b", "mamba2-1.3b"])
+@pytest.mark.parametrize("name", ["qwen1.5-0.5b", "qwen2-moe-a2.7b", "mamba2-1.3b", "qwen3-32b",
+                                  "h2o-danube-3-4b", "starcoder2-3b"])
 def test_float32_loss_and_grads_match_reference(name, monkeypatch):
     check_family_grads(name, monkeypatch)
 

@@ -1,0 +1,226 @@
+"""The rank side of the port's mesh-training tests (``test_torch_train_mesh.py``,
+``test_torch_pipeline.py``): run by every spawned rank of a gloo group
+(``repro_torch.launch.mesh.run_ranks``), it drives the port on the CPU and
+hands plain results back.  Imports the port only, so a rank starts without
+JAX.
+
+``float32()`` makes the port's training float32 end to end in this process:
+weights drawn in float32 and the embedding's and the encoder's bf16
+activation casts made float32 ones, as the parity tests patch each
+package's casts.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+
+def float32() -> None:
+    from repro_torch.models import params, transformer
+
+    params.materialize.__defaults__ = (0, torch.float32, None)
+    transformer._embed.__defaults__ = (torch.float32,)
+    transformer._encode.__defaults__ = (torch.float32,)
+
+
+def conditioned(specs, tree) -> None:
+    """Rescale, in place, every attention projection of ``tree`` (a leaf
+    whose spec has a heads axis) from the init rule's 1/sqrt(shape[-2]) to
+    1/sqrt(its input width) — ``test_torch_families._conditioned``'s rule:
+    the reduced configs are chaotic on the init rule's own draw (ROADMAP
+    C.17), and float32 rounding alone then moves a gradient by 1e-5."""
+    if isinstance(specs, dict):
+        for k in specs:
+            conditioned(specs[k], tree[k])
+        return
+    if specs.init != "normal" or not {"heads", "kv_heads"} & set(specs.axes):
+        return
+    dims = [(ax, n) for ax, n in zip(specs.axes, specs.shape) if ax not in ("layers", "experts")]
+    fan_in = dims[0][1] * dims[1][1] if dims[0][0] in ("heads", "kv_heads") else dims[0][1]
+    tree.mul_(float(np.sqrt(specs.shape[-2] / fan_in)))
+
+
+def write_start(ckpt_dir: str, argd: dict) -> None:
+    """A step-0 checkpoint of ``launch.train``'s own float32 draw for these
+    arguments, attention projections rescaled (``conditioned``), with a
+    fresh optimizer state: the start every run of a comparison resumes
+    from."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.launch import train
+    from repro_torch.models import params as params_lib, transformer
+    from repro_torch.train import optimizer as opt
+
+    args = argparse.Namespace(**argd)
+    cfg = train._config(args)
+    specs = transformer.model_specs(cfg)
+    weights = params_lib.materialize(specs, args.seed, dtype=torch.float32, device="cpu")
+    conditioned(specs, weights)
+    state = opt.init_state(weights, opt.AdamWConfig(state_dtype=args.state_dtype))
+    CheckpointManager(ckpt_dir).save(0, {"params": weights, "opt": state})
+
+
+def pipeline_rank(mesh, argd: dict, ref_tree: dict, tokens: np.ndarray, labels: np.ndarray,
+                  n_micro: int, f32: bool) -> dict:
+    """One rank of ``train.pipeline``'s GPipe loss on the reference's weights
+    (``ref_tree``: float32 numpy by the reference's key paths; bf16 on the
+    rank unless ``f32``, which also makes the pipeline's activations
+    float32) and rows, the reduced config cut to ``argd['layers']``: this
+    rank's shard of the staged tree, its batch rows.  Returns the loss
+    and this rank's gradient of every leaf (numpy float32, by key path)."""
+    import dataclasses
+
+    from repro_torch.launch import train
+    from repro_torch.models import params as params_lib
+    from repro_torch.train import optimizer as opt, pipeline, sharding
+
+    torch.set_num_threads(1)
+    pipeline.ACT_DTYPE = torch.float32 if f32 else torch.bfloat16
+    cfg = dataclasses.replace(train._config(argparse.Namespace(**argd)), n_layers=argd["layers"])
+    full = params_lib.from_reference(ref_tree, "cpu")
+    if not f32:
+        full = opt.tree_map(lambda t: t.to(torch.bfloat16), full)
+    staged = pipeline.stage_view(full, mesh.shape["pod"])
+    local = sharding.local_tree(staged, pipeline.stage_placement(staged), mesh)
+    share = tokens.shape[0] // mesh.shape["data"]
+    rows = slice(mesh.coords["data"] * share, (mesh.coords["data"] + 1) * share)
+    for _, leaf in pipeline._flatten(local):
+        leaf.requires_grad_(True)
+    fn = pipeline.pipeline_loss_fn(cfg, mesh, n_micro, staged, batch_axes=("data",))
+    loss = fn(local, torch.from_numpy(tokens[rows]).long(), torch.from_numpy(labels[rows]).long())
+    loss.backward()
+    return {"loss": float(loss.detach()), "coords": mesh.coords,
+            "grads": {"/".join(path): leaf.grad.float().numpy() for path, leaf in pipeline._flatten(local)}}
+
+
+def pipeline_runs(mesh, runs: list) -> list:
+    """``pipeline_rank`` for each argument tuple of ``runs`` (one spawn)."""
+    return [pipeline_rank(mesh, *run) for run in runs]
+
+
+def grid_checks(mesh) -> dict:
+    """``GridMesh`` on this rank: its coordinates and subgroups, a sum over
+    each axis, a shard of an [8, 6] tensor placed ('data', 'model') and
+    its gather to rank 0, and FSDP's gather with an upstream gradient of
+    rank + 1."""
+    from repro_torch.train import sharding
+
+    out = {"coords": mesh.coords, "data_ranks": mesh.group_ranks("data"),
+           "model_ranks": mesh.group_ranks("model")}
+    me = torch.tensor([float(mesh.rank)])
+    out["sum_data"] = float(sharding.all_reduce(me, mesh, "data"))
+    out["sum_model"] = float(sharding.all_reduce(me, mesh, "model"))
+    out["sum_all"] = float(sharding.all_reduce(me, mesh, ("data", "model")))
+    full = torch.arange(8 * 6, dtype=torch.float32).reshape(8, 6)
+    shard = sharding.shard_of(full, ("data", "model"), mesh)
+    full = sharding.gather_to_root(shard, ("data", "model"), mesh)
+    out["shard"], out["full"] = shard.numpy(), None if full is None else full.numpy()
+    leaf = shard.clone().requires_grad_(True)
+    gathered = sharding.fsdp_gather(leaf, ("data", "model"), mesh)
+    gathered.backward(torch.full_like(gathered, float(mesh.rank + 1)))
+    out["gathered"], out["grad"] = gathered.detach().numpy(), leaf.grad.numpy()
+    out["logits"] = forward_logits(mesh)
+    return out
+
+
+def forward_logits(mesh) -> dict:
+    """``transformer.forward`` of reduced qwen1.5-0.5b (float32, seed 0) on
+    this rank's rows with the weights gathered over 'data' and split over
+    'model' (vocab-parallel embedding and logits, tensor-parallel layers),
+    beside the same forward on one process; both [B/D, S, V] (numpy)."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models import layers, params as params_lib, transformer
+    from repro_torch.train import sharding
+
+    float32()
+    cfg = configs.reduce_config(configs.get_config("qwen1.5-0.5b"))
+    specs = transformer.model_specs(cfg)
+    full = params_lib.materialize(specs, 0, device="cpu")
+    conditioned(specs, full)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, size=(4, 16))).long()
+    share = tokens.shape[0] // mesh.shape["data"]
+    rows = tokens[mesh.coords["data"] * share : (mesh.coords["data"] + 1) * share]
+    with torch.no_grad():
+        whole, _ = transformer.forward(full, cfg, rows)
+        layers.enable_activation_sharding(mesh, vocab_size=cfg.vocab_size)
+        try:
+            place = train.placement(cfg, mesh)
+            local = sharding.gather_tree(sharding.local_tree(full, place, mesh), place, mesh)
+            split, _ = transformer.forward(local, cfg, rows)
+        finally:
+            layers.disable_activation_sharding()
+    return {"mesh": split.numpy(), "whole": whole.numpy()}
+
+
+def train_many(mesh, runs: list) -> list:
+    """This rank of ``launch.train``'s ``--mesh`` run (its ``_rank``), in
+    float32, for each argument dict of ``runs`` in turn (one spawn for many
+    runs), on one thread per rank."""
+    from repro_torch.launch import train
+
+    torch.set_num_threads(1)
+    float32()
+    return [train._rank(mesh, argd) for argd in runs]
+
+
+def nudge(ckpt_dir: str, leaf_path: str) -> None:
+    """Move every weight of one leaf of a step-0 checkpoint by one float32
+    ulp (upwards), in place: the sensitivity witness of a comparison."""
+    from repro_torch.ckpt.manager import CheckpointManager
+
+    mgr = CheckpointManager(ckpt_dir)
+    like = {"params": {}, "opt": {}}
+    import json
+    import os
+
+    with open(os.path.join(ckpt_dir, "step_000000", "manifest.json")) as f:
+        entry = next(e for e in json.load(f)["leaves"] if e["path"] == leaf_path)
+    path = os.path.join(ckpt_dir, "step_000000", entry["file"])
+    a = np.load(path)
+    np.save(path, np.nextafter(a, np.float32(np.inf)).astype(a.dtype))
+    del mgr, like
+
+
+def one_step(mesh, argd: dict, ref_tree: dict, tokens: np.ndarray, labels: np.ndarray) -> dict | None:
+    """One float32 ``make_train_step`` step of ``launch.train``'s model and
+    AdamW settings on the reference's weights (``ref_tree``, numpy) and
+    rows, on this rank of ``mesh``; rank 0 returns the loss, the gradient
+    norm, the gradients and the updated parameters, gathered whole (numpy,
+    by key path)."""
+    from repro_torch.ckpt.manager import leaves_with_paths
+    from repro_torch.launch import mesh as meshlib, train
+    from repro_torch.models import layers, params as params_lib
+    from repro_torch.train import optimizer as opt, sharding, step as step_lib
+
+    torch.set_num_threads(1)
+    float32()
+    args = argparse.Namespace(**argd)
+    cfg = train._config(args)
+    params = params_lib.from_reference(ref_tree, "cpu")
+    layers.enable_activation_sharding(mesh, vocab_size=cfg.vocab_size)
+    place = train.placement(cfg, mesh)
+    params = sharding.local_tree(params, place, mesh)
+    share = tokens.shape[0] // mesh.axis_size(meshlib.batch_axes(mesh))
+    d = mesh.axis_index(meshlib.batch_axes(mesh))
+    rows = slice(d * share, (d + 1) * share)
+    batch = {"tokens": torch.from_numpy(tokens[rows]).long(), "labels": torch.from_numpy(labels[rows]).long()}
+    tcfg = step_lib.TrainConfig(adamw=opt.AdamWConfig(lr=args.lr, warmup_steps=1, total_steps=args.steps),
+                                ce_chunk=min(1024, args.seq_len))
+    params, _, metrics = step_lib.make_train_step(cfg, tcfg, mesh, place)(
+        params, opt.init_state(params, tcfg.adamw), batch)
+    pairs = list(zip(leaves_with_paths(params), leaves_with_paths(place)))
+    new = {path: sharding.gather_to_root(p.detach(), spec, mesh) for (path, p), (_, spec) in pairs}
+    grads = {path: sharding.gather_to_root(p.grad, spec, mesh) for (path, p), (_, spec) in pairs}
+    if mesh.rank:
+        return None
+    new, grads = ({k: v.numpy() for k, v in d.items()} for d in (new, grads))
+    return {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]), "params": new,
+            "grads": grads}
+
+
+def one_steps(mesh, runs: list) -> list:
+    """``one_step`` for each argument tuple of ``runs`` (one spawn)."""
+    return [one_step(mesh, *run) for run in runs]
