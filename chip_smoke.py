@@ -157,6 +157,28 @@ Phases, each printing one JSON line:
    in 4 microbatches, ``loss.backward()`` on both: the loss within 1e-2 of
    the un-pipelined chunked CE on the same weights, every gradient finite
    and every used leaf's nonzero, 96 B.6 launches per rank;
+11d. serve_mesh — prefill and decode over a mesh: full-width qwen1.5-0.5b
+   at 2x2 (its 16 KV heads split over 'model') and starcoder2-3b at 1x4
+   (30 layers, ~1.5 GB of bf16 weights per rank; its 2 KV heads leave the
+   cache's slots split over 'model', merged by flash-decoding), 4 gloo
+   ranks on the one card, weights from ``--seed`` with the attention
+   projections rescaled, both configurations' ranks at once: 4 prompts of
+   512 tokens and 16 decode steps of the 1x1 run's greedy tokens, every
+   step's logits within 0.05 of max|logit| of the 1x1 run in this
+   process, B.6 launches per rank per prefill equal to the layer count,
+   every cache leaf on cuda:0 at its local shape; prefill and decode ms
+   per rank and the collectives' share printed;
+11e. dryrun — ``python -m repro_torch.launch.dryrun`` (qwen1.5-0.5b's four
+   shapes at 16x16, qwen3-32b's train_4k at both meshes, qwen2-moe's
+   train_4k: an error naming ROADMAP A.10.12) and ``python -m
+   repro_torch.launch.dryrun_mate`` (filter_1g, broadcast, the sharded
+   build on 4 gloo ranks on the card) in subprocesses started together
+   right after the kernel build (they trace on the host while phase 1
+   draws the lake) and collected here: each cell rank 0's program traced
+   on fake CUDA tensors at the production mesh, no kernel launched, the
+   build byte-identical; per cell the planned FLOPs per device, argument /
+   temp GB and collective MB by kind (plans for an H100 cluster, not
+   timings);
 12. driver — ``repro_torch.launch.discovery.main`` in this process at the
    same lake (its tables reused from phase 1's draw, copied before any
    planting) with ``DRIVER_ARGV``: 4 mixed queries of 20 rows, FDs, the
@@ -204,6 +226,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -374,6 +397,27 @@ TRAIN_MESH_TIMEOUT_S = 600.0
 # GPipe (phase 11c): 2 stages x 1 data rank, [8, 512], 4 microbatches; the
 # loss within PIPE_TOL (absolute, bf16) of the un-pipelined chunked CE
 PIPE_STAGES, PIPE_SEQ, PIPE_BATCH, PIPE_MICRO, PIPE_TOL = 2, 512, 8, 4, 1e-2
+# serving over a mesh (phase 11d): full-width dense decoders on 4 gloo ranks
+# on the one card, prefill and every decode step of the 1x1 run's greedy
+# tokens held within SERVE_MESH_TOL of max|logit| of the 1x1 run on the same
+# weights (tests/test_models.py's serving bound); qwen1.5's 16 KV heads
+# split over 'model', starcoder2's 2 leave the cache's slots split
+SERVE_MESH = (("qwen1.5-0.5b", {"data": 2, "model": 2}), ("starcoder2-3b", {"data": 1, "model": 4}))
+SERVE_MESH_B, SERVE_MESH_S, SERVE_MESH_NEW, SERVE_MESH_TOL = 4, 512, 16, 0.05
+# the dry run (phase 11e): each entry point's argv and the status expected
+# of each cell it writes ('error:<item>': an error record naming it)
+DRYRUN_CALLS = (
+    ("repro_torch.launch.dryrun", ["--arch", "qwen1.5-0.5b"],
+     {"qwen1.5-0.5b__train_4k__16x16": "ok", "qwen1.5-0.5b__prefill_32k__16x16": "ok",
+      "qwen1.5-0.5b__decode_32k__16x16": "ok", "qwen1.5-0.5b__long_500k__16x16": "skipped"}),
+    ("repro_torch.launch.dryrun", ["--arch", "qwen3-32b", "--shape", "train_4k", "--both-meshes"],
+     {"qwen3-32b__train_4k__16x16": "ok", "qwen3-32b__train_4k__2x16x16": "ok"}),
+    ("repro_torch.launch.dryrun", ["--arch", "qwen2-moe-a2.7b", "--shape", "train_4k"],
+     {"qwen2-moe-a2.7b__train_4k__16x16": "error:A.10.12"}),
+    ("repro_torch.launch.dryrun_mate", ["--shape", "filter_1g", "--impl", "broadcast", "--build-shards", "4"],
+     {"mate-filter__filter_1g-broadcast__16x16": "ok", "mate-filter__filter_1g-broadcast__2x16x16": "ok"}),
+)
+DRYRUN_TIMEOUT_S = 600
 
 
 def emit(obj) -> None:
@@ -2957,6 +3001,296 @@ def pipeline_phase(seed, devices=None, device="cuda:0") -> dict[str, int]:
     return launches
 
 
+def serve_mesh_rank(mesh, arch: str, seed: int, tokens: np.ndarray, forced: np.ndarray) -> dict:
+    """One rank of the ``serve_mesh`` phase: ``arch`` at full width drawn
+    from ``seed`` (attention projections rescaled, ``conditioned``) on this
+    rank's card, its shards under the training placement,
+    ``transformer.prefill`` of its rows of ``tokens`` and a decode step for
+    each row of ``forced`` (the 1x1 run's greedy tokens).  Returns the
+    logits (ranks at model coordinate 0: every model rank holds the same
+    gathered logits), the B.6 launches of the prefill, the cache leaves'
+    devices and shapes against their placements, and host-clock times."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_kernel as flk
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import layers, params as params_lib, transformer
+    from repro_torch.train import sharding
+
+    dev = mesh.device
+    cfg = configs.get_config(arch)
+    specs = transformer.model_specs(cfg)
+    max_seq = tokens.shape[1] + forced.shape[0]
+    whole = transformer.init_cache(cfg, tokens.shape[0], max_seq, device="meta")  # the global shapes
+    full = params_lib.materialize(specs, seed, device=dev)
+    conditioned(specs, full)
+    layers.enable_activation_sharding(mesh, vocab_size=cfg.vocab_size)
+    try:
+        place = params_lib.validate_divisibility(specs, mesh, meshlib.rules_for(mesh))
+        local = sharding.local_tree(full, place, mesh)
+        del full
+        torch.cuda.empty_cache()
+        ba = meshlib.batch_axes(mesh)
+        share = tokens.shape[0] // mesh.axis_size(ba)
+        lo = mesh.axis_index(ba) * share
+        rows = slice(lo, lo + share)
+        keep = mesh.coords["model"] == 0
+        out = {"rank": mesh.rank, "coords": mesh.coords, "rows": (lo, lo + share), "logits": [],
+               "decode_ms": [], "argmax": []}
+        with torch.inference_mode():
+            tok = torch.from_numpy(tokens[rows]).to(dev, torch.long)
+            torch.cuda.synchronize(dev)
+            flk.flash_attention.launches, comm, t = 0, sharding.COMM["seconds"], time.perf_counter()
+            logits, cache = transformer.prefill(local, cfg, tok, max_seq)
+            torch.cuda.synchronize(dev)
+            out["prefill_ms"] = 1e3 * (time.perf_counter() - t)
+            out["b6_prefill"] = flk.flash_attention.launches
+            bad = []
+            for plan, sub in cache.specs.items():
+                for name, leaves in sub.items():
+                    for leaf, spec in leaves.items():
+                        t_, g = cache[plan][name][leaf], whole[plan][name][leaf]
+                        want = tuple(n // (mesh.axis_size(e) if e is not None else 1) for n, e in zip(g.shape, spec))
+                        if t_.device != dev or tuple(t_.shape) != want:
+                            bad.append(f"{plan}.{name}.{leaf}: {tuple(t_.shape)} on {t_.device}, want {want}")
+            out["cache_bad"] = bad
+            out["cache_specs"] = {f"{p}.{n}.{k}": list(v) for p, sub in cache.specs.items()
+                                  for n, leaves in sub.items() for k, v in leaves.items()}
+            for step in range(forced.shape[0] + 1):
+                out["argmax"].append(logits.argmax(dim=-1).cpu().tolist())
+                if keep:
+                    out["logits"].append(logits.float().cpu().numpy())
+                if step == forced.shape[0]:
+                    break
+                nxt = torch.from_numpy(forced[step][rows]).to(dev, torch.long)
+                torch.cuda.synchronize(dev)
+                t = time.perf_counter()
+                logits, cache = transformer.decode_step(local, cfg, nxt, cache)
+                torch.cuda.synchronize(dev)
+                out["decode_ms"].append(1e3 * (time.perf_counter() - t))
+            out["comm_s"] = sharding.COMM["seconds"] - comm
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        return out
+    finally:
+        layers.disable_activation_sharding()
+
+
+def serve_mesh_phase(seed, device="cuda:0") -> dict[str, int]:
+    """Prefill and decode over a mesh (``SERVE_MESH``): for each dense
+    decoder, ``SERVE_MESH_B`` prompts of ``SERVE_MESH_S`` tokens drawn from
+    ``seed`` and ``SERVE_MESH_NEW`` greedy decode steps at 1x1 in this
+    process (full width, random weights from ``seed`` with the attention
+    projections rescaled, ``conditioned``), then the same prefill and the
+    same decode tokens on 4 gloo ranks on the one card, one configuration
+    after the other, so no rank's host-clock times carry another group's
+    load (``serve_mesh_rank``: this rank's shards and rows, the cache
+    placed by ``cache_pspec_for``).  Held: prefill's last-token logits and every
+    decode step's within ``SERVE_MESH_TOL`` of max|logit| of the 1x1 run;
+    B.6 launches per rank per prefill equal to the layer count; every cache
+    leaf on cuda:0 at its local shape.  Printed, not held: the greedy
+    tokens against 1x1's (near ties may flip), prefill and decode ms per
+    rank, the collectives' share.  The line is printed before a failed
+    check raises."""
+    from repro_torch import configs
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import params as params_lib, transformer
+
+    dev = torch.device(device)
+    launches = {name: 0 for name in counters()}
+    rows, failed, refs = [], [], {}
+    for arch, _grid in SERVE_MESH:  # the 1x1 references first, outside the path's window
+        cfg = configs.get_config(arch)
+        specs = transformer.model_specs(cfg)
+        tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(SERVE_MESH_B, SERVE_MESH_S))
+        weights = params_lib.materialize(specs, seed, device=dev)
+        conditioned(specs, weights)
+        single, forced = [], []
+        t = time.perf_counter()
+        with torch.inference_mode():
+            logits, cache = transformer.prefill(weights, cfg, torch.from_numpy(tokens).to(dev),
+                                                SERVE_MESH_S + SERVE_MESH_NEW)
+            for step in range(SERVE_MESH_NEW + 1):
+                single.append(logits.float().cpu().numpy())
+                if step == SERVE_MESH_NEW:
+                    break
+                nxt = logits.argmax(dim=-1)
+                forced.append(nxt.cpu().numpy())
+                logits, cache = transformer.decode_step(weights, cfg, nxt, cache)
+        refs[arch] = (tokens, single, np.stack(forced), time.perf_counter() - t)
+        del weights, cache, logits
+        torch.cuda.empty_cache()
+    results, wall = {}, {}
+    for arch, grid in SERVE_MESH:
+        t = time.perf_counter()
+        results[arch] = meshlib.run_ranks(serve_mesh_rank, math.prod(grid.values()), backend="gloo",
+                                          devices=[device] * math.prod(grid.values()),
+                                          args=(arch, seed, refs[arch][0], refs[arch][2]), grid=grid,
+                                          timeout_s=TRAIN_MESH_TIMEOUT_S)
+        wall[arch] = time.perf_counter() - t
+    for arch, grid in SERVE_MESH:
+        cfg = configs.get_config(arch)
+        ranks, (_tokens, single, _forced, single_s) = results[arch], refs[arch]
+        gaps, greedy_equal = [], True
+        for r in ranks:
+            lo, hi = r["rows"]
+            for step, got in enumerate(r["logits"]):
+                want = single[step]
+                gaps.append(float(np.max(np.abs(got - want[lo:hi]))) / float(np.max(np.abs(want))))
+            greedy_equal &= all(a == np.argmax(single[step][lo:hi], axis=-1).tolist()
+                                for step, a in enumerate(r["argmax"]))
+            if r["b6_prefill"] != cfg.n_layers:
+                failed.append(f"{arch} rank {r['rank']}: {r['b6_prefill']} B.6 launches per prefill,"
+                              f" expected {cfg.n_layers}")
+            if r["cache_bad"]:
+                failed.append(f"{arch} rank {r['rank']}: cache leaves {r['cache_bad']}")
+            launches["flash_attention"] += r["b6_prefill"]
+        if not gaps or max(gaps) > SERVE_MESH_TOL:
+            failed.append(f"{arch} {grid}: logits gap {max(gaps, default=None)} against 1x1, bound {SERVE_MESH_TOL}")
+        rows.append({
+            "arch": arch, "grid": grid, "layers": cfg.n_layers, "kv_heads": cfg.n_kv_heads,
+            "tokens": [SERVE_MESH_B, SERVE_MESH_S], "new": SERVE_MESH_NEW,
+            "cache_k_spec": ranks[0]["cache_specs"]["layers.s0.k"],
+            "max_gap": max(gaps, default=None), "gap_per_step": gaps[: SERVE_MESH_NEW + 1],
+            "tolerance": SERVE_MESH_TOL, "greedy_equal_1x1": greedy_equal,
+            "b6_launches_per_prefill": [r["b6_prefill"] for r in ranks],
+            "ranks": [{"rank": r["rank"], "coords": r["coords"], "prefill_ms": r["prefill_ms"],
+                       "decode_ms_median": _median(r["decode_ms"]),
+                       "comm_share": r["comm_s"] / ((r["prefill_ms"] + sum(r["decode_ms"])) / 1e3),
+                       "peak_gb": r["peak_gb"]} for r in ranks],
+            "single_s": single_s, "ranks_wall_s": wall[arch],
+        })
+    emit({"phase": "serve_mesh", "gpu": nvidia_smi(), "configs": rows, "launches": launches,
+          "failed": failed})
+    if failed:
+        raise AssertionError(f"serve_mesh: {failed}")
+    check_counts(launches, ("flash_attention",), "serve_mesh path")
+    return launches
+
+
+class DryRuns:
+    """The dry runs' subprocesses (``DRYRUN_CALLS``), all started at once,
+    each writing its cells into one directory and its output to files
+    there; a thread per process notes when it exited.  They trace on the
+    host and allocate nothing on the card (the build ranks of
+    ``dryrun_mate`` excepted, which launch B.3), so ``main`` starts them
+    right after the kernel build, while the lake is drawn on the host and
+    nothing is timed, and ``wait``s for them before the kernel phase, the
+    first that times anything: no time is taken while they share the host
+    or the card.  ``dryrun_phase`` reads what they wrote.  ``stop`` kills
+    what still runs."""
+
+    def __init__(self):
+        import tempfile
+        import threading
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+        self.out_dir = tempfile.mkdtemp(prefix="dryrun_")
+        self.t0 = time.perf_counter()
+        self.procs, self.ended, self.waited_s = [], [None] * len(DRYRUN_CALLS), 0.0
+        for i, (module, argv, _) in enumerate(DRYRUN_CALLS):
+            with open(os.path.join(self.out_dir, f"{i}.out"), "w") as out, \
+                    open(os.path.join(self.out_dir, f"{i}.err"), "w") as err:
+                p = subprocess.Popen([sys.executable, "-m", module, *argv, "--out-dir", self.out_dir], cwd=root,
+                                     env=env, stdout=out, stderr=err, text=True)
+            self.procs.append(p)
+            threading.Thread(target=self._wait, args=(i, p), daemon=True).start()
+
+    def wait(self) -> float:
+        """Wait for every process, killing any still running
+        ``DRYRUN_TIMEOUT_S`` after the start; returns the seconds waited
+        in all."""
+        t = time.perf_counter()
+        for p in self.procs:
+            try:
+                p.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - self.t0)))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        self.waited_s += time.perf_counter() - t
+        return self.waited_s
+
+    def _wait(self, i: int, p) -> None:
+        p.wait()
+        self.ended[i] = time.perf_counter() - self.t0
+
+    def output(self, i: int, stream: str) -> str:
+        with open(os.path.join(self.out_dir, f"{i}.{stream}")) as f:
+            return f.read()
+
+    def stop(self) -> None:
+        import shutil
+
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        shutil.rmtree(self.out_dir, ignore_errors=True)
+
+
+def dryrun_phase(runs_started: DryRuns) -> dict[str, int]:
+    """The dry runs' entry points as users run them, in subprocesses on
+    this card's torch, all started together after the kernel build and
+    waited for before the kernel phase (``DryRuns``): ``python -m
+    repro_torch.launch.dryrun`` over
+    qwen1.5-0.5b's four shapes at 16x16, qwen3-32b's train_4k at both
+    production meshes and qwen2-moe's train_4k, and ``python -m
+    repro_torch.launch.dryrun_mate`` with its sharded build on 4 gloo ranks
+    on the card.  Each cell is rank 0's program traced on fake CUDA tensors
+    at the production mesh: planned figures for an H100 cluster, not
+    timings.  Held: every expected cell's status (qwen2-moe's an error
+    naming ROADMAP A.10.12), no kernel launched in a cell
+    (each cell's measured ``kernel_launches`` 0; the trace also raises on
+    any), the build byte-identical and B.3 launched by its ranks.  The
+    path's launches are the build ranks' own, summed over the ranks (the
+    build's ``[build] kernel launches`` line).  Printed per cell: FLOPs per device, argument and temp
+    GB, collective MB by kind, the trace's seconds; per run its seconds
+    from the start."""
+    dry = runs_started
+    cells, runs, failed = [], [], []
+    launches = {name: 0 for name in counters()}
+    wait_s = dry.wait()  # main waited before the kernel phase: nothing more here
+    for i, ((module, argv, expect), p) in enumerate(zip(DRYRUN_CALLS, dry.procs)):
+        build = [ln for ln in dry.output(i, "out").splitlines() if ln.startswith("[build]")]
+        runs.append({"module": module, "argv": argv, "exit": p.returncode, "ended_s": dry.ended[i], "build": build})
+        if p.returncode:
+            failed.append(f"{module} {argv}: exit {p.returncode}: {dry.output(i, 'err')[-2000:]}")
+            continue
+        if module.endswith("dryrun_mate"):
+            if not (build and build[0].endswith("identical_to_single_host=True")):
+                failed.append(f"{module}: the sharded build: {build}")
+            for ln in build:
+                if ln.startswith("[build] kernel launches over the ranks: "):
+                    for name, n in json.loads(ln.split(": ", 1)[1]).items():
+                        launches[name] += n
+        for name, want in expect.items():
+            with open(os.path.join(dry.out_dir, name + ".json")) as f:
+                rec = json.load(f)
+            status = "skipped" if rec.get("skipped") else "error" if "error" in rec else "ok"
+            last = rec["error"].strip().splitlines()[-1] if "error" in rec else None
+            kind, _, item = want.partition(":")
+            if status != kind or (item and item not in last):
+                failed.append(f"{name}: {status} ({last}), expected {want}")
+            if status == "ok" and rec.get("kernel_launches") != 0:
+                failed.append(f"{name}: {rec.get('kernel_launches')} kernel launches")
+            row = {"cell": name, "status": status, "error": last}
+            if status == "ok":
+                ma, hc = rec["memory_analysis"], rec["hlo_cost"]
+                row.update(flops_per_device=hc["flops"], argument_gb=ma["argument_size_in_bytes"] / 1e9,
+                           temp_gb=ma["temp_size_in_bytes"] / 1e9, output_gb=ma["output_size_in_bytes"] / 1e9,
+                           collective_mb={k: v / 1e6 for k, v in hc["collective_bytes"].items() if v},
+                           collective_counts={k: int(v) for k, v in hc["collective_counts"].items() if v},
+                           param_bytes_per_device=rec.get("param_bytes_per_device"),
+                           trace_s=rec["compile_seconds"], trace_device=rec["trace_device"])
+            cells.append(row)
+    emit({"phase": "dryrun", "gpu": nvidia_smi(), "planned_not_timed": True, "cells": cells, "runs": runs,
+          "waited_s": wait_s,
+          "launches": launches, "failed": failed})
+    if failed:
+        raise AssertionError(f"dryrun: {failed}")
+    check_counts(launches, ("xash_superkey",), "dryrun path (the sharded build's ranks)")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # Phase 12: the discovery driver, as a user runs it, at the smoke's lake
 # ---------------------------------------------------------------------------
@@ -3253,7 +3587,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
-    from repro_torch.data import synthetic
     from repro_torch.kernels import _build
 
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True, text=True,
@@ -3270,6 +3603,17 @@ def main() -> int:
                          if "entry function" in ln or "registers" in ln or "spill" in ln],
               "sass_wgmma": sass_count(_build._lib_path(name), "HGMMA")})
 
+    dry = DryRuns()  # host-side traces: beside the lake's draw, waited for before the kernel phase
+    try:
+        return _phases(args, dry)
+    finally:
+        dry.stop()
+
+
+def _phases(args, dry: DryRuns) -> int:
+    """``main``'s phases after the kernel build."""
+    from repro_torch.data import synthetic
+
     t0 = time.perf_counter()
     corpus = synthetic.make_corpus(synthetic.SyntheticSpec(n_tables=args.n_tables, seed=args.seed))
     lake_cells = [[list(r) for r in t.cells] for t in corpus.tables]  # before any planting
@@ -3284,6 +3628,7 @@ def main() -> int:
           "unique_values": len(corpus.unique_values),
           "cells": int((corpus.cell_value_ids >= 0).sum()), "wall_s": time.perf_counter() - t0})
 
+    dry.wait()  # from here on, nothing timed shares the host or the card with them
     rows, lane_prefixes = kernel_phase(args.seed, corpus)
     flash_grad_phase(args.seed)
     from repro_torch.core.session import DiscoveryConfig, MateSession
@@ -3310,6 +3655,8 @@ def main() -> int:
     by_path["train"] = train_phase(args.seed)
     by_path["train_mesh"] = train_mesh_phase(args.seed)
     by_path["pipeline"] = pipeline_phase(args.seed)
+    by_path["serve_mesh"] = serve_mesh_phase(args.seed)
+    by_path["dryrun"] = dryrun_phase(dry)
     by_path["driver"] = driver_phase(args, lake_cells)
     del lake_cells
     by_path["conformance"] = conformance_phase()

@@ -227,8 +227,18 @@ def routed_filter_counts_mesh(
 
 
 # ---------------------------------------------------------------------------
-# Collectives: on the card under NCCL, on host copies under gloo
+# Collectives: on the card under NCCL, on host copies under gloo, none on a
+# dry mesh (``launch.mesh.dry_mesh``: fake tensors in, fake results out)
 # ---------------------------------------------------------------------------
+
+
+def _dry(t: torch.Tensor, mesh, kind: str, nbytes: int) -> bool:
+    """Count the collective by kind (``train.sharding.KINDS``); True when
+    ``mesh`` is a dry mesh, which runs none (``t`` must then be fake)."""
+    from repro_torch.train import sharding
+
+    sharding.record_kind(kind, nbytes)
+    return sharding.dry(mesh, t)
 
 
 def _collective_input(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -244,6 +254,8 @@ def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
     (the reference's ``psum``)."""
     import torch.distributed as dist
 
+    if _dry(t, mesh, "all-reduce", t.numel() * t.element_size()):
+        return t.new_empty(t.shape)
     buf = _collective_input(t, mesh)
     if buf is t:
         buf = buf.clone()
@@ -256,6 +268,8 @@ def all_gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
     order, returned on ``t``'s device."""
     import torch.distributed as dist
 
+    if _dry(t, mesh, "all-gather", mesh.size * t.numel() * t.element_size()):
+        return t.new_empty((mesh.size * t.shape[0],) + tuple(t.shape[1:]))
     buf = _collective_input(t, mesh)
     parts = [torch.empty_like(buf) for _ in range(mesh.size)]
     dist.all_gather(parts, buf, group=mesh.group)

@@ -1,4 +1,9 @@
-"""Where the port runs: the card unless the caller asks for the CPU."""
+"""Where the port runs: the card unless the caller asks for the CPU.
+
+``is_fake`` tells a ``FakeTensorMode`` tensor (shape, dtype and device,
+no storage; the dry run's) from a real one: a kernel wrapper gives a fake
+tensor its kernel's shape rule, never the plain version, and a dry mesh
+takes nothing else."""
 
 from __future__ import annotations
 
@@ -18,3 +23,10 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"the port runs on 'cuda' or 'cpu', got {dev}")
     return dev
+
+
+def is_fake(t) -> bool:
+    """True for a ``FakeTensorMode`` tensor."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)

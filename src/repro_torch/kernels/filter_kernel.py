@@ -23,7 +23,11 @@ own ragged edge.
 
 Each wrapper runs its kernel on CUDA tensors and its plain PyTorch version
 (defined beside it) on CPU tensors — and only there.  Each counts its
-launches in a plain integer attribute, ``<wrapper>.launches``.
+launches in a plain integer attribute, ``<wrapper>.launches``.  Each
+launch is a ``torch.library`` op (``repro_torch::<wrapper>``) with a shape
+rule, so a ``FakeTensorMode`` trace gets the outputs' shapes and dtypes and
+never reaches ``_build.load`` or a pointer: a fake tensor gets a shape,
+never the plain version.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.xash import subsumes
+from repro_torch.device import is_fake
 from repro_torch.kernels import _build
 
 # Largest per-launch table count of the fused counts kernels: their per-block
@@ -61,6 +66,11 @@ def _check_cuda(name: str, device: torch.device, **tensors) -> None:
             raise ValueError(f"{name}: {arg} has dtype {t.dtype}, expected one of {dtypes}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _plain(t: torch.Tensor) -> bool:
+    """True where a wrapper runs its plain version: a real CPU tensor."""
+    return t.device.type == "cpu" and not is_fake(t)
 
 
 def _elig_int8(elig: torch.Tensor | None) -> torch.Tensor | None:
@@ -95,11 +105,18 @@ def filter_match(row_sk: torch.Tensor, query_sk: torch.Tensor) -> torch.Tensor:
     """
     if row_sk.shape[1:] != query_sk.shape[1:]:
         raise ValueError(f"lane counts differ: rows {tuple(row_sk.shape)}, queries {tuple(query_sk.shape)}")
-    if row_sk.device.type == "cpu":
+    if _plain(row_sk):
         return filter_match_plain(row_sk, query_sk)
     dev = row_sk.device
     _check_cuda("filter_match", dev, row_sk=(row_sk, (torch.int32,)),
                 query_sk=(query_sk, (torch.int32,)))
+    return torch.ops.repro_torch.filter_match(row_sk, query_sk)
+
+
+@torch.library.custom_op("repro_torch::filter_match", mutates_args=(), device_types="cuda",
+                         schema="(Tensor row_sk, Tensor query_sk) -> Tensor")
+def _filter_match_launch(row_sk, query_sk):
+    dev = row_sk.device
     n, q = row_sk.shape[0], query_sk.shape[0]
     out = torch.empty(n, q, dtype=torch.int8, device=dev)
     if n == 0 or q == 0:
@@ -112,6 +129,11 @@ def filter_match(row_sk: torch.Tensor, query_sk: torch.Tensor) -> torch.Tensor:
     _build.check(err, "filter_match")
     filter_match.launches += 1
     return out
+
+
+@_filter_match_launch.register_fake
+def _(row_sk, query_sk):
+    return row_sk.new_empty((row_sk.shape[0], query_sk.shape[0]), dtype=torch.int8)
 
 
 filter_match.launches = 0
@@ -143,11 +165,18 @@ def filter_count(row_sk: torch.Tensor, query_sk: torch.Tensor) -> torch.Tensor:
     """
     if row_sk.shape[1:] != query_sk.shape[1:]:
         raise ValueError(f"lane counts differ: rows {tuple(row_sk.shape)}, queries {tuple(query_sk.shape)}")
-    if row_sk.device.type == "cpu":
+    if _plain(row_sk):
         return filter_count_plain(row_sk, query_sk)
     dev = row_sk.device
     _check_cuda("filter_count", dev, row_sk=(row_sk, (torch.int32,)),
                 query_sk=(query_sk, (torch.int32,)))
+    return torch.ops.repro_torch.filter_count(row_sk, query_sk)
+
+
+@torch.library.custom_op("repro_torch::filter_count", mutates_args=(), device_types="cuda",
+                         schema="(Tensor row_sk, Tensor query_sk) -> Tensor")
+def _filter_count_launch(row_sk, query_sk):
+    dev = row_sk.device
     n, q = row_sk.shape[0], query_sk.shape[0]
     counts = torch.zeros(q, dtype=torch.int32, device=dev)
     if n == 0 or q == 0:
@@ -160,6 +189,11 @@ def filter_count(row_sk: torch.Tensor, query_sk: torch.Tensor) -> torch.Tensor:
     _build.check(err, "filter_count")
     filter_count.launches += 1
     return counts
+
+
+@_filter_count_launch.register_fake
+def _(row_sk, query_sk):
+    return row_sk.new_empty((query_sk.shape[0],), dtype=torch.int32)
 
 
 filter_count.launches = 0
@@ -244,13 +278,24 @@ def filter_table_counts(
     _check_counts_args("filter_table_counts", n, q, n_tables, n_queries, elig, seg_ids, mode)
     if row_sk.shape[1:] != query_sk.shape[1:]:
         raise ValueError(f"lane counts differ: rows {tuple(row_sk.shape)}, queries {tuple(query_sk.shape)}")
-    if row_sk.device.type == "cpu":
+    if _plain(row_sk):
         return filter_table_counts_plain(row_sk, query_sk, elig, seg_ids, n_tables, n_queries, mode)
     dev = row_sk.device
     elig = _elig_int8(elig)
     _check_cuda("filter_table_counts", dev, row_sk=(row_sk, (torch.int32,)),
                 query_sk=(query_sk, (torch.int32,)), elig=(elig, (torch.int8,)),
                 seg_ids=(seg_ids, (torch.int32,)))
+    return tuple(torch.ops.repro_torch.filter_table_counts(row_sk, query_sk, elig, seg_ids, n_tables,
+                                                           n_queries, mode == "any"))
+
+
+@torch.library.custom_op("repro_torch::filter_table_counts", mutates_args=(), device_types="cuda",
+                         schema="(Tensor row_sk, Tensor query_sk, Tensor? elig, Tensor seg_ids, int n_tables,"
+                                " int n_queries, bool any_mode) -> (Tensor, Tensor)")
+def _filter_table_counts_launch(row_sk, query_sk, elig, seg_ids, n_tables, n_queries, any_mode):
+    dev = row_sk.device
+    n, q = row_sk.shape[0], query_sk.shape[0]
+    mode = "any" if any_mode else "sum"
     counts = torch.zeros(n_tables, dtype=torch.int32, device=dev)
     keys = torch.zeros(q, dtype=torch.int32, device=dev)
     if n == 0 or n_queries == 0 or n_tables == 0:
@@ -268,6 +313,12 @@ def filter_table_counts(
     _build.check(err, "filter_table_counts")
     filter_table_counts.launches += 1
     return counts, keys
+
+
+@_filter_table_counts_launch.register_fake
+def _(row_sk, query_sk, elig, seg_ids, n_tables, n_queries, any_mode):
+    return (row_sk.new_empty((n_tables,), dtype=torch.int32),
+            row_sk.new_empty((query_sk.shape[0],), dtype=torch.int32))
 
 
 filter_table_counts.launches = 0
@@ -329,7 +380,7 @@ def gather_filter_table_counts(
         raise ValueError(
             f"query lanes {query_sk.shape[1]} exceed the store's {store.shape[1]}"
         )
-    if store.device.type == "cpu":
+    if _plain(store):
         return gather_filter_table_counts_plain(
             rows, store, query_sk, elig, seg_ids, n_tables, n_queries
         )
@@ -338,6 +389,16 @@ def gather_filter_table_counts(
     _check_cuda("gather_filter_table_counts", dev, rows=(rows, (torch.int32,)),
                 store=(store, (torch.int32,)), query_sk=(query_sk, (torch.int32,)),
                 elig=(elig, (torch.int8,)), seg_ids=(seg_ids, (torch.int32,)))
+    return torch.ops.repro_torch.gather_filter_table_counts(rows, store, query_sk, elig, seg_ids, n_tables,
+                                                            n_queries)
+
+
+@torch.library.custom_op("repro_torch::gather_filter_table_counts", mutates_args=(), device_types="cuda",
+                         schema="(Tensor rows, Tensor store, Tensor query_sk, Tensor? elig, Tensor seg_ids,"
+                                " int n_tables, int n_queries) -> Tensor")
+def _gather_filter_table_counts_launch(rows, store, query_sk, elig, seg_ids, n_tables, n_queries):
+    dev = store.device
+    n, q = rows.shape[0], query_sk.shape[0]
     counts = torch.zeros(n_tables, dtype=torch.int32, device=dev)
     if n == 0 or n_queries == 0 or n_tables == 0:
         return counts
@@ -350,6 +411,11 @@ def gather_filter_table_counts(
     _build.check(err, "gather_filter_table_counts")
     gather_filter_table_counts.launches += 1
     return counts
+
+
+@_gather_filter_table_counts_launch.register_fake
+def _(rows, store, query_sk, elig, seg_ids, n_tables, n_queries):
+    return store.new_empty((n_tables,), dtype=torch.int32)
 
 
 gather_filter_table_counts.launches = 0

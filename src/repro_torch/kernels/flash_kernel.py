@@ -27,6 +27,15 @@ Semantics (the Pallas kernel's): query ``i`` may attend to key ``j`` iff
 output ``acc / max(l, 1e-30)`` cast to the input dtype.  A query row with
 no admissible key gets zeros (the Pallas kernel would average the masked
 values there; the serving path never has such a row).
+
+The launch and the backward are ``torch.library`` ops
+(``repro_torch::flash_attention_fwd`` / ``_bwd``) with a shape rule each,
+so a ``FakeTensorMode`` trace (the dry run) gets their output shapes and
+never reaches ``_build.load`` or a pointer: a fake tensor gets a shape,
+never the plain version.  Each carries the FLOP formula ``FlopCounterMode``
+uses for SDPA (``sdpa_flop_count`` / ``sdpa_backward_flop_count``, a
+causal mask not halving it), so a traced program's FLOPs do not depend on
+which attention ran.
 """
 
 from __future__ import annotations
@@ -34,7 +43,9 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils import flop_counter
 
+from repro_torch.device import is_fake
 from repro_torch.kernels import _build
 
 MAX_HEAD_DIM = 192  # d: MLA's qk_nope + qk_rope at full width
@@ -104,7 +115,16 @@ def _key_span(q0: int, rows: int, t: int, causal: bool, window: int) -> tuple[in
 
 def flash_attention_backward(q, k, v, dout, *, causal: bool = True, window: int = 0):
     """Gradients of ``flash_attention`` (dq, dk, dv) for the output
-    gradient ``dout`` [B, S, H, dv], each in its input's dtype.
+    gradient ``dout`` [B, S, H, dv], each in its input's dtype (the op
+    ``repro_torch::flash_attention_bwd``, whose body is ``_backward``)."""
+    return tuple(torch.ops.repro_torch.flash_attention_bwd(q, k, v, dout, causal, window))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v, Tensor dout, bool causal, int window)"
+                                " -> (Tensor, Tensor, Tensor)")
+def _backward(q, k, v, dout, causal, window):
+    """The backward's body.
 
     Blocked over the query axis with the plain version's budget; per block
     the scores and the softmax are recomputed in float32 under the
@@ -138,7 +158,24 @@ def flash_attention_backward(q, k, v, dout, *, causal: bool = True, window: int 
         ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
         dq[:, q0 : q0 + rows] = (torch.matmul(ds, kb) * scale).transpose(1, 2).to(q.dtype)
         dk[:, :, lo:hi] += torch.matmul(ds.transpose(2, 3), qf) * scale
-    return dq, dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
+    return dq, dk.transpose(1, 2).to(k.dtype).contiguous(), dv.transpose(1, 2).to(v.dtype).contiguous()
+
+
+@_backward.register_fake
+def _(q, k, v, dout, causal, window):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _bhsd(shape) -> tuple:
+    """[B, S, H, d] -> the [B, H, S, d] order of the SDPA formulas."""
+    b, s, h, d = shape
+    return (b, h, s, d)
+
+
+@flop_counter.register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _backward_flops(q_shape, k_shape, v_shape, dout_shape, *args, **kwargs) -> int:
+    return flop_counter.sdpa_backward_flop_count(_bhsd(dout_shape), _bhsd(q_shape), _bhsd(k_shape),
+                                                 _bhsd(v_shape))
 
 
 def _pad8(x: torch.Tensor) -> torch.Tensor:
@@ -199,13 +236,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.T
 
 
 def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
-    """The forward: the kernel's launch on CUDA tensors, the plain version
-    on CPU tensors."""
+    """The forward: the kernel's launch on CUDA tensors, its shape rule on
+    fake tensors, the plain version on (real) CPU tensors."""
     b, s, h, d = q.shape
     t, dv = k.shape[1], v.shape[3]
-    if q.device.type == "cpu":
+    fake = is_fake(q)
+    if q.device.type == "cpu" and not fake:
         return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not fake:
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device or x.dtype != q.dtype:
@@ -218,6 +256,15 @@ def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
         )
     if any(x.stride(3) != 1 for x in (q, k, v)):
         raise ValueError("the last dim of q, k and v must be contiguous")
+    return torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal, window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(), device_types="cuda",
+                         schema="(Tensor q, Tensor k, Tensor v, bool causal, int window) -> Tensor")
+def _launch(q, k, v, causal, window):
+    """The kernel's launch (``_forward`` checked the inputs)."""
+    b, s, h, d = q.shape
+    t, dv = k.shape[1], v.shape[3]
     if b * s * h == 0 or t == 0:
         return torch.zeros(b, s, h, dv, dtype=q.dtype, device=q.device)
     bf16 = q.dtype == torch.bfloat16
@@ -235,6 +282,16 @@ def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out if out.shape[3] == dv else out[..., :dv].contiguous()
+
+
+@_launch.register_fake
+def _(q, k, v, causal, window):
+    return q.new_empty(q.shape[:3] + v.shape[3:])
+
+
+@flop_counter.register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _forward_flops(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
+    return flop_counter.sdpa_flop_count(_bhsd(q_shape), _bhsd(k_shape), _bhsd(v_shape))
 
 
 flash_attention.launches = 0

@@ -34,6 +34,14 @@ hands the results back (given ``grid``, each rank gets its ``GridMesh``);
 every wait has a deadline, so a hung rank fails the call instead of hanging
 its caller.
 
+A dry mesh (``dry_grid_mesh``, ``dry_production_mesh``, ``dry_mesh``;
+backend 'dry') is one rank's view of a grid that joins no world: its
+groups hold each subset's rank list and no process group, and the
+collectives of ``train.sharding`` and ``core.distributed`` take fake
+tensors on it, count their kind and return fake results.  The dry run
+(``launch.dryrun``) traces rank 0's program on it at the production grid,
+in one process.
+
     mesh = make_mesh(store_path, world_size=2, rank=r, backend="gloo")
     index.attach_mesh(mesh)          # then discover as usual, on every rank
     close_mesh(mesh)
@@ -60,6 +68,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import params as P_
 
 BACKENDS = ("gloo", "nccl")
+DRY = "dry"  # the backend of a mesh that joins no world
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +77,7 @@ class Mesh:
 
     rank: int
     size: int
-    backend: str  # 'gloo' | 'nccl'
+    backend: str  # 'gloo' | 'nccl' | 'dry'
     device: torch.device  # this rank's device: its shard's store lives here
     group: object = None  # torch.distributed group (None: the default group)
 
@@ -111,6 +120,13 @@ def close_mesh(mesh: Mesh) -> None:
     dist.destroy_process_group(mesh.group)
 
 
+def dry_mesh(size: int, rank: int = 0, device="cuda") -> Mesh:
+    """Rank ``rank``'s view of a one-axis mesh of ``size`` ranks that joins
+    no world (backend 'dry', no group): ``core.distributed``'s collectives
+    take fake tensors on it and return fake results."""
+    return Mesh(rank, size, DRY, torch.device(device), group=None)
+
+
 @dataclasses.dataclass(frozen=True)
 class GridMesh:
     """One rank's view of a multi-axis process-group mesh.
@@ -122,7 +138,7 @@ class GridMesh:
 
     shape: dict
     rank: int
-    backend: str  # 'gloo' | 'nccl'
+    backend: str  # 'gloo' | 'nccl' | 'dry'
     device: torch.device
     groups: dict
 
@@ -184,19 +200,50 @@ def grid_mesh(mesh: Mesh, shape: dict) -> GridMesh:
         raise ValueError(f"mesh shape {dict(shape)} needs {math.prod(sizes)} ranks, the group has {mesh.size}")
     import torch.distributed as dist
 
+    new_group = lambda ranks: dist.new_group(ranks) if len(ranks) < mesh.size else mesh.group  # noqa: E731
+    groups = _grid_groups(names, sizes, mesh.rank, new_group)
+    return GridMesh(dict(zip(names, sizes)), mesh.rank, mesh.backend, mesh.device, groups)
+
+
+def _grid_groups(names: tuple, sizes: list, rank: int, new_group) -> dict:
+    """{axis subset: (new_group(its ranks), its ranks)} for the coordinate
+    lines that hold ``rank``; ``new_group`` is called for every line of
+    every subset, in one order on every rank."""
     points = list(itertools.product(*(range(n) for n in sizes)))  # row-major: rank order
-    mine = points[mesh.rank]
+    mine = points[rank]
     groups = {}
     for k in range(1, len(names) + 1):
         for subset in itertools.combinations(range(len(names)), k):
             lines: dict = {}
             for r, pt in enumerate(points):
                 lines.setdefault(tuple(c for i, c in enumerate(pt) if i not in subset), []).append(r)
-            for fixed, ranks in lines.items():  # every rank creates every group, in one order
-                g = dist.new_group(ranks) if len(ranks) < mesh.size else mesh.group
+            for fixed, ranks in lines.items():
+                g = new_group(ranks)
                 if fixed == tuple(c for i, c in enumerate(mine) if i not in subset):
                     groups[tuple(names[i] for i in subset)] = (g, ranks)
-    return GridMesh(dict(zip(names, sizes)), mesh.rank, mesh.backend, mesh.device, groups)
+    return groups
+
+
+def dry_grid_mesh(shape: dict, rank: int = 0, device="cuda") -> GridMesh:
+    """Rank ``rank``'s ``GridMesh`` of ``shape`` that joins no world
+    (backend 'dry'): each group is ``(None, its ranks)``, and nothing under
+    it calls ``torch.distributed``."""
+    names = tuple(shape)
+    sizes = [int(shape[a]) for a in names]
+    groups = _grid_groups(names, sizes, rank, lambda ranks: None)
+    return GridMesh(dict(zip(names, sizes)), rank, DRY, torch.device(device), groups)
+
+
+def production_shape(multi_pod: bool = False) -> dict:
+    """The reference's production grid: (data 16, model 16), or (pod 2,
+    data 16, model 16)."""
+    return {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
+
+
+def dry_production_mesh(multi_pod: bool = False, rank: int = 0, device="cuda") -> GridMesh:
+    """``make_production_mesh``'s grid as a dry mesh: rank ``rank`` of 256
+    (or 512) ranks, in one process."""
+    return dry_grid_mesh(production_shape(multi_pod), rank, device)
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +256,7 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> GridMesh:
     Raises unless the world has exactly that many ranks."""
     import torch.distributed as dist
 
-    shape = {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
+    shape = production_shape(multi_pod)
     n = math.prod(shape.values())
     world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
     if world != n:

@@ -73,18 +73,11 @@ def _config(args):
     return configs.reduce_config(cfg) if args.smoke else cfg
 
 
-def is_dense(cfg) -> bool:
-    """A uniform stack of attention + MLP layers: the family a model axis
-    M > 1 takes."""
-    return (cfg.moe is None and cfg.mla is None and cfg.ssm is None and cfg.encoder is None
-            and cfg.vision is None and cfg.layer_pattern == "uniform")
-
-
 def check_mesh(cfg, dp: int, tp: int, args) -> None:
     """Raise ``ValueError`` for a mesh this run cannot use."""
     if dp < 1 or tp < 1:
         raise ValueError(f"--mesh {args.mesh}: both axes must be >= 1")
-    if tp > 1 and not is_dense(cfg):
+    if tp > 1 and not transformer.is_dense(cfg):
         raise ValueError(
             f"--mesh {args.mesh}: a model axis > 1 takes the dense decoder family; tensor parallelism"
             f" for {cfg.name} (MoE, SSM, hybrid, MLA and encoder-decoder) is ROADMAP A.10.12;"

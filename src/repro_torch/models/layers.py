@@ -39,6 +39,21 @@ then needs no all-reduce.  The region's edges are ``train.sharding``'s
 passes through ``copy_to`` too, so its gradient is summed over the model
 ranks.  ``constrain_batch`` / ``constrain_seq`` check a local activation
 against the placement the reference's constraint would give it.
+
+Serving over a mesh (``transformer.prefill`` / ``decode_step``): the cache
+is placed by ``launch.mesh.cache_pspec_for`` — its KV heads over 'model'
+where they divide it, else its slots over the slot axes (the model axis,
+or every axis for a batch of one).  Prefill runs ``attention_fwd`` (B.6
+on this rank's heads) and projects the cache's K/V again, as the
+reference's prefill does: this rank's KV heads, or every KV head when
+``wk`` / ``wv`` are whole.  ``attention_decode`` with ``slot_axes`` reads
+a cache whose slots are split: the rank that owns the new token's slot
+writes it, every rank
+scores the query heads it needs (all of them, gathered over 'model' when
+the heads are split) against its own slots in float32, and the partial
+softmaxes are merged over the slot axes — a max all-reduce, then one sum
+all-reduce of the (sum of exp, P·V) pairs (flash-decoding) — before the
+result is cut to this rank's heads for the row-parallel ``wo``.
 """
 
 from __future__ import annotations
@@ -46,6 +61,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import flash_kernel
@@ -323,6 +339,23 @@ def _cache_write(buf: torch.Tensor, slot: torch.Tensor, val: torch.Tensor) -> No
     buf[torch.arange(buf.shape[0], device=buf.device), slot] = val
 
 
+def _owned_write(buf: torch.Tensor, slot: torch.Tensor, val: torch.Tensor, axes: tuple) -> None:
+    """Write ``val`` [B, ...] at global slot ``slot`` [B] of ``buf`` [B,
+    local slots, ...], this rank's shard of slots split over ``axes``: the
+    rows whose slot this rank holds change, the others keep their value.
+    With no ``axes`` every slot is here: a plain ``_cache_write``."""
+    if not axes:
+        _cache_write(buf, slot, val)
+        return
+    local = buf.shape[1]
+    rel = slot - _ACT_MESH.axis_index(axes) * local
+    mine = (rel >= 0) & (rel < local)
+    at = rel.clamp(0, local - 1)
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    keep = buf[rows, at]
+    buf[rows, at] = torch.where(mine.view((-1,) + (1,) * (keep.dim() - 1)), val.to(buf.dtype), keep)
+
+
 def attention_decode(
     p: dict,
     cfg: ModelConfig,
@@ -330,38 +363,80 @@ def attention_decode(
     cache: dict,
     *,
     window: int = 0,
+    slot_axes: tuple = (),
+    pos_axes: tuple | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Single-token decode with KV cache (updated in place and returned).
 
     x: [B, 1, D].  cache: {'k','v': [B, S_slots, Kv, D], 'pos': [B] (next
     position), 'slot_pos': [B, S_slots]}.  Full-attention layers use
     S_slots = max_seq; SWA layers use a ring buffer with S_slots = window.
+    Scores and P·V in float32, the mask the reference's.
+
+    Over the activation mesh (module docstring) the layer runs this rank's
+    query heads (all when ``wq`` is whole) against its shard of the cache:
+    its KV heads, or (with ``slot_axes``, the mesh axes the slots of 'k' /
+    'v' are split over) its slot range of every KV head, the partial
+    softmaxes then merged over ``slot_axes``.  ``pos_axes`` are those of
+    'slot_pos' (default: ``slot_axes``), which the reference's placement
+    may split where it keeps 'k' / 'v' whole.  With no mesh both are empty
+    and the whole cache is here.
     """
+    mesh = _ACT_MESH
+    pos_axes = slot_axes if pos_axes is None else pos_axes
+    tp = model_parallel() is not None and p["wq"].shape[-2] < cfg.n_heads
     pos = cache["pos"]  # [B]
     q, k, v = _project_qkv(p, cfg, x)
     q = rope(q, pos[:, None], cfg.rope_theta)
     k = rope(k, pos[:, None], cfg.rope_theta)
-
-    slots = cache["k"].shape[1]
+    ck, cv, cpos = cache["k"], cache["v"], cache["slot_pos"]
+    if k.shape[-2] != ck.shape[2]:
+        raise ValueError(f"the cache holds {ck.shape[2]} KV heads, this rank projects {k.shape[-2]}")
+    n_slot = mesh.axis_size(slot_axes) if slot_axes else 1
+    local = ck.shape[1]
+    slots = local * n_slot  # the layer's global slot count
     slot = pos % slots if window > 0 else pos.clamp(max=slots - 1)
-    _cache_write(cache["k"], slot, k[:, 0])
-    _cache_write(cache["v"], slot, v[:, 0])
-    cpos = cache["slot_pos"]
-    _cache_write(cpos, slot, pos)
+    _owned_write(ck, slot, k[:, 0], slot_axes)
+    _owned_write(cv, slot, v[:, 0], slot_axes)
+    _owned_write(cpos, slot, pos, pos_axes)
+    if pos_axes != slot_axes:  # the positions of this rank's K/V slots
+        off = mesh.axis_index(slot_axes) * local if slot_axes else 0
+        cpos = sharding.all_gather(cpos, mesh, pos_axes, 1) if pos_axes else cpos
+        cpos = cpos[:, off : off + local]
 
-    kk = repeat_kv(cache["k"], cfg.n_heads)
-    vv = repeat_kv(cache["v"], cfg.n_heads)
+    hl = q.shape[-2]
+    lo = mesh.axis_index(_ACT_MODEL_AXIS) * hl if tp else 0
+    if ck.shape[2] < cfg.n_kv_heads:  # KV heads split: this rank's query heads read its own
+        qs, kk, vv = q, repeat_kv(ck, hl), repeat_kv(cv, hl)
+    elif n_slot > 1:  # every KV head, some slots: score every query head here
+        qs = sharding.all_gather(q, mesh, _ACT_MODEL_AXIS, 2) if tp else q
+        kk, vv = repeat_kv(ck, cfg.n_heads), repeat_kv(cv, cfg.n_heads)
+    else:  # the whole cache here: the query heads of this rank
+        qs, kk, vv = q, repeat_kv(ck, cfg.n_heads), repeat_kv(cv, cfg.n_heads)
+        if tp:
+            kk, vv = kk[:, :, lo : lo + hl], vv[:, :, lo : lo + hl]
     scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.einsum("bshd,bthd->bhst", q.float(), kk.float()) * scale
+    scores = torch.einsum("bshd,bthd->bhst", qs.float(), kk.float()) * scale
     diff = pos[:, None] - cpos  # [B, slots]
     ok = (diff >= 0) & (cpos >= 0)  # cpos < 0 marks never-written slots
     if window > 0:
         ok &= diff < window
     scores = scores + torch.where(ok, 0.0, NEG_INF)[:, None, None, :]
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhst,bthd->bshd", probs, vv.float()).to(x.dtype)
+    if n_slot > 1:  # flash-decoding: merge the partial softmaxes over the slot axes
+        m = sharding.all_reduce(scores.amax(dim=-1, keepdim=True), mesh, slot_axes, op=dist.ReduceOp.MAX)
+        e = torch.exp(scores - m)
+        num = torch.einsum("bhst,bthd->bshd", e, vv.float())  # [B, 1, H', D]
+        den = e.sum(dim=-1).permute(0, 2, 1)  # [B, 1, H']
+        both = sharding.all_reduce(torch.cat([num.flatten(), den.flatten()]), mesh, slot_axes)
+        num, den = both[: num.numel()].view(num.shape), both[num.numel() :].view(den.shape)
+        out = num / den[..., None]
+        if qs.shape[-2] > hl:
+            out = out[:, :, lo : lo + hl]
+    else:
+        out = torch.einsum("bhst,bthd->bshd", torch.softmax(scores, dim=-1), vv.float())
     pos.add_(1)  # in place: the cache tensors may be views of a layer stack
-    return _out_proj(out, p["wo"]), cache
+    y = _out_proj(out.to(x.dtype), p["wo"])
+    return (sharding.reduce_from(y, mesh) if tp else y), cache
 
 
 def cross_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict) -> torch.Tensor:

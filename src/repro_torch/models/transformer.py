@@ -24,6 +24,20 @@ once.  Over a mesh (``layers.enable_activation_sharding``) the embedding
 and the head run vocab-parallel when the model axis splits the vocabulary
 (``_embed``, ``_logits``; the training loss uses ``train.sharding``'s
 vocab-parallel CE on ``_head``); the layers do the rest.
+
+Serving over a mesh (the same switch): ``prefill`` and ``decode_step`` run
+one rank's part of the reference's GSPMD serving program.  ``params`` are
+this rank's shards (``train.sharding.local_tree`` under the training
+placement) and are gathered over the batch axes on each call, as FSDP
+does; ``prefill`` takes this rank's rows of a global batch split over the
+batch axes.  ``init_cache`` gives each leaf this rank's shard under
+``launch.mesh.cache_pspec_for`` (a ``MeshCache``, which keeps the
+placements), ``prefill`` writes what this rank holds (``_prefill_attn``),
+``decode_step`` hands each attention layer the axes its slots are split
+over, and both return logits over the whole vocabulary for this rank's
+rows.  The model axis takes the dense decoders (``is_dense``); the other
+families raise over M > 1, over D×1 unless the batch splits over D, and
+the MoE ones over any mesh of more than one rank (ROADMAP A.10.12).
 """
 
 from __future__ import annotations
@@ -108,12 +122,14 @@ def _layer_fwd(p, cfg, x, positions, mixer, ffn, *, window=0, enc_out=None,
     return _ffn(p, cfg, x + h, ffn)
 
 
-def _layer_decode(p, cfg, x, cache, mixer, ffn, *, window=0):
+def _layer_decode(p, cfg, x, cache, mixer, ffn, *, window=0, slot_axes=((), ())):
     """Residual decoder layer, one token, with cache (updated in place).
-    Returns (x, cache)."""
+    ``slot_axes``: the mesh axes the slots of an attention cache's K/V and
+    of its 'slot_pos' are split over.  Returns (x, cache)."""
     h = layers.norm_fwd(p["mixer_norm"], cfg, x)
     if mixer == "attn":
-        h, cache = layers.attention_decode(p["mixer"], cfg, h, cache, window=window)
+        h, cache = layers.attention_decode(p["mixer"], cfg, h, cache, window=window, slot_axes=slot_axes[0],
+                                           pos_axes=slot_axes[1])
     elif mixer == "cross":  # memory K/V cached at prefill, no mask
         h = layers.cross_attention_decode(p["mixer"], cfg, h, cache)
     elif mixer == "mla":
@@ -364,55 +380,148 @@ def _enc_len(cfg: ModelConfig) -> int:
     return cfg.vision.n_tokens if cfg.vision is not None else 0
 
 
+class MeshCache(dict):
+    """A cache tree over a mesh (``init_cache`` under activation
+    sharding): the dict of this rank's shards, and ``specs``, every leaf's
+    placement on the mesh (``launch.mesh.cache_pspec_for``) by the same key
+    paths."""
+
+    def __init__(self, tree: dict, specs: dict):
+        super().__init__(tree)
+        self.specs = specs
+
+
+def is_dense(cfg: ModelConfig) -> bool:
+    """A uniform stack of attention + MLP layers: the family a model axis
+    M > 1 takes."""
+    return (cfg.moe is None and cfg.mla is None and cfg.ssm is None and cfg.encoder is None
+            and cfg.vision is None and cfg.layer_pattern == "uniform")
+
+
+def _serve_mesh(cfg: ModelConfig, batch: int | None = None):
+    """The activation mesh when serving runs over one (None without), after
+    checking that it can: a model axis M > 1 takes the dense decoders; the
+    other families need their batch split over D (the other caches do not
+    split below the batch), and the MoE ones a mesh of one rank (a dispatch
+    group spans the whole batch's tokens: a decode step's B tokens are one
+    group, which no rank holds)."""
+    mesh = layers._ACT_MESH
+    if mesh is None or is_dense(cfg):
+        return mesh
+    if layers._ACT_MODEL_SIZE > 1:
+        raise ValueError(f"serving {cfg.name} over a model axis > 1: tensor parallelism for the MoE, SSM,"
+                         " hybrid, MLA, cross-attention and encoder-decoder families is ROADMAP A.10.12")
+    if cfg.moe is not None and mesh.size > 1:
+        raise ValueError(f"serving {cfg.name} over {mesh.size} ranks: its MoE dispatch groups span the"
+                         " batch, split over the ranks (ROADMAP A.10.12)")
+    if batch is not None and batch % layers._ACT_BATCH_SIZE:
+        raise ValueError(f"serving {cfg.name} over a mesh needs its batch {batch} split over the"
+                         f" {layers._ACT_BATCH_SIZE} batch ranks (ROADMAP A.10.12)")
+    return mesh
+
+
+def _serve_params(params: dict, cfg: ModelConfig, mesh) -> dict:
+    """This rank's shards with their FSDP dims gathered (the batch axes)."""
+    if mesh is None:
+        return params
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import params as params_lib
+
+    place = params_lib.validate_divisibility(model_specs(cfg), mesh, meshlib.rules_for(mesh))
+    return sharding.gather_tree(params, place, mesh)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
                enc_len: int = 0, device=None) -> dict:
     """{plan name: {'s<i>': per-mixer cache, each leaf with a leading block
     axis}} — the reference's cache tree: attention {'k', 'v', 'pos',
     'slot_pos'}, cross-attention {'k', 'v'} over ``enc_len`` memory
-    positions, MLA {'ckv', 'kr', 'pos'}, SSM {'h', 'conv', 'pos'}."""
+    positions, MLA {'ckv', 'kr', 'pos'}, SSM {'h', 'conv', 'pos'}.
+
+    Over a mesh (activation sharding on) ``batch`` is the global batch and
+    each leaf is this rank's shard (a ``MeshCache``)."""
+    mesh = _serve_mesh(cfg, batch)
+    if mesh is not None:
+        from repro_torch.launch import mesh as meshlib
     cache: dict[str, Any] = {}
+    specs: dict[str, Any] = {}
     for plan in group_plans(cfg):
-        sub = {}
+        sub, sub_specs = {}, {}
         for i, (mixer, _f) in enumerate(plan.sublayers):
             window = cfg.sliding_window if mixer == "attn" else 0
-            one = _layer_cache(cfg, mixer, batch, max_seq, window, enc_len, dtype, device)
-            sub[f"s{i}"] = {k: t.expand(plan.n, *t.shape).clone() for k, t in one.items()}
+            if mesh is None:
+                one = _layer_cache(cfg, mixer, batch, max_seq, window, enc_len, dtype, device)
+                sub[f"s{i}"] = {k: t.expand(plan.n, *t.shape).clone() for k, t in one.items()}
+                continue
+            one = _layer_cache(cfg, mixer, batch, max_seq, window, enc_len, dtype, "meta")
+            sub_specs[f"s{i}"] = {k: meshlib.cache_pspec_for(k, (plan.n, *t.shape), mesh)
+                                  for k, t in one.items()}
+            sub[f"s{i}"] = {k: torch.full(_local_shape((plan.n, *t.shape), sub_specs[f"s{i}"][k], mesh),
+                                          -(10**9) if k == "slot_pos" else 0, dtype=t.dtype, device=device)
+                            for k, t in one.items()}
         cache[plan.name] = sub
-    return cache
+        specs[plan.name] = sub_specs
+    return cache if mesh is None else MeshCache(cache, specs)
+
+
+def _local_shape(shape: tuple, spec: tuple, mesh) -> tuple:
+    return tuple(n // (mesh.axis_size(e) if e is not None else 1) for n, e in zip(shape, spec))
+
+
+def _slot_axes(cache, plan: str, sub: str) -> tuple[tuple, tuple]:
+    """The mesh axes an attention cache's slots are split over: (those of
+    'k' / 'v', those of 'slot_pos'), () when whole."""
+    specs = getattr(cache, "specs", None)
+    if specs is None:
+        if layers._ACT_MESH is not None:
+            raise ValueError("decode over a mesh takes the cache init_cache / prefill made there")
+        return (), ()
+    return tuple(sharding._entry_axes(specs[plan][sub][key][2]) for key in ("k", "slot_pos"))
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor, cache: dict):
     """One decode step: next-token logits f32[B, V] + the cache, updated in
-    place."""
+    place (over a mesh: this rank's rows, every vocabulary entry)."""
+    params = _serve_params(params, cfg, _serve_mesh(cfg))
     x = _embed(params, token)[:, None, :]
     for plan, li, lp in _blocks(params, cfg):
         lc = _index(cache[plan.name], li)
         for i, (mixer, ffn) in enumerate(plan.sublayers):
             window = cfg.sliding_window if mixer == "attn" else 0
-            x, _ = _layer_decode(lp[f"s{i}"], cfg, x, lc[f"s{i}"], mixer, ffn, window=window)
+            axes = _slot_axes(cache, plan.name, f"s{i}") if mixer == "attn" else ((), ())
+            x, _ = _layer_decode(lp[f"s{i}"], cfg, x, lc[f"s{i}"], mixer, ffn, window=window, slot_axes=axes)
     x = layers.norm_fwd(params["final_norm"], cfg, x)
     return _logits(params, cfg, x[:, 0]), cache
 
 
-def _prefill_attn(spec, cfg, hh, positions, c, li) -> None:
-    """Write one attention layer's prompt K/V into its cache slice ``li``.
-    A sliding-window layer whose ring of ``window`` slots is shorter than
-    the prompt keeps the last ``window`` positions, each at slot
-    ``pos % window``."""
+def _prefill_attn(spec, cfg, hh, positions, c, li, slot_axes=((), ())) -> None:
+    """Write one attention layer's prompt K/V into its cache slice ``li``:
+    the slots this rank holds (all of them unless ``slot_axes`` — those of
+    'k' / 'v', those of 'slot_pos' — split them).  A sliding-window layer
+    whose ring of ``window`` slots is shorter than the prompt keeps the last
+    ``window`` positions, each at slot ``pos % window``."""
     s = hh.shape[1]
     k, v = layers._project_kv(spec["mixer"], cfg, hh)
     k = layers.rope(k, positions, cfg.rope_theta)
-    slots = c["k"].shape[2]
+    mesh = layers._ACT_MESH
+    slots = c["k"].shape[2] * (mesh.axis_size(slot_axes[0]) if slot_axes[0] else 1)
+    held = torch.arange(s, device=hh.device)  # the position at each global slot
     if cfg.sliding_window > 0 and slots < s:
         kept = torch.arange(s - slots, s, device=hh.device)
-        order = torch.argsort(kept % slots)  # ring layout: slot = pos % slots
-        c["k"][li] = k[:, s - slots :][:, order]
-        c["v"][li] = v[:, s - slots :][:, order]
-        c["slot_pos"][li] = kept[order].to(torch.int32)[None]
-    else:
-        c["k"][li, :, :s] = k
-        c["v"][li, :, :s] = v
-        c["slot_pos"][li, :, :s] = positions.to(torch.int32)[None]
+        held = kept[torch.argsort(kept % slots)]  # ring layout: slot = pos % slots
+
+    def mine(name: str, axes: tuple) -> torch.Tensor:
+        """The positions at this rank's slots of ``name`` (fewer than its
+        slots past the prompt's end: those stay empty)."""
+        local = c[name].shape[2]
+        off = mesh.axis_index(axes) * local if axes else 0
+        return held[off : off + local]
+
+    at = mine("k", slot_axes[0])
+    c["k"][li, :, : at.shape[0]] = k[:, at]
+    c["v"][li, :, : at.shape[0]] = v[:, at]
+    at = mine("slot_pos", slot_axes[1])
+    c["slot_pos"][li, :, : at.shape[0]] = at.to(torch.int32)[None]
     c["pos"][li] = s
 
 
@@ -422,17 +531,21 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int, 
     cache).
 
     Full-sequence forward + cache writeback, as in the reference: attention
-    layers recompute their K/V into the cache, MLA layers their latents,
+    layers recompute their K/V into the cache (over a mesh this rank's KV
+    heads, or every KV head when ``wk`` / ``wv`` are whole, and it keeps
+    its slots), MLA layers their latents,
     cross-attention layers the memory's K/V; SSM layers keep the final
     state of the chunked scan.
     """
     b, s = tokens.shape
     if cfg.sliding_window == 0 and s > max_seq:
         raise ValueError(f"prompt length {s} exceeds max_seq {max_seq}")
+    mesh = _serve_mesh(cfg, b * layers._ACT_BATCH_SIZE)
+    params = _serve_params(params, cfg, mesh)
     dev = tokens.device
     positions = torch.arange(s, device=dev)
     x = _embed(params, tokens)
-    cache = init_cache(cfg, b, max_seq, enc_len=_enc_len(cfg), device=dev)
+    cache = init_cache(cfg, b * layers._ACT_BATCH_SIZE, max_seq, enc_len=_enc_len(cfg), device=dev)
     enc_out, enc_positions = _encode(params, cfg, frames, patches)
     for plan, li, lp in _blocks(params, cfg):
         for i, (mixer, ffn) in enumerate(plan.sublayers):
@@ -445,7 +558,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int, 
                 continue
             hh = layers.norm_fwd(spec["mixer_norm"], cfg, x)
             if mixer == "attn":
-                _prefill_attn(spec, cfg, hh, positions, c, li)
+                _prefill_attn(spec, cfg, hh, positions, c, li, _slot_axes(cache, plan.name, f"s{i}"))
             elif mixer == "mla":
                 _q, ckv, kr = mla._latents(spec["mixer"], cfg, hh, positions)
                 c["ckv"][li, :, :s] = ckv

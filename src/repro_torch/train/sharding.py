@@ -25,6 +25,21 @@ does that work here, by placement (``models.params`` tuples):
 Every differentiable operator is a ``torch.autograd.Function``.  Over gloo
 a CUDA tensor's collective runs on a host copy (the ranks share one card,
 or there is none); over NCCL it runs on the card.
+
+Every collective is counted by kind in ``KINDS`` — the reference's five
+HLO kinds, each with its calls and the bytes of its result (the rule of
+the reference's HLO parser: a gather's whole output, a reduce's tensor, a
+point-to-point message) — under real and dry meshes alike.  ``send`` and
+``recv`` count as 'collective-permute'.  FSDP's backward is an all-reduce
+and a slice here, so it counts as 'all-reduce' (the reference's HLO has a
+reduce-scatter there).
+
+A dry mesh (``launch.mesh.dry_grid_mesh``, backend 'dry') joins no world:
+on it each collective takes fake tensors only (``FakeTensorMode``; a real
+tensor raises), records its kind and returns a fake tensor of the result's
+shape, dtype and device, and never reaches ``_wire`` or
+``torch.distributed``.  That is how the dry run traces one rank's program
+at a production mesh in one process.
 """
 
 from __future__ import annotations
@@ -34,21 +49,62 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.device import is_fake
+
 # -- collectives (host copies under gloo) --------------------------------------
 
 # this process's collectives so far: host-clock seconds (host copies
 # included; a collective waits for its peers), calls, bytes sent
 COMM = {"seconds": 0.0, "calls": 0, "bytes": 0}
 
+# the reference's collective kinds (its HLO parser's)
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
+# this process's collectives by kind, real and dry: calls and result bytes
+KINDS = {k: {"count": 0, "bytes": 0} for k in COLLECTIVE_KINDS}
+
+
+def reset_kinds() -> None:
+    """Zero ``KINDS``."""
+    for v in KINDS.values():
+        v["count"] = v["bytes"] = 0
+
+
+def kinds_snapshot() -> dict:
+    """A copy of ``KINDS``."""
+    return {k: dict(v) for k, v in KINDS.items()}
+
+
+def record_kind(kind: str, nbytes: int) -> None:
+    """Count one collective of ``kind`` whose result holds ``nbytes``."""
+    KINDS[kind]["count"] += 1
+    KINDS[kind]["bytes"] += int(nbytes)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def dry(mesh, t: torch.Tensor | None = None) -> bool:
+    """True when ``mesh`` is a dry mesh (then ``t``, if given, must be a
+    fake tensor: a real one raises)."""
+    if mesh.backend != "dry":
+        return False
+    if t is not None and not is_fake(t):
+        raise ValueError(f"a dry mesh takes fake tensors only (FakeTensorMode), got a real {t.dtype}"
+                         f"{list(t.shape)} on {t.device}")
+    return True
+
 
 def _count(t0: float, t: torch.Tensor) -> None:
     COMM["seconds"] += time.perf_counter() - t0
     COMM["calls"] += 1
-    COMM["bytes"] += t.numel() * t.element_size()
+    COMM["bytes"] += _nbytes(t)
 
 
 def _wire(t: torch.Tensor, mesh) -> torch.Tensor:
     """``t`` where ``mesh``'s backend can run a collective on it."""
+    if mesh.backend == "dry":
+        raise RuntimeError("a dry mesh runs no collective")
     t = t.detach()
     return t.cpu() if mesh.backend == "gloo" and t.is_cuda else t.contiguous()
 
@@ -57,6 +113,9 @@ def all_reduce(t: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM) -> torch.Tenso
     """A new tensor: ``t`` reduced over the ranks of ``axes``."""
     if mesh.axis_size(axes) == 1:
         return t.detach().clone()
+    record_kind("all-reduce", _nbytes(t))
+    if dry(mesh, t):
+        return t.detach().new_empty(t.shape)
     t0 = time.perf_counter()
     w = _wire(t, mesh)
     w = w.clone() if w.data_ptr() == t.data_ptr() else w
@@ -72,6 +131,11 @@ def all_gather(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     n = mesh.axis_size(axes)
     if n == 1:
         return t.detach()
+    record_kind("all-gather", n * _nbytes(t))
+    if dry(mesh, t):
+        shape = list(t.shape)
+        shape[dim] *= n
+        return t.detach().new_empty(shape)
     t0 = time.perf_counter()
     w = _wire(t, mesh)
     parts = [torch.empty_like(w) for _ in range(n)]
@@ -83,6 +147,9 @@ def all_gather(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
 
 def send(t: torch.Tensor, mesh, dst: int) -> None:
     """``t`` to global rank ``dst`` (point to point, blocking)."""
+    record_kind("collective-permute", _nbytes(t))
+    if dry(mesh, t):
+        return
     t0 = time.perf_counter()
     w = _wire(t, mesh)
     dist.send(w, dst)
@@ -91,11 +158,17 @@ def send(t: torch.Tensor, mesh, dst: int) -> None:
 
 def recv(shape, dtype, device, mesh, src: int) -> torch.Tensor:
     """A tensor of ``shape`` and ``dtype`` from global rank ``src``, on
-    ``device``."""
+    ``device`` (on a dry mesh: a fake one, made under ``FakeTensorMode``)."""
+    if dry(mesh):
+        out = torch.empty(shape, dtype=dtype, device=device)
+        dry(mesh, out)  # outside FakeTensorMode this is a real tensor: raise
+        record_kind("collective-permute", _nbytes(out))
+        return out
     t0 = time.perf_counter()
     on_card = mesh.backend == "nccl" and torch.device(device).type == "cuda"
     w = torch.empty(shape, dtype=dtype, device=device if on_card else "cpu")
     dist.recv(w, src)
+    record_kind("collective-permute", _nbytes(w))
     out = w.to(device)
     _count(t0, w)
     return out
@@ -130,6 +203,7 @@ def gather_to_root(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor | Non
     w = _wire(local, mesh)
     parts = [torch.empty_like(w) for _ in range(mesh.size)] if mesh.rank == 0 else None
     dist.gather(w, parts, dst=0, group=mesh.group(tuple(mesh.axis_names)))
+    record_kind("all-gather", mesh.size * _nbytes(w))
     _count(t0, w)
     if mesh.rank:
         return None

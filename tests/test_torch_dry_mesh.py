@@ -1,0 +1,114 @@
+"""The dry mesh (``launch.mesh.dry_grid_mesh``): rank 0's collectives
+counted on fake tensors equal those of the same program run for real.
+
+For one train step, one prefill and one decode step of reduced
+qwen1.5-0.5b (KV heads split over 'model') and qwen3-32b (one KV head:
+the cache's slots split), ``launch.dryrun``'s program at 2×2 (data,
+model) is traced on the dry mesh under ``FakeTensorMode`` and run on 4
+real gloo CPU ranks (``torch_serve_worker.program_kinds``): rank 0's
+per-kind counts and bytes are equal.  A real tensor given to a dry mesh
+raises, and a fake tensor reaches no ``_build.load``: each kernel gives it
+its shape rule and counts no launch.
+"""
+
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+import torch_serve_worker as worker
+from repro_torch import configs
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.core import distributed
+from repro_torch.core.xash import XashConfig
+from repro_torch.kernels import _build, filter_kernel, flash_kernel, xash_kernel
+from repro_torch.launch import dryrun, hlo_cost, mesh as meshlib
+from repro_torch.train import sharding
+
+GRID = {"data": 2, "model": 2}
+RUNS = [(arch, kind, 4, 32) for arch in ("qwen1.5-0.5b", "qwen3-32b") for kind in ("train", "prefill", "decode")]
+
+
+@pytest.fixture(scope="module")
+def real_rank0():
+    """Rank 0's kinds for every run, on 4 gloo CPU ranks (one spawn)."""
+    return meshlib.run_ranks(worker.program_kinds, 4, devices=["cpu"] * 4, grid=GRID, args=(RUNS,),
+                             timeout_s=240.0)[0]
+
+
+@pytest.mark.parametrize("run", range(len(RUNS)), ids=[f"{a}-{k}" for a, k, _, _ in RUNS])
+def test_dry_counts_equal_the_real_ranks(run, real_rank0):
+    arch, kind, batch, seq = RUNS[run]
+    cfg = configs.reduce_config(configs.get_config(arch))
+    mesh = meshlib.dry_grid_mesh(GRID, device="cpu")
+    hc = dryrun.trace_program(cfg, ShapeSpec(kind, seq, batch, kind), dryrun.Variant(), mesh)["hlo_cost"]
+    dry = {k: {"count": int(hc["collective_counts"][k]), "bytes": int(hc["collective_bytes"][k])}
+           for k in hlo_cost.COLL_KINDS}
+    assert dry == real_rank0[run], (arch, kind, dry, real_rank0[run])
+    assert dry["all-gather"]["count"] > 0 and dry["all-reduce"]["count"] > 0
+
+
+def test_a_real_tensor_on_a_dry_mesh_raises():
+    grid = meshlib.dry_grid_mesh(GRID, device="cpu")
+    with pytest.raises(ValueError, match="fake tensors only"):
+        sharding.all_reduce(torch.ones(4), grid, "data")
+    with pytest.raises(ValueError, match="fake tensors only"):
+        sharding.all_gather(torch.ones(4), grid, "model", 0)
+    with pytest.raises(ValueError, match="fake tensors only"):
+        distributed.all_reduce_sum(torch.ones(4), meshlib.dry_mesh(8, device="cpu"))
+    with pytest.raises(RuntimeError, match="runs no collective"):
+        sharding._wire(torch.ones(4), grid)
+
+
+def test_a_dry_mesh_joins_no_world():
+    grid = meshlib.dry_production_mesh(multi_pod=True, rank=5, device="cpu")
+    assert grid.size == 512 and grid.backend == "dry" and not torch.distributed.is_initialized()
+    assert all(g is None for g, _ in grid.groups.values())
+    assert grid.group_ranks("model") == list(range(0, 16)) and grid.coords == {"pod": 0, "data": 0, "model": 5}
+    assert len(grid.group_ranks(("pod", "data"))) == 32
+
+
+def test_a_fake_tensor_reaches_no_build(monkeypatch):
+    def load(name):
+        raise AssertionError(f"_build.load({name!r}) reached from a fake tensor")
+
+    monkeypatch.setattr(_build, "load", load)
+    wrappers = (flash_kernel.flash_attention, filter_kernel.filter_match, filter_kernel.filter_count,
+                filter_kernel.filter_table_counts, filter_kernel.gather_filter_table_counts,
+                xash_kernel.xash_superkey)
+    before = [w.launches for w in wrappers]
+    with FakeTensorMode():
+        q = torch.empty(2, 64, 4, 16, requires_grad=True)
+        out = flash_kernel.flash_attention(q, q, q, causal=True)
+        out.sum().backward()
+        assert out.shape == (2, 64, 4, 16) and q.grad.shape == q.shape
+        sk, qs = torch.empty(100, 4, dtype=torch.int32), torch.empty(7, 4, dtype=torch.int32)
+        seg = torch.empty(100, dtype=torch.int32)
+        assert filter_kernel.filter_match(sk, qs).shape == (100, 7)
+        assert filter_kernel.filter_count(sk, qs).shape == (7,)
+        tc, kc = filter_kernel.filter_table_counts(sk, qs, None, seg, n_tables=10, mode="any")
+        assert (tc.shape, kc.shape) == ((10,), (7,))
+        assert filter_kernel.gather_filter_table_counts(seg, sk, qs, None, seg, n_tables=10).shape == (10,)
+        enc = torch.empty(5, 3, 12, dtype=torch.uint8)
+        assert xash_kernel.xash_superkey(enc, XashConfig(bits=128)).shape == (5, 4)
+    cfg = configs.reduce_config(configs.get_config("qwen3-32b"))
+    dryrun.trace_program(cfg, ShapeSpec("prefill", 16, 4, "prefill"), dryrun.Variant(),
+                         meshlib.dry_grid_mesh(GRID, device="cpu"))
+    assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.parametrize("arch,grid", [("qwen2-moe-a2.7b", {"data": 2, "model": 2}),
+                                       ("mamba2-1.3b", {"data": 1, "model": 2}),
+                                       ("qwen2-moe-a2.7b", {"data": 2, "model": 1})])
+def test_serving_the_other_families_over_a_mesh_names_its_item(arch, grid):
+    """Over a model axis the non-dense families raise; over the data axis
+    the MoE ones do too (a dispatch group spans the batch)."""
+    from repro_torch.models import layers, transformer
+
+    cfg = configs.reduce_config(configs.get_config(arch))
+    mesh = meshlib.dry_grid_mesh(grid, device="cpu")
+    layers.enable_activation_sharding(mesh, vocab_size=cfg.vocab_size)
+    try:
+        with FakeTensorMode(), pytest.raises(ValueError, match="A.10.12"):
+            transformer.init_cache(cfg, 4, 16)
+    finally:
+        layers.disable_activation_sharding()

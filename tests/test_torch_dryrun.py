@@ -1,0 +1,174 @@
+"""``repro_torch.launch.dryrun``: rank 0's program of each (arch × shape ×
+mesh) cell traced on a dry production mesh, and its record held to the
+reference's.
+
+* ``param_bytes_per_device`` of every arch at 16×16 and 2×16×16 (the
+  port's formula on its placement tables, and the bytes of the fake
+  shards) equals the reference's formula on the reference's own
+  ``param_shardings``, placed on 512 forced host devices in a subprocess
+  that compiles nothing;
+* a traced cell carries every key of the reference's record, and
+  ``benchmarks/roofline.py`` reads it (``load_cells(out_dir=...)``,
+  ``terms``);
+* the cells the port cannot trace are ``error`` records that name their
+  ROADMAP item: a non-dense family over the model axis (A.10.12) and
+  ``seq_shard=True`` (A.10.13);
+* ``python -m repro_torch.launch.dryrun`` writes a train cell here, on a
+  CPU-only host without ``nvcc``.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+from repro_torch import configs
+from repro_torch.launch import dryrun, mesh as meshlib
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# the keys of the reference's record (repro/launch/dryrun.py, lower_cell and main)
+REFERENCE_KEYS = {
+    "arch", "shape", "mesh", "n_chips", "variant", "compile_seconds", "memory_analysis", "cost_analysis",
+    "collectives", "hlo_cost", "param_bytes_per_device", "params_total", "params_active", "kind",
+    "global_batch", "seq_len", "wall_seconds",
+}
+
+REFERENCE = textwrap.dedent(
+    """
+    import os, sys, json
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=512"
+    sys.path.insert(0, "src")
+    import jax
+    import numpy as np
+    from repro import configs
+    from repro.launch import mesh as meshlib
+    from repro.models import params as params_lib, transformer
+
+    out = {}
+    for mp in (False, True):
+        mesh = meshlib.make_production_mesh(multi_pod=mp)
+        for arch in configs.ARCHS:
+            specs = transformer.model_specs(configs.get_config(arch))
+            sh = meshlib.param_shardings(specs, mesh, True)
+            flat = jax.tree_util.tree_flatten_with_path(params_lib.abstract(specs))[0]
+            sh_flat = jax.tree_util.tree_flatten_with_path(sh)[0]
+            total = 0
+            for (_, sds), (_, h) in zip(flat, sh_flat):
+                n = int(np.prod(sds.shape)) * sds.dtype.itemsize
+                denom = 1
+                for entry in h.spec:
+                    if entry is None:
+                        continue
+                    axes = entry if isinstance(entry, tuple) else (entry,)
+                    denom *= int(np.prod([mesh.shape[a] for a in axes]))
+                total += n // denom
+            out[f"{arch}|{mp}"] = total
+    print("REF " + json.dumps(out))
+    """
+)
+
+
+@pytest.fixture(scope="module")
+def reference_param_bytes():
+    res = subprocess.run([sys.executable, "-c", REFERENCE], capture_output=True, text=True, cwd=ROOT,
+                         timeout=600)
+    line = next((x for x in res.stdout.splitlines() if x.startswith("REF ")), None)
+    assert line is not None, res.stderr[-3000:]
+    return json.loads(line[4:])
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", list(configs.ARCHS))
+def test_param_bytes_per_device_equal_the_reference(arch, multi_pod, reference_param_bytes):
+    mesh = meshlib.dry_production_mesh(multi_pod=multi_pod, device="cpu")
+    formula, traced = dryrun.param_bytes(configs.get_config(arch), mesh)
+    want = reference_param_bytes[f"{arch}|{multi_pod}"]
+    assert formula == traced == want, (arch, multi_pod, formula, traced, want)
+
+
+@pytest.fixture(scope="module")
+def cells(tmp_path_factory):
+    """A traced decode cell, a non-dense cell and a seq_shard cell, written
+    by ``main`` into one directory."""
+    out = tmp_path_factory.mktemp("dryrun_torch")
+    dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "decode_32k", "--out-dir", str(out)])
+    dryrun.main(["--arch", "qwen2-moe-a2.7b", "--shape", "decode_32k", "--out-dir", str(out)])
+    dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "prefill_32k", "--variant", "sp", "--set",
+                 "seq_shard=true", "--out-dir", str(out)])
+    return out
+
+
+def _read(out, name):
+    with open(os.path.join(out, name)) as f:
+        return json.load(f)
+
+
+def test_cell_keys_are_a_superset_of_the_reference(cells):
+    rec = _read(cells, "qwen1.5-0.5b__decode_32k__16x16.json")
+    assert "error" not in rec, rec.get("error")
+    assert REFERENCE_KEYS <= set(rec), REFERENCE_KEYS - set(rec)
+    assert rec["n_chips"] == 256 and rec["mesh"] == "16x16" and rec["kind"] == "decode"
+    assert rec["param_bytes_per_device"] == rec["param_bytes_per_device_traced"]
+    ma = rec["memory_analysis"]
+    assert ma["argument_size_in_bytes"] > rec["param_bytes_per_device"]  # parameters + the cache shard
+    assert set(rec["collectives"]) >= {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                                       "collective-permute", "total_bytes", "total_count"}
+    assert rec["collectives"]["total_bytes"] == rec["hlo_cost"]["collective_bytes_total"]
+    assert rec["cost_analysis"]["flops"] == rec["hlo_cost"]["flops"] > 0
+    assert rec["kernel_launches"] == 0
+
+
+def test_no_launch_counts_what_launched_and_raises():
+    """A cell's ``kernel_launches`` is the count measured around its trace:
+    a wrapper that counted a launch inside shows in it, and the trace
+    raises."""
+    from repro_torch.kernels import xash_kernel as xk
+
+    with dryrun.no_launch() as seen:
+        pass
+    assert seen == {"launches": 0}
+    before = xk.xash_superkey.launches
+    try:
+        with pytest.raises(AssertionError, match="launched 2 kernels"):
+            with dryrun.no_launch() as seen:
+                xk.xash_superkey.launches += 2
+        assert seen == {"launches": 2}
+    finally:
+        xk.xash_superkey.launches = before
+
+
+def test_roofline_reads_a_port_cell(cells):
+    from benchmarks import roofline
+
+    recs = [r for r in roofline.load_cells(out_dir=str(cells)) if r["_file"].startswith("qwen1.5-0.5b__decode")]
+    assert len(recs) == 1
+    row = roofline.terms(recs[0])
+    assert row is not None and row["hlo_flops"] == recs[0]["hlo_cost"]["flops"]
+    assert row["t_compute_s"] > 0 and row["t_memory_s"] > 0 and row["t_collective_s"] > 0
+
+
+@pytest.mark.parametrize("name,item", [
+    ("qwen2-moe-a2.7b__decode_32k__16x16.json", "A.10.12"),
+    ("qwen1.5-0.5b__prefill_32k__16x16__sp.json", "A.10.13"),
+])
+def test_cells_the_port_cannot_trace_name_their_item(cells, name, item):
+    rec = _read(cells, name)
+    assert item in rec["error"].splitlines()[-1], rec["error"]
+    assert "wall_seconds" in rec
+
+
+def test_module_writes_a_train_cell_without_a_card(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen1.5-0.5b",
+                          "--shape", "train_4k", "--out-dir", str(tmp_path)], capture_output=True,
+                         text=True, cwd=ROOT, env=env, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    rec = _read(tmp_path, "qwen1.5-0.5b__train_4k__16x16.json")
+    assert "error" not in rec, rec.get("error")
+    assert rec["kind"] == "train" and rec["hlo_cost"]["flops"] > 0
+    assert rec["collectives"]["all-gather"]["count"] > 0 and rec["collectives"]["all-reduce"]["count"] > 0

@@ -1,0 +1,159 @@
+"""Prefill and decode over a 2×2 (data, model) mesh against the reference's
+own GSPMD serving program on a (2, 2) mesh of fake XLA devices.
+
+The reference runs in a subprocess with 4 forced host devices: its
+``transformer.prefill`` and ``decode_step`` under ``jax.jit``, parameters
+placed by ``launch.mesh.param_shardings``, the prompt's rows over 'data',
+the cache placed by ``cache_shardings``, activation sharding on, float32
+throughout (its bf16 casts patched to float32, as
+``test_torch_train_mesh_gspmd`` does), on its own seed-0 draw with the
+attention projections rescaled (``test_torch_families._conditioned``).
+The port runs the same prefill and 4 decode steps on 4 gloo ranks
+(``torch_serve_worker.serve``) from those weights, each rank on its
+shards and its rows; every rank feeds the same decode tokens.  Rank 0's
+logits and every leaf of its cache shard (after prefill and after the
+last step) are held within 1e-5 of max|value| of the reference's.
+
+* reduced qwen1.5-0.5b: 4 KV heads, split over 'model';
+* reduced qwen3-32b: one KV head, so the cache's slots are split over
+  'model' and decode merges the partial softmaxes across the ranks;
+* reduced h2o-danube-3-4b: one KV head and an 8-slot sliding-window ring,
+  shorter than the 12-token prompt, its slots split over 'model'.
+"""
+
+import json
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import torch_serve_worker as worker
+from repro_torch.launch import mesh as meshlib
+from repro_torch.train import sharding
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCHS = ("qwen1.5-0.5b", "qwen3-32b", "h2o-danube-3-4b")
+B, S, MAX_SEQ, N_DECODE = 4, 12, 24, 4
+TOL = 1e-5
+
+REFERENCE = textwrap.dedent(
+    """
+    import os, sys, json
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    sys.path.insert(0, "src")
+    sys.path.insert(0, "tests")
+    import jax, jax.numpy as jnp, numpy as np
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from repro import configs
+    from repro.launch import mesh as meshlib
+    from repro.models import layers, params as P_, transformer
+    from test_torch_families import _Float32Jnp, _conditioned
+
+    out, b, s, max_seq, n_decode = sys.argv[1], *map(int, sys.argv[2:6])
+    transformer.jnp = _Float32Jnp()
+    transformer.init_cache.__defaults__ = (jnp.float32, 0)
+    mesh = meshlib.make_mesh((2, 2), ("data", "model"))
+    layers.enable_activation_sharding(mesh)
+    flat = lambda t, pre: {pre + jax.tree_util.keystr(k): np.asarray(v)
+                           for k, v in jax.tree_util.tree_flatten_with_path(t)[0]}
+    for arch in sys.argv[6:]:
+        cfg = configs.reduce_config(configs.get_config(arch))
+        specs = transformer.model_specs(cfg)
+        params = _conditioned(specs, jax.tree.map(lambda a: a.astype(jnp.float32),
+                                                  P_.materialize(specs, jax.random.PRNGKey(0))))
+        tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(b, s)).astype(np.int32)
+        placed = jax.tree.map(jax.device_put, params, meshlib.param_shardings(specs, mesh))
+        rows = NamedSharding(mesh, P(meshlib.batch_axes(mesh)))
+        with mesh:
+            logits, cache = jax.jit(lambda p, t: transformer.prefill(p, cfg, t, max_seq))(
+                placed, jax.device_put(jnp.asarray(tokens), rows))
+            res = {"logits0": np.asarray(logits), **flat(cache, "prefill")}
+            cache = jax.device_put(cache, meshlib.cache_shardings(cache, mesh))
+            step = jax.jit(lambda p, c, t: transformer.decode_step(p, cfg, t, c))
+            for i in range(n_decode):
+                nxt = ((np.arange(b) * 7 + i * 13) % cfg.vocab_size).astype(np.int32)
+                logits, cache = step(placed, cache, jax.device_put(jnp.asarray(nxt), rows))
+                res[f"logits{i + 1}"] = np.asarray(logits)
+            res.update(flat(cache, "final"))
+        np.savez(f"{out}/{arch}.npz", **res, **flat(params, "p"))
+    print("REF_OK")
+    """
+)
+
+
+def _tree(z, prefix: str) -> dict:
+    out: dict = {}
+    for key in z.files:
+        if key.startswith(prefix + "["):
+            path = [p.strip("'") for p in key[len(prefix) + 1 : -1].split("][")]
+            node = out
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            node[path[-1]] = z[key]
+    return out
+
+
+@pytest.fixture(scope="module")
+def both(tmp_path_factory):
+    """{arch: (the reference's npz, the port's rank-0 report)}: one
+    reference subprocess and one 4-rank spawn for every arch."""
+    out = tmp_path_factory.mktemp("serve_gspmd")
+    res = subprocess.run([sys.executable, "-c", REFERENCE, str(out), str(B), str(S), str(MAX_SEQ),
+                          str(N_DECODE), *ARCHS], capture_output=True, text=True, cwd=ROOT, timeout=600)
+    assert "REF_OK" in res.stdout, res.stderr[-3000:]
+    zs = {arch: np.load(out / f"{arch}.npz") for arch in ARCHS}
+    tokens = np.random.default_rng(0).integers(0, 256, size=(B, S))
+    runs = [(arch, _tree(z, "p"), tokens, N_DECODE, MAX_SEQ) for arch, z in zs.items()]
+    ports = meshlib.run_ranks(worker.serve_many, 4, devices=["cpu"] * 4, grid={"data": 2, "model": 2},
+                              args=(runs,), timeout_s=240.0)[0]
+    return {arch: (zs[arch], port) for arch, port in zip(ARCHS, ports)}
+
+
+@pytest.fixture(params=ARCHS)
+def pair(request, both):
+    return both[request.param]
+
+
+def _close(got, want) -> float:
+    return float(np.max(np.abs(got - want))) / max(float(np.max(np.abs(want))), 1e-30)
+
+
+def test_logits_match_gspmd(pair):
+    """Prefill's last-token logits and every decode step's: rank 0's rows,
+    the whole vocabulary."""
+    z, port = pair
+    lo, hi = port["rows"]
+    assert len(port["logits"]) == N_DECODE + 1
+    for i, got in enumerate(port["logits"]):
+        want = z[f"logits{i}"][lo:hi]
+        assert got.shape == want.shape, (i, got.shape, want.shape)
+        assert _close(got, want) <= TOL, (i, _close(got, want))
+
+
+@pytest.mark.parametrize("phase", ["prefill", "final"])
+def test_cache_shard_matches_gspmd(pair, phase):
+    """Every leaf of rank 0's cache shard equals its slice of the
+    reference's cache (placed by ``cache_pspec_for``)."""
+    z, port = pair
+    mesh = meshlib.dry_grid_mesh({"data": 2, "model": 2}, rank=port["rank"], device="cpu")
+    leaves = port["cache_prefill" if phase == "prefill" else "cache"]
+    assert set(leaves) == set(port["specs"]) == {k[len(phase):] for k in z.files if k.startswith(phase + "[")}
+    for key, got in leaves.items():
+        want = z[phase + key]
+        want = want[sharding.shard_index(want.shape, port["specs"][key], mesh)]
+        assert got.shape == want.shape, (key, got.shape, want.shape)
+        if np.issubdtype(want.dtype, np.integer):
+            assert np.array_equal(got, want), key
+        else:
+            assert _close(got, want) <= TOL, (key, _close(got, want))
+
+
+def test_placements_split_heads_or_slots(both):
+    """qwen1.5's KV heads over 'model'; qwen3's and h2o-danube's slots."""
+    k = "['layers']['s0']['k']"
+    assert both["qwen1.5-0.5b"][1]["specs"][k] == (None, "data", None, "model", None)
+    for arch in ("qwen3-32b", "h2o-danube-3-4b"):
+        assert both[arch][1]["specs"][k] == (None, "data", "model", None, None), arch

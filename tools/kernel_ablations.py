@@ -230,7 +230,7 @@ VARIANTS = {
             FLASH, "      if (edge)\n        softmax(std::true_type{});\n      else\n"
                    "        softmax(std::false_type{});\n", "      softmax(std::true_type{});\n"),
         "one block per SM (no register bound)": _sub(
-            FLASH, "__launch_bounds__(kTcThreads, DVP == 64 ? 2 : 1)", "__launch_bounds__(kTcThreads)"),
+            FLASH, "__launch_bounds__(kTcThreads, DVP == 64 && DP <= 128 ? 2 : 1)", "__launch_bounds__(kTcThreads)"),
         "no softmax (the two products only)": _cut(
             FLASH, "      float corr[2];\n      auto softmax", "#pragma unroll\n      for (int i = 0; i < kNo",
             "      float corr[2] = {1.f, 1.f};\n"),
