@@ -2,6 +2,7 @@
 """Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--n-tables 20000] [--seed 0]
+    python3 chip_smoke.py --only families_mesh[,serve_mesh,...]   # mesh phases alone
 
 Phases, each printing one JSON line:
 
@@ -141,36 +142,55 @@ Phases, each printing one JSON line:
    against the same step with the plain attention (loss and
    attention-weight gradients within 1e-3); ms per step, tokens/s, peak GB,
    the gradient norms and the attention backward's share of the step;
-11b. train_mesh — ``launch.train.run`` (``main``'s work) at full-width
-   qwen1.5-0.5b with ``--mesh 2x2`` (``TRAIN_MESH``: 4 gloo ranks on the one
-   card, FSDP over 'data', tensor parallel over 'model', [8, 512] batches,
-   4 steps, a checkpoint every 2), then ``--mesh 1x1``, both from one
-   step-0 checkpoint of the driver's draw with its attention projections
-   rescaled, then ``--mesh 1x1`` resumed from the mesh run's step-2
-   checkpoint: parameters and moments on the card on every rank, 48 B.6
-   launches per rank and step at [4, 512, 8, 64], the first step's loss and
-   gradient norm and the resumed losses within 2e-2 of 1x1's / the mesh
-   run's; ms per step, tokens/s, peak GB and the collectives' share per
-   rank;
+11b. train_mesh — ``launch.train.run`` (``main``'s work) at qwen1.5-0.5b's
+   published widths, cut to 6 of its 24 layers (``--layers``, as
+   ``families`` cuts jamba and deepseek-v3), with ``--mesh 2x2``
+   (``TRAIN_MESH``: 4 gloo ranks on the one card, FSDP over 'data', tensor
+   parallel over 'model', [8, 512] batches, 4 steps, a checkpoint every 2),
+   then ``--mesh 1x1``, both from one step-0 checkpoint of the driver's
+   draw with its attention projections rescaled, then ``--mesh 1x1``
+   resumed from the mesh run's step-2 checkpoint: parameters and moments
+   on the card on every rank, 2 B.6 launches per rank, layer and step at
+   [4, 512, 8, 64], the first step's loss and gradient norm and the
+   resumed losses within 2e-2 of 1x1's / the mesh run's; ms per step,
+   tokens/s, peak GB and the collectives' share per rank;
 11c. pipeline — ``train.pipeline.pipeline_loss_fn`` at full-width
    qwen1.5-0.5b over 2 gloo ranks (one stage of 12 layers each), [8, 512]
    in 4 microbatches, ``loss.backward()`` on both: the loss within 1e-2 of
    the un-pipelined chunked CE on the same weights, every gradient finite
    and every used leaf's nonzero, 96 B.6 launches per rank;
-11d. serve_mesh — prefill and decode over a mesh: full-width qwen1.5-0.5b
-   at 2x2 (its 16 KV heads split over 'model') and starcoder2-3b at 1x4
-   (30 layers, ~1.5 GB of bf16 weights per rank; its 2 KV heads leave the
-   cache's slots split over 'model', merged by flash-decoding), 4 gloo
-   ranks on the one card, weights from ``--seed`` with the attention
-   projections rescaled, both configurations' ranks at once: 4 prompts of
-   512 tokens and 16 decode steps of the 1x1 run's greedy tokens, every
-   step's logits within 0.05 of max|logit| of the 1x1 run in this
-   process, B.6 launches per rank per prefill equal to the layer count,
-   every cache leaf on cuda:0 at its local shape; prefill and decode ms
-   per rank and the collectives' share printed;
-11e. dryrun — ``python -m repro_torch.launch.dryrun`` (qwen1.5-0.5b's four
-   shapes at 16x16, qwen3-32b's train_4k at both meshes, qwen2-moe's
-   train_4k: an error naming ROADMAP A.10.12) and ``python -m
+11d. serve_mesh — prefill and decode over a mesh: qwen1.5-0.5b at 2x2 (its
+   16 KV heads split over 'model') and starcoder2-3b at 1x4 (its 2 KV heads
+   leave the cache's slots split over 'model', merged by flash-decoding),
+   both at their published widths cut to 6 layers, 4 gloo ranks on the
+   one card, weights from ``--seed`` with the attention projections
+   rescaled, one configuration after the other: 4 prompts of 512 tokens
+   and 16 decode steps of the 1x1 run's greedy tokens, every step's logits
+   within 0.05 of max|logit| of the 1x1 run in this process, B.6 launches
+   per rank per prefill equal to the layers kept, every cache leaf on
+   cuda:0 at its local shape; prefill and decode ms per rank and the
+   collectives' share printed;
+11e. families_mesh — tensor and expert parallelism for the attention-based
+   families (``FAMILIES_MESH``), each at its published widths cut to the
+   fewest layers that hold every kind of its sublayers: qwen2-moe 2 MoE
+   layers at 2x2 (30 of 60 experts a rank), llama-3.2-vision a [self,
+   cross] block at 2x2, whisper whole (6 + 6) at 2x2, deepseek-v3 1 dense
+   + 1 MoE layer with its MTP module at 1x4 (64 of 256 experts and 32 of
+   128 heads a rank); the 1x1 runs in a process of their own first, then 4
+   gloo ranks on the card, one group after another, each rank drawing its
+   shards leaf by leaf (deepseek-v3's ranks in turns): 4 prompts of 128
+   tokens and 8 decode steps of the 1x1 run's greedy tokens in float32
+   (the bf16 draw's values) within 0.05 of max|logit|, then in bf16 3
+   training steps of [4, 128] (deepseek-v3: one forward and backward, no
+   AdamW) with the first step's loss and gradient norm within 2e-2 of
+   1x1's, B.6 launches per rank per prefill as planned, every cache leaf
+   at its shard's shape, E/M experts a rank; per rank the draw, prefill,
+   decode and step times, the collectives' share and peak GB printed;
+11f. dryrun — ``python -m repro_torch.launch.dryrun`` (qwen1.5-0.5b's four
+   shapes at 16x16, qwen3-32b's train_4k at both meshes; train_4k and
+   decode_32k of qwen2-moe, whisper, llama-3.2-vision and deepseek-v3 at
+   16x16 and deepseek-v3's train_4k at 2x16x16; mamba2's, an error naming
+   ROADMAP A.10.12) and ``python -m
    repro_torch.launch.dryrun_mate`` (filter_1g, broadcast, the sharded
    build on 4 gloo ranks on the card) in subprocesses started together
    right after the kernel build (they trace on the host while phase 1
@@ -206,9 +226,9 @@ windows (the driver's and the examples' own builds are part of their runs
 and are counted).  Each kernel must
 have launched on its path.  Then the ``kernels`` summary line (each
 kernel's ``launches`` on its own path — the main path for B.1–B.4, the ops
-path for B.5, the serve path for B.6 (the families, train, train_mesh and
-pipeline paths beside it; the mesh phases' spawned ranks report their own
-launches) — and
+path for B.5, the serve path for B.6 (the families, train, train_mesh,
+pipeline, serve_mesh and families_mesh paths beside it; the mesh phases'
+spawned ranks report their own launches) — and
 ``launches_by_path``, every
 path's own count; the driver's spawned ranks report their launches in the
 ``driver`` line), the card's name and power limit, and last
@@ -388,10 +408,12 @@ TRAIN_STEPS, TRAIN_RESUME_AT, TRAIN_FALL_STEPS = 9, 5, 20
 TRAIN_LOSS_FALL = 0.1
 TRAIN_RESUME_REL = 1e-3
 TRAIN_PARITY_LAYERS, TRAIN_PARITY_TOL = 2, 1e-3
-# training over a mesh (phase 11b): full-width qwen1.5-0.5b over gloo ranks
+# training over a mesh (phase 11b): qwen1.5-0.5b at its published widths,
+# cut to TRAIN_MESH_LAYERS of its 24 layers (``--layers``), over gloo ranks
 # on the one card, its first step and a 1x1 resume of its step-2
 # checkpoint held against --mesh 1x1 within TRAIN_MESH_REL (bf16)
 TRAIN_MESH, TRAIN_MESH_SEQ, TRAIN_MESH_BATCH, TRAIN_MESH_STEPS, TRAIN_MESH_CKPT = "2x2", 512, 8, 4, 2
+TRAIN_MESH_LAYERS = 6
 TRAIN_MESH_REL = 2e-2
 TRAIN_MESH_TIMEOUT_S = 600.0
 # GPipe (phase 11c): 2 stages x 1 data rank, [8, 512], 4 microbatches; the
@@ -403,7 +425,37 @@ PIPE_STAGES, PIPE_SEQ, PIPE_BATCH, PIPE_MICRO, PIPE_TOL = 2, 512, 8, 4, 1e-2
 # weights (tests/test_models.py's serving bound); qwen1.5's 16 KV heads
 # split over 'model', starcoder2's 2 leave the cache's slots split
 SERVE_MESH = (("qwen1.5-0.5b", {"data": 2, "model": 2}), ("starcoder2-3b", {"data": 1, "model": 4}))
+SERVE_MESH_RANKS = 4  # one spawn of 4 ranks serves every group, one after the other
 SERVE_MESH_B, SERVE_MESH_S, SERVE_MESH_NEW, SERVE_MESH_TOL = 4, 512, 16, 0.05
+SERVE_MESH_LAYERS = 6  # of qwen1.5-0.5b's 24 and starcoder2-3b's 30, their widths whole
+# the attention-based families over a mesh (phase 11e): each at its
+# published widths, cut to the fewest layers that hold every kind of its
+# sublayers (``family_mesh_cfg``), one group after the other on 4 gloo
+# ranks on the one card; serving in float32 (FMESH_B prompts of FMESH_S
+# tokens, FMESH_NEW decode steps of the 1x1 run's greedy tokens) held within
+# SERVE_MESH_TOL of max|logit|, training in bf16 (FMESH_STEPS steps of
+# [FMESH_B, FMESH_S]: B/D·S = 256 tokens, whole MoE dispatch groups) its
+# first step's loss and gradient norm within TRAIN_MESH_REL, both against
+# 1x1 in a process of its own on the same draw.  Serving is compared in
+# float32 because the MoE routing is chaotic in bf16: a near tie of the
+# router flips an expert (decode steps fill a capacity of 1 per expert) and
+# moves the logits by up to ~0.2 of max|logit| at 2 layers, where the mesh
+# and 1x1 differ only by bf16 rounding (PERF.md §6)
+FAMILIES_MESH = (
+    ("qwen2-moe-a2.7b", {"data": 2, "model": 2}),  # 30 of 60 experts a rank
+    ("llama-3.2-vision-11b", {"data": 2, "model": 2}),
+    ("whisper-base", {"data": 2, "model": 2}),
+    ("deepseek-v3-671b", {"data": 1, "model": 4}),  # 64 of 256 experts and 32 of 128 heads a rank
+)
+FMESH_B, FMESH_S, FMESH_NEW, FMESH_STEPS = 4, 128, 8, 3
+# deepseek-v3's cut holds 14.6 B parameters (29.3 GB in bf16; its one MoE
+# layer's experts 22.5 GB): its ranks draw one after the other (one whole
+# leaf, up to 15 GB in float32, at a time), and its training check is one
+# forward and backward without AdamW, whose float32 moments would not fit
+# beside four ranks' shards and gradients
+FMESH_TURNS = ("deepseek-v3-671b",)
+FMESH_NO_OPT = ("deepseek-v3-671b",)
+FMESH_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}  # the spawned processes': less fragmentation
 # the dry run (phase 11e): each entry point's argv and the status expected
 # of each cell it writes ('error:<item>': an error record naming it)
 DRYRUN_CALLS = (
@@ -412,8 +464,19 @@ DRYRUN_CALLS = (
       "qwen1.5-0.5b__decode_32k__16x16": "ok", "qwen1.5-0.5b__long_500k__16x16": "skipped"}),
     ("repro_torch.launch.dryrun", ["--arch", "qwen3-32b", "--shape", "train_4k", "--both-meshes"],
      {"qwen3-32b__train_4k__16x16": "ok", "qwen3-32b__train_4k__2x16x16": "ok"}),
-    ("repro_torch.launch.dryrun", ["--arch", "qwen2-moe-a2.7b", "--shape", "train_4k"],
-     {"qwen2-moe-a2.7b__train_4k__16x16": "error:A.10.12"}),
+    ("repro_torch.launch.dryrun", ["--arch", "qwen2-moe-a2.7b,whisper-base", "--shape", "train_4k,decode_32k"],
+     {"qwen2-moe-a2.7b__train_4k__16x16": "ok", "qwen2-moe-a2.7b__decode_32k__16x16": "ok",
+      "whisper-base__train_4k__16x16": "ok", "whisper-base__decode_32k__16x16": "ok"}),
+    ("repro_torch.launch.dryrun", ["--arch", "llama-3.2-vision-11b,mamba2-1.3b", "--shape",
+                                   "train_4k,decode_32k"],
+     {"llama-3.2-vision-11b__train_4k__16x16": "ok", "llama-3.2-vision-11b__decode_32k__16x16": "ok",
+      "mamba2-1.3b__train_4k__16x16": "error:A.10.12", "mamba2-1.3b__decode_32k__16x16": "error:A.10.12"}),
+    ("repro_torch.launch.dryrun", ["--arch", "deepseek-v3-671b", "--shape", "train_4k"],
+     {"deepseek-v3-671b__train_4k__16x16": "ok"}),
+    ("repro_torch.launch.dryrun", ["--arch", "deepseek-v3-671b", "--shape", "train_4k", "--multi-pod"],
+     {"deepseek-v3-671b__train_4k__2x16x16": "ok"}),
+    ("repro_torch.launch.dryrun", ["--arch", "deepseek-v3-671b", "--shape", "decode_32k"],
+     {"deepseek-v3-671b__decode_32k__16x16": "ok"}),
     ("repro_torch.launch.dryrun_mate", ["--shape", "filter_1g", "--impl", "broadcast", "--build-shards", "4"],
      {"mate-filter__filter_1g-broadcast__16x16": "ok", "mate-filter__filter_1g-broadcast__2x16x16": "ok"}),
 )
@@ -2302,24 +2365,24 @@ def float32_activations():
     of ``tests/test_torch_families.py``."""
     from repro_torch.models import transformer
 
-    saved = (transformer._embed, transformer._encode.__defaults__,
+    saved = (transformer._embed.__defaults__, transformer._encode.__defaults__,
              transformer.init_cache.__defaults__)
-    transformer._embed = lambda p, t: p["embed"].float()[t]
+    transformer._embed.__defaults__ = (torch.float32,)  # the vocab-parallel lookup kept over a mesh
     transformer._encode.__defaults__ = (torch.float32,)
     transformer.init_cache.__defaults__ = (torch.float32, 0, None)
     try:
         yield
     finally:
-        (transformer._embed, transformer._encode.__defaults__,
+        (transformer._embed.__defaults__, transformer._encode.__defaults__,
          transformer.init_cache.__defaults__) = saved
 
 
-def _to_float32(tree: dict, in_place: bool) -> dict:
-    """A float32 copy of a parameter tree; ``in_place`` swaps each leaf in
-    ``tree`` itself, so that its bf16 copy is freed as the next is made."""
+def cast_tree(tree: dict, dtype, in_place: bool) -> dict:
+    """A ``dtype`` copy of a parameter tree; ``in_place`` swaps each leaf in
+    ``tree`` itself, so that its old copy is freed as the next is made."""
     out = tree if in_place else {}
     for k, v in tree.items():
-        out[k] = _to_float32(v, in_place) if isinstance(v, dict) else v.float()
+        out[k] = cast_tree(v, dtype, in_place) if isinstance(v, dict) else v.to(dtype)
     return out
 
 
@@ -2406,7 +2469,7 @@ def family_consistency(cfg, params: dict, rng, dev) -> list[dict]:
         if kind in ("block", "served block"):
             gc.collect()
             torch.cuda.empty_cache()
-            p32 = _to_float32(cut, in_place=kind == "served block")
+            p32 = cast_tree(cut, torch.float32, in_place=kind == "served block")
             extra32 = {k: v.float() for k, v in extra.items()}
             with float32_activations():
                 f32 = _consistency(TransformerLM(cut_cfg, p32), tokens, s, extra32)
@@ -2793,7 +2856,8 @@ def _rank_timing(report: dict, tokens_per_step: int) -> dict:
 
 
 def train_mesh_phase(seed, extra=(), device="cuda:0") -> dict[str, int]:
-    """``launch.train.run`` (``main``'s work) at full-width qwen1.5-0.5b with
+    """``launch.train.run`` (``main``'s work) at qwen1.5-0.5b's published
+    widths, cut to ``TRAIN_MESH_LAYERS`` layers (``--layers``), with
     ``--mesh TRAIN_MESH``: 4 gloo ranks on the one card (FSDP over 'data',
     tensor parallel over 'model', B.6 on each rank's 8 of 16 heads), a
     checkpoint every ``TRAIN_MESH_CKPT`` steps; then ``--mesh 1x1``, and
@@ -2804,9 +2868,9 @@ def train_mesh_phase(seed, extra=(), device="cuda:0") -> dict[str, int]:
     explodes (gradient norm ~1e12, ROADMAP C.18): there one bf16 ulp on
     one weight moves the first step's gradient norm by 30%, and the mesh
     run's parts from 1x1's by 40% (``tools/train_ulp_witness.py``).  Held: every
-    rank's parameters and moments on the card; 48 B.6 launches per rank
-    per step (24 layers, forward and remat recompute), all at [4, 512, 8,
-    64]; the first step's loss and gradient norm within ``TRAIN_MESH_REL``
+    rank's parameters and moments on the card; 2 B.6 launches per rank,
+    layer and step (forward and remat recompute), all at [4, 512, 8, 64];
+    the first step's loss and gradient norm within ``TRAIN_MESH_REL``
     of 1x1's; the resumed losses within ``TRAIN_MESH_REL`` of the mesh
     run's.  Printed, not held: ms per step, tokens/s, peak GB and the
     collectives' share, per rank.  The line is printed before a failed
@@ -2814,6 +2878,7 @@ def train_mesh_phase(seed, extra=(), device="cuda:0") -> dict[str, int]:
     import shutil
     import tempfile
 
+    from repro_torch import configs
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.launch import train as train_launch
     from repro_torch.models import params as params_lib, transformer
@@ -2821,7 +2886,7 @@ def train_mesh_phase(seed, extra=(), device="cuda:0") -> dict[str, int]:
 
     argv = ["--arch", SERVE_ARCH, "--seq-len", str(TRAIN_MESH_SEQ), "--global-batch", str(TRAIN_MESH_BATCH),
             "--steps", str(TRAIN_MESH_STEPS), "--ckpt-every", str(TRAIN_MESH_CKPT), "--log-every", "1",
-            "--seed", str(seed), *extra]
+            "--seed", str(seed), "--layers", str(TRAIN_MESH_LAYERS), *extra]
     cfg = train_launch._config(train_launch.parse_args(argv))
     d, m = (int(x) for x in TRAIN_MESH.split("x"))
     total, runs = collections.Counter(), {}
@@ -2879,6 +2944,7 @@ def train_mesh_phase(seed, extra=(), device="cuda:0") -> dict[str, int]:
     launches = {name: int(total[name]) for name in counters()}
     launches["flash_attention"] += sum(r["b6_total"] for r in ranks)
     emit({"phase": "train_mesh", "gpu": nvidia_smi(), "arch": cfg.name, "mesh": TRAIN_MESH,
+          "layers": f"{cfg.n_layers} of {configs.get_config(SERVE_ARCH).n_layers}",
           "argv": argv + ["--mesh", TRAIN_MESH, "--ckpt-dir", "<tmp: the conditioned step 0>"],
           "losses": full["losses"], "grad_norm": full["grad_norm"], "losses_1x1": single["losses"],
           "grad_norm_1x1": single["grad_norm"], "first_step_rel": first, "resumed_losses": resumed["losses"],
@@ -3001,26 +3067,91 @@ def pipeline_phase(seed, devices=None, device="cuda:0") -> dict[str, int]:
     return launches
 
 
-def serve_mesh_rank(mesh, arch: str, seed: int, tokens: np.ndarray, forced: np.ndarray) -> dict:
-    """One rank of the ``serve_mesh`` phase: ``arch`` at full width drawn
-    from ``seed`` (attention projections rescaled, ``conditioned``) on this
-    rank's card, its shards under the training placement,
-    ``transformer.prefill`` of its rows of ``tokens`` and a decode step for
-    each row of ``forced`` (the 1x1 run's greedy tokens).  Returns the
-    logits (ranks at model coordinate 0: every model rank holds the same
-    gathered logits), the B.6 launches of the prefill, the cache leaves'
-    devices and shapes against their placements, and host-clock times."""
-    from repro_torch import configs
+def global_cache(cfg, tokens: np.ndarray, forced: np.ndarray) -> dict:
+    """The shapes of the whole cache that ``serve_on_mesh`` fills (meta
+    tensors; made with activation sharding off)."""
+    from repro_torch.models import transformer
+
+    return transformer.init_cache(cfg, tokens.shape[0], tokens.shape[1] + forced.shape[0],
+                                  enc_len=transformer._enc_len(cfg), device="meta")
+
+
+def serve_on_mesh(mesh, cfg, local: dict, tokens: np.ndarray, forced: np.ndarray, whole: dict,
+                  extra=None) -> dict:
+    """This rank's part of serving ``cfg`` over ``mesh`` (activation
+    sharding on): ``transformer.prefill`` of its rows of ``tokens`` (and of
+    ``extra``, whisper's frames / the VLM's patches of the global batch)
+    from its shards ``local``, then a decode step for each row of
+    ``forced`` (the 1x1 run's greedy tokens).  Returns the logits (ranks at
+    model coordinate 0: every model rank holds the same gathered logits),
+    the B.6 launches of the prefill, the cache leaves' devices and shapes
+    against their placements in ``whole`` (``global_cache``), and
+    host-clock times."""
     from repro_torch.kernels import flash_kernel as flk
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import transformer
+    from repro_torch.train import sharding
+
+    dev = mesh.device
+    max_seq = tokens.shape[1] + forced.shape[0]
+    ba = meshlib.batch_axes(mesh)
+    share = tokens.shape[0] // mesh.axis_size(ba)
+    lo = mesh.axis_index(ba) * share
+    rows = slice(lo, lo + share)
+    keep = mesh.coords["model"] == 0
+    out = {"rank": mesh.rank, "coords": mesh.coords, "rows": (lo, lo + share), "logits": [],
+           "decode_ms": [], "argmax": []}
+    with torch.inference_mode():
+        tok = torch.from_numpy(tokens[rows]).to(dev, torch.long)
+        kw = {k: v[rows] for k, v in (extra or {}).items()}
+        torch.cuda.synchronize(dev)
+        flk.flash_attention.launches, comm, t = 0, sharding.COMM["seconds"], time.perf_counter()
+        logits, cache = transformer.prefill(local, cfg, tok, max_seq, **kw)
+        torch.cuda.synchronize(dev)
+        out["prefill_ms"] = 1e3 * (time.perf_counter() - t)
+        out["b6_prefill"] = flk.flash_attention.launches
+        bad = []
+        for plan, sub in cache.specs.items():
+            for name, leaves in sub.items():
+                for leaf, spec in leaves.items():
+                    t_, g = cache[plan][name][leaf], whole[plan][name][leaf]
+                    want = tuple(n // (mesh.axis_size(e) if e is not None else 1) for n, e in zip(g.shape, spec))
+                    if t_.device != dev or tuple(t_.shape) != want:
+                        bad.append(f"{plan}.{name}.{leaf}: {tuple(t_.shape)} on {t_.device}, want {want}")
+        out["cache_bad"] = bad
+        out["cache_specs"] = {f"{p}.{n}.{k}": list(v) for p, sub in cache.specs.items()
+                              for n, leaves in sub.items() for k, v in leaves.items()}
+        for step in range(forced.shape[0] + 1):
+            out["argmax"].append(logits.argmax(dim=-1).cpu().tolist())
+            if keep:
+                out["logits"].append(logits.float().cpu().numpy())
+            if step == forced.shape[0]:
+                break
+            nxt = torch.from_numpy(forced[step][rows]).to(dev, torch.long)
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            logits, cache = transformer.decode_step(local, cfg, nxt, cache)
+            torch.cuda.synchronize(dev)
+            out["decode_ms"].append(1e3 * (time.perf_counter() - t))
+        out["comm_s"] = sharding.COMM["seconds"] - comm
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def serve_mesh_rank(mesh, arch: str, seed: int, tokens: np.ndarray, forced: np.ndarray, n_layers: int) -> dict:
+    """One rank of the ``serve_mesh`` phase: ``arch`` at its published
+    widths, cut to ``n_layers``, drawn from ``seed`` (attention projections
+    rescaled, ``conditioned``) on this rank's card, its shards under the
+    training placement, served by ``serve_on_mesh``."""
+    from repro_torch import configs
     from repro_torch.launch import mesh as meshlib
     from repro_torch.models import layers, params as params_lib, transformer
     from repro_torch.train import sharding
 
     dev = mesh.device
-    cfg = configs.get_config(arch)
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=n_layers)
     specs = transformer.model_specs(cfg)
-    max_seq = tokens.shape[1] + forced.shape[0]
-    whole = transformer.init_cache(cfg, tokens.shape[0], max_seq, device="meta")  # the global shapes
+    whole = global_cache(cfg, tokens, forced)
     full = params_lib.materialize(specs, seed, device=dev)
     conditioned(specs, full)
     layers.enable_activation_sharding(mesh, vocab_size=cfg.vocab_size)
@@ -3029,63 +3160,41 @@ def serve_mesh_rank(mesh, arch: str, seed: int, tokens: np.ndarray, forced: np.n
         local = sharding.local_tree(full, place, mesh)
         del full
         torch.cuda.empty_cache()
-        ba = meshlib.batch_axes(mesh)
-        share = tokens.shape[0] // mesh.axis_size(ba)
-        lo = mesh.axis_index(ba) * share
-        rows = slice(lo, lo + share)
-        keep = mesh.coords["model"] == 0
-        out = {"rank": mesh.rank, "coords": mesh.coords, "rows": (lo, lo + share), "logits": [],
-               "decode_ms": [], "argmax": []}
-        with torch.inference_mode():
-            tok = torch.from_numpy(tokens[rows]).to(dev, torch.long)
-            torch.cuda.synchronize(dev)
-            flk.flash_attention.launches, comm, t = 0, sharding.COMM["seconds"], time.perf_counter()
-            logits, cache = transformer.prefill(local, cfg, tok, max_seq)
-            torch.cuda.synchronize(dev)
-            out["prefill_ms"] = 1e3 * (time.perf_counter() - t)
-            out["b6_prefill"] = flk.flash_attention.launches
-            bad = []
-            for plan, sub in cache.specs.items():
-                for name, leaves in sub.items():
-                    for leaf, spec in leaves.items():
-                        t_, g = cache[plan][name][leaf], whole[plan][name][leaf]
-                        want = tuple(n // (mesh.axis_size(e) if e is not None else 1) for n, e in zip(g.shape, spec))
-                        if t_.device != dev or tuple(t_.shape) != want:
-                            bad.append(f"{plan}.{name}.{leaf}: {tuple(t_.shape)} on {t_.device}, want {want}")
-            out["cache_bad"] = bad
-            out["cache_specs"] = {f"{p}.{n}.{k}": list(v) for p, sub in cache.specs.items()
-                                  for n, leaves in sub.items() for k, v in leaves.items()}
-            for step in range(forced.shape[0] + 1):
-                out["argmax"].append(logits.argmax(dim=-1).cpu().tolist())
-                if keep:
-                    out["logits"].append(logits.float().cpu().numpy())
-                if step == forced.shape[0]:
-                    break
-                nxt = torch.from_numpy(forced[step][rows]).to(dev, torch.long)
-                torch.cuda.synchronize(dev)
-                t = time.perf_counter()
-                logits, cache = transformer.decode_step(local, cfg, nxt, cache)
-                torch.cuda.synchronize(dev)
-                out["decode_ms"].append(1e3 * (time.perf_counter() - t))
-            out["comm_s"] = sharding.COMM["seconds"] - comm
-        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-        return out
+        return serve_on_mesh(mesh, cfg, local, tokens, forced, whole)
     finally:
         layers.disable_activation_sharding()
+
+
+def serve_mesh_ranks(mesh, groups: list) -> list[dict]:
+    """One rank of the ``serve_mesh`` phase: for each ``(arch, grid, *args)``
+    of ``groups`` in turn, ``serve_mesh_rank`` on its ``GridMesh`` over this
+    world (one spawn for every group; each group's seconds in
+    'group_s')."""
+    from repro_torch.launch import mesh as meshlib
+
+    out = []
+    for arch, grid, *args in groups:
+        t = time.perf_counter()
+        out.append(serve_mesh_rank(meshlib.grid_mesh(mesh, grid), arch, *args))
+        out[-1]["group_s"] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def serve_mesh_phase(seed, device="cuda:0") -> dict[str, int]:
     """Prefill and decode over a mesh (``SERVE_MESH``): for each dense
     decoder, ``SERVE_MESH_B`` prompts of ``SERVE_MESH_S`` tokens drawn from
     ``seed`` and ``SERVE_MESH_NEW`` greedy decode steps at 1x1 in this
-    process (full width, random weights from ``seed`` with the attention
-    projections rescaled, ``conditioned``), then the same prefill and the
-    same decode tokens on 4 gloo ranks on the one card, one configuration
-    after the other, so no rank's host-clock times carry another group's
-    load (``serve_mesh_rank``: this rank's shards and rows, the cache
+    process (published widths, cut to ``SERVE_MESH_LAYERS`` layers, random
+    weights from ``seed`` with the attention projections rescaled,
+    ``conditioned``), then the same prefill and the
+    same decode tokens on 4 gloo ranks on the one card (one spawn), one
+    configuration after the other, so no rank's host-clock times carry
+    another group's load (``serve_mesh_rank``: this rank's shards and rows, the cache
     placed by ``cache_pspec_for``).  Held: prefill's last-token logits and every
     decode step's within ``SERVE_MESH_TOL`` of max|logit| of the 1x1 run;
-    B.6 launches per rank per prefill equal to the layer count; every cache
+    B.6 launches per rank per prefill equal to the layers kept; every cache
     leaf on cuda:0 at its local shape.  Printed, not held: the greedy
     tokens against 1x1's (near ties may flip), prefill and decode ms per
     rank, the collectives' share.  The line is printed before a failed
@@ -3098,36 +3207,25 @@ def serve_mesh_phase(seed, device="cuda:0") -> dict[str, int]:
     launches = {name: 0 for name in counters()}
     rows, failed, refs = [], [], {}
     for arch, _grid in SERVE_MESH:  # the 1x1 references first, outside the path's window
-        cfg = configs.get_config(arch)
+        cfg = dataclasses.replace(configs.get_config(arch), n_layers=SERVE_MESH_LAYERS)
         specs = transformer.model_specs(cfg)
         tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(SERVE_MESH_B, SERVE_MESH_S))
         weights = params_lib.materialize(specs, seed, device=dev)
         conditioned(specs, weights)
-        single, forced = [], []
         t = time.perf_counter()
-        with torch.inference_mode():
-            logits, cache = transformer.prefill(weights, cfg, torch.from_numpy(tokens).to(dev),
-                                                SERVE_MESH_S + SERVE_MESH_NEW)
-            for step in range(SERVE_MESH_NEW + 1):
-                single.append(logits.float().cpu().numpy())
-                if step == SERVE_MESH_NEW:
-                    break
-                nxt = logits.argmax(dim=-1)
-                forced.append(nxt.cpu().numpy())
-                logits, cache = transformer.decode_step(weights, cfg, nxt, cache)
-        refs[arch] = (tokens, single, np.stack(forced), time.perf_counter() - t)
-        del weights, cache, logits
+        single, forced = serve_single(cfg, weights, tokens, {}, SERVE_MESH_NEW, dev)
+        refs[arch] = (tokens, single, forced, time.perf_counter() - t)
+        del weights
         torch.cuda.empty_cache()
-    results, wall = {}, {}
+    t = time.perf_counter()
+    groups = [(arch, grid, seed, refs[arch][0], refs[arch][2], SERVE_MESH_LAYERS) for arch, grid in SERVE_MESH]
+    ranks = meshlib.run_ranks(serve_mesh_ranks, SERVE_MESH_RANKS, backend="gloo", devices=[device] * SERVE_MESH_RANKS,
+                              args=(groups,), timeout_s=TRAIN_MESH_TIMEOUT_S)
+    ranks_wall = time.perf_counter() - t
+    results = {arch: [r[i] for r in ranks] for i, (arch, _grid) in enumerate(SERVE_MESH)}
+    wall = {arch: max(r["group_s"] for r in results[arch]) for arch, _grid in SERVE_MESH}
     for arch, grid in SERVE_MESH:
-        t = time.perf_counter()
-        results[arch] = meshlib.run_ranks(serve_mesh_rank, math.prod(grid.values()), backend="gloo",
-                                          devices=[device] * math.prod(grid.values()),
-                                          args=(arch, seed, refs[arch][0], refs[arch][2]), grid=grid,
-                                          timeout_s=TRAIN_MESH_TIMEOUT_S)
-        wall[arch] = time.perf_counter() - t
-    for arch, grid in SERVE_MESH:
-        cfg = configs.get_config(arch)
+        cfg = dataclasses.replace(configs.get_config(arch), n_layers=SERVE_MESH_LAYERS)
         ranks, (_tokens, single, _forced, single_s) = results[arch], refs[arch]
         gaps, greedy_equal = [], True
         for r in ranks:
@@ -3146,7 +3244,8 @@ def serve_mesh_phase(seed, device="cuda:0") -> dict[str, int]:
         if not gaps or max(gaps) > SERVE_MESH_TOL:
             failed.append(f"{arch} {grid}: logits gap {max(gaps, default=None)} against 1x1, bound {SERVE_MESH_TOL}")
         rows.append({
-            "arch": arch, "grid": grid, "layers": cfg.n_layers, "kv_heads": cfg.n_kv_heads,
+            "arch": arch, "grid": grid, "layers": f"{cfg.n_layers} of {configs.get_config(arch).n_layers}",
+            "kv_heads": cfg.n_kv_heads,
             "tokens": [SERVE_MESH_B, SERVE_MESH_S], "new": SERVE_MESH_NEW,
             "cache_k_spec": ranks[0]["cache_specs"]["layers.s0.k"],
             "max_gap": max(gaps, default=None), "gap_per_step": gaps[: SERVE_MESH_NEW + 1],
@@ -3156,13 +3255,352 @@ def serve_mesh_phase(seed, device="cuda:0") -> dict[str, int]:
                        "decode_ms_median": _median(r["decode_ms"]),
                        "comm_share": r["comm_s"] / ((r["prefill_ms"] + sum(r["decode_ms"])) / 1e3),
                        "peak_gb": r["peak_gb"]} for r in ranks],
-            "single_s": single_s, "ranks_wall_s": wall[arch],
+            "single_s": single_s, "group_s": wall[arch],
         })
-    emit({"phase": "serve_mesh", "gpu": nvidia_smi(), "configs": rows, "launches": launches,
-          "failed": failed})
+    emit({"phase": "serve_mesh", "gpu": nvidia_smi(), "configs": rows, "ranks_wall_s": ranks_wall,
+          "launches": launches, "failed": failed})
     if failed:
         raise AssertionError(f"serve_mesh: {failed}")
     check_counts(launches, ("flash_attention",), "serve_mesh path")
+    return launches
+
+
+def family_mesh_cfg(arch: str):
+    """``arch`` at its published widths cut to the fewest layers that hold
+    every kind of its sublayers: qwen2-moe 2 MoE layers; the VLM one block
+    of [self, cross] (``family_cut``'s 2-sublayer block); whisper whole (6
+    encoder + 6 decoder layers); deepseek-v3 1 dense + 1 MoE layer and its
+    MTP module."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    if cfg.vision is not None:
+        return dataclasses.replace(cfg, n_layers=2, vision=dataclasses.replace(cfg.vision, cross_attn_every=2))
+    if cfg.encoder is not None:
+        return cfg
+    if cfg.moe is not None and cfg.moe.first_dense:
+        return dataclasses.replace(cfg, n_layers=2, moe=dataclasses.replace(cfg.moe, first_dense=1))
+    return dataclasses.replace(cfg, n_layers=2)
+
+
+def draw_shards(cfg, seed: int, dev, mesh=None, place=None, turns: bool = False) -> dict:
+    """``cfg``'s weights — the numbers of ``params.materialize(specs, seed)``
+    with the attention projections rescaled (``conditioned``) — whole, or
+    this rank's shards under ``place`` on ``mesh``: drawn leaf by leaf in
+    materialize's order from its generator, each leaf sliced to this rank's
+    shard before the next is drawn, so the peak is one whole leaf.  With
+    ``turns`` the ranks draw one after the other (a barrier over the world
+    between turns)."""
+    import torch.distributed as dist
+
+    from repro_torch.models import params as params_lib, transformer
+    from repro_torch.train import sharding
+
+    specs = transformer.model_specs(cfg)
+
+    def draw():
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def go(spec, pl):
+            if isinstance(spec, dict):
+                return {k: go(spec[k], None if pl is None else pl[k]) for k in sorted(spec)}
+            full = params_lib._init_tensor(spec, gen, torch.bfloat16, dev)
+            conditioned(spec, full)
+            return full if pl is None else sharding.shard_of(full, pl, mesh)
+
+        return go(specs, place)
+
+    if not turns:
+        return draw()
+    local = None
+    world = mesh.group(tuple(mesh.axis_names))
+    for turn in range(mesh.size):
+        if mesh.rank == turn:
+            local = draw()
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+        dist.barrier(group=world)
+    return local
+
+
+def serve_single(cfg, weights: dict, tokens: np.ndarray, extra: dict, n_new: int, dev):
+    """Prefill of ``tokens`` and ``n_new`` greedy decode steps on one
+    process: (the logits of every step as numpy, the greedy tokens fed
+    [n_new, B])."""
+    from repro_torch.models import transformer
+
+    single, forced = [], []
+    with torch.inference_mode():
+        logits, cache = transformer.prefill(weights, cfg, torch.from_numpy(tokens).to(dev),
+                                            tokens.shape[1] + n_new, **extra)
+        for step in range(n_new + 1):
+            single.append(logits.float().cpu().numpy())
+            if step == n_new:
+                break
+            nxt = logits.argmax(dim=-1)
+            forced.append(nxt.cpu().numpy())
+            logits, cache = transformer.decode_step(weights, cfg, nxt, cache)
+    return single, np.stack(forced)
+
+
+def train_family(cfg, params: dict, dev, seed: int, no_opt: bool, mesh=None, place=None, extra=None) -> dict:
+    """``FMESH_STEPS`` AdamW steps of ``launch.train``'s loop on this
+    rank's rows of [FMESH_B, FMESH_S] batches (one step without the update
+    where ``no_opt``), from ``params`` (updated in place), on one process or
+    this rank of ``mesh``.  Returns the losses, gradient norms, ms per step
+    (host clock, ending in a sync), the seconds in collectives per step,
+    B.6 launches per step and the peak GB of the steps."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import flash_kernel as flk
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.train import optimizer as opt, sharding, step as step_lib
+
+    tcfg = step_lib.TrainConfig(adamw=opt.AdamWConfig(warmup_steps=1, total_steps=FMESH_STEPS),
+                                ce_chunk=min(1024, FMESH_S))
+    rows = slice(0, FMESH_B)
+    if mesh is not None:
+        ba = meshlib.batch_axes(mesh)
+        share = FMESH_B // mesh.axis_size(ba)
+        rows = slice(mesh.axis_index(ba) * share, (mesh.axis_index(ba) + 1) * share)
+    data = TokenPipeline(DataConfig(FMESH_S, FMESH_B, cfg.vocab_size, seed))
+    if no_opt:
+        grad_step = step_lib.make_grad_step(cfg, tcfg, mesh, place)
+    else:
+        train_step, state = step_lib.make_train_step(cfg, tcfg, mesh, place), opt.init_state(params, tcfg.adamw)
+    out = {"losses": [], "grad_norm": [], "ms": [], "comm_s": [], "b6_launches": []}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for step in range(1 if no_opt else FMESH_STEPS):
+        batch = {k: torch.from_numpy(v[rows]).to(dev, torch.long) for k, v in data.batch(step).items()}
+        batch.update({k: v[rows] for k, v in (extra or {}).items()})
+        launches, comm, t = flk.flash_attention.launches, sharding.COMM["seconds"], time.perf_counter()
+        if no_opt:
+            _grads, norm, metrics = grad_step(params, batch)
+        else:
+            params, state, metrics = train_step(params, state, batch)
+            norm = metrics["grad_norm"]
+        out["losses"].append(float(metrics["loss"]))  # ends in a sync
+        out["grad_norm"].append(float(norm))
+        out["ms"].append(1e3 * (time.perf_counter() - t))
+        out["comm_s"].append(sharding.COMM["seconds"] - comm)
+        out["b6_launches"].append(flk.flash_attention.launches - launches)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    for p in opt.leaves(params):
+        p.grad = None
+        p.requires_grad_(False)
+    return out
+
+
+def families_mesh_single(_mesh, seed: int) -> dict:
+    """The 1x1 comparator of every ``FAMILIES_MESH`` group, in a process of
+    its own (one rank of a one-rank group): each cut model drawn whole from
+    ``seed`` (``materialize``, ``conditioned``), served (``serve_single``:
+    the logits and the greedy tokens the ranks will feed) and trained
+    (``train_family``), then freed before the next."""
+    from repro_torch.data.pipeline import stub_inputs
+
+    dev = _mesh.device
+    out = {}
+    for arch, _grid in FAMILIES_MESH:
+        cfg = family_mesh_cfg(arch)
+        weights = cast_tree(draw_shards(cfg, seed, dev), torch.float32, True)  # served in float32, the bf16 draw's values
+        extra = stub_inputs(cfg, FMESH_B, device=dev)
+        tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(FMESH_B, FMESH_S))
+        t = time.perf_counter()
+        with float32_activations():
+            single, forced = serve_single(cfg, weights, tokens, extra, FMESH_NEW, dev)
+        serve_s = time.perf_counter() - t
+        cast_tree(weights, torch.bfloat16, True)  # exact: the values came from bf16
+        torch.cuda.empty_cache()
+        train = train_family(cfg, weights, dev, seed, arch in FMESH_NO_OPT, extra=extra)
+        out[arch] = {"tokens": tokens, "logits": single, "forced": forced, "serve_s": serve_s, "train": train}
+        del weights, extra
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def families_mesh_ranks(mesh, seed: int, refs: dict) -> list[dict]:
+    """One rank of the ``families_mesh`` phase: for each group of
+    ``FAMILIES_MESH`` in turn, its ``GridMesh`` over this world, this rank's
+    shards drawn (``draw_shards``), served (``serve_on_mesh``: the 1x1 run's
+    prompts and greedy tokens, from the shards gathered over 'data' once,
+    so no call gathers weights) and trained (``train_family``).  Returns a
+    report per group: the serving report, the training report, the
+    experts this rank holds per MoE layer, and the peak GB of the draw."""
+    from repro_torch.data.pipeline import stub_inputs
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import layers, params as params_lib, transformer
+    from repro_torch.train import optimizer as opt, sharding
+
+    reports, grids = [], {}
+    for arch, grid in FAMILIES_MESH:
+        key = tuple(grid.items())
+        grid_mesh = grids[key] = grids.get(key) or meshlib.grid_mesh(mesh, grid)  # one set of groups a grid
+        dev = grid_mesh.device
+        cfg = family_mesh_cfg(arch)
+        whole = global_cache(cfg, refs[arch]["tokens"], refs[arch]["forced"])
+        torch.cuda.reset_peak_memory_stats(dev)
+        layers.enable_activation_sharding(grid_mesh, vocab_size=cfg.vocab_size)
+        try:
+            place = params_lib.validate_divisibility(transformer.model_specs(cfg), grid_mesh,
+                                                     meshlib.rules_for(grid_mesh))
+            t = time.perf_counter()
+            local = draw_shards(cfg, seed, dev, grid_mesh, place, arch in FMESH_TURNS)
+            draw = {"s": time.perf_counter() - t, "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+            experts = {plan: sub["s0"]["ffn"]["wi_gate"].shape[1] for plan, sub in local.items()
+                       if isinstance(sub, dict) and "ffn" in sub.get("s0", {}) and "router" in sub["s0"]["ffn"]}
+            extra = stub_inputs(cfg, FMESH_B, device=dev)
+            t = time.perf_counter()
+            if grid_mesh.shape["data"] > 1:  # gathered over 'data' once (bf16): prefill and decode gather nothing
+                with torch.no_grad():
+                    served_params = cast_tree(sharding.gather_tree(local, place, grid_mesh), torch.float32, True)
+            else:  # nothing to gather: the shards themselves, in float32 for serving and back after
+                served_params = cast_tree(local, torch.float32, True)
+            draw["gather_s"] = time.perf_counter() - t
+            with float32_activations():
+                served = serve_on_mesh(grid_mesh, cfg, served_params, refs[arch]["tokens"], refs[arch]["forced"],
+                                       whole, extra)
+            del served_params
+            cast_tree(local, torch.bfloat16, True)  # exact: the values came from bf16
+            torch.cuda.empty_cache()
+            train = train_family(cfg, local, dev, seed, arch in FMESH_NO_OPT, grid_mesh, place, extra)
+            reports.append({"arch": arch, "grid": grid, "draw": draw, "serve": served, "train": train,
+                            "experts": experts,
+                            "devices": sorted({str(t_.device) for t_ in opt.leaves(local)})})
+            del local, extra
+        finally:
+            layers.disable_activation_sharding()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return reports
+
+
+class FamilyRefs:
+    """The 1x1 runs of ``families_mesh`` (``families_mesh_single``) in a
+    process of their own, spawned from a thread: ``main`` starts them right
+    after the kernel build, beside the lake's draw (they need the card and
+    one host core, and nothing is timed there), and waits for them with
+    the dry runs, before the kernel phase.  ``get`` returns their results
+    (waiting if need be); ``wall_s`` is their seconds from the start."""
+
+    def __init__(self, seed: int, device: str = "cuda:0"):
+        import threading
+
+        self.t0, self.result, self.error, self.wall_s = time.perf_counter(), None, None, None
+        self.thread = threading.Thread(target=self._run, args=(seed, device), daemon=True)
+        self.thread.start()
+
+    def _run(self, seed: int, device: str) -> None:
+        from repro_torch.launch import mesh as meshlib
+
+        try:
+            (self.result,) = meshlib.run_ranks(families_mesh_single, 1, backend="gloo", devices=[device],
+                                               args=(seed,), timeout_s=TRAIN_MESH_TIMEOUT_S, env=FMESH_ENV)
+        except Exception as e:  # handed to the caller of get
+            self.error = e
+        self.wall_s = time.perf_counter() - self.t0
+
+    def get(self) -> dict:
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+
+def families_mesh_phase(seed, refs: FamilyRefs | None = None, device="cuda:0") -> dict[str, int]:
+    """Tensor and expert parallelism for the attention-based families
+    (``FAMILIES_MESH``): each cut model's 1x1 run first, in a process of
+    its own (``FamilyRefs``: started beside the lake's draw by ``main``,
+    here when none is given), then 4 gloo ranks on the one card take the
+    groups one after the other (``families_mesh_ranks``).  Held, per group:
+    prefill's and every decode step's logits (float32) within
+    ``SERVE_MESH_TOL`` of max|logit| of 1x1's; the first training step's
+    loss and gradient norm within ``TRAIN_MESH_REL`` of 1x1's; B.6 launches
+    per rank per prefill equal to the plan (``flash_per_prefill``); every
+    cache leaf and parameter shard on the card, each cache leaf at its
+    shard's shape; E/M experts a rank on every MoE layer where M divides
+    E.  Printed per rank: the draw's seconds and peak GB, prefill ms,
+    decode ms (median), ms per step, the collectives' share of serving and
+    of a step, the steps' peak GB.  The path's B.6 launches are the
+    ranks' own, from each group's prefill, decode and steps.  The line is
+    printed before a failed check raises."""
+    from repro_torch import configs
+    from repro_torch.launch import mesh as meshlib
+
+    refs = refs or FamilyRefs(seed, device)
+    gc.collect()
+    torch.cuda.empty_cache()  # this process's cached blocks, before 4 ranks share the card
+    parent_gb = torch.cuda.memory_allocated(torch.device(device)) / 1e9
+    results = refs.get()
+    t = time.perf_counter()
+    ranks = meshlib.run_ranks(families_mesh_ranks, 4, backend="gloo", devices=[device] * 4, args=(seed, results),
+                              timeout_s=TRAIN_MESH_TIMEOUT_S, env=FMESH_ENV)
+    ranks_s = time.perf_counter() - t
+    launches = {name: 0 for name in counters()}
+    failed, rows = [], []
+    for g, (arch, grid) in enumerate(FAMILIES_MESH):
+        cfg, ref = family_mesh_cfg(arch), results[arch]
+        group = [r[g] for r in ranks]
+        want_b6 = flash_per_prefill(cfg)
+        m = grid["model"]
+        gaps, by_rank = [], {}
+        for r in group:
+            sv, tr = r["serve"], r["train"]
+            lo, hi = sv["rows"]
+            for step, got in enumerate(sv["logits"]):
+                want = ref["logits"][step]
+                gaps.append(float(np.max(np.abs(got - want[lo:hi]))) / float(np.max(np.abs(want))))
+                by_rank[sv["rank"]] = max(by_rank.get(sv["rank"], 0.0), gaps[-1])
+            if sv["b6_prefill"] != want_b6:
+                failed.append(f"{arch} rank {sv['rank']}: {sv['b6_prefill']} B.6 launches per prefill,"
+                              f" expected {want_b6}")
+            if sv["cache_bad"] or r["devices"] != [device]:
+                failed.append(f"{arch} rank {sv['rank']}: cache leaves {sv['cache_bad']}, shards on {r['devices']}")
+            if cfg.moe is not None and cfg.moe.n_routed % m == 0 and set(r["experts"].values()) != {
+                    cfg.moe.n_routed // m}:
+                failed.append(f"{arch} rank {sv['rank']}: experts per MoE layer {r['experts']},"
+                              f" expected {cfg.moe.n_routed // m}")
+            launches["flash_attention"] += sv["b6_prefill"] + sum(tr["b6_launches"])
+        tr0, single = group[0]["train"], ref["train"]
+        first = {"loss": abs(tr0["losses"][0] - single["losses"][0]) / abs(single["losses"][0]),
+                 "grad_norm": abs(tr0["grad_norm"][0] - single["grad_norm"][0]) / abs(single["grad_norm"][0])}
+        if not gaps or max(gaps) > SERVE_MESH_TOL:
+            failed.append(f"{arch} {grid}: logits gap {max(gaps, default=None)} against 1x1, bound {SERVE_MESH_TOL}")
+        if not max(first.values()) <= TRAIN_MESH_REL:
+            failed.append(f"{arch} {grid}: first step against 1x1 {first}, bound {TRAIN_MESH_REL}")
+        if any(r["train"]["losses"] != tr0["losses"] for r in group):
+            failed.append(f"{arch}: the ranks' losses differ: {[r['train']['losses'] for r in group]}")
+        rows.append({
+            "arch": arch, "grid": grid, "layers": f"{cfg.n_layers} of {configs.get_config(arch).n_layers}",
+            "encoder_layers": cfg.encoder.n_layers if cfg.encoder is not None else None,
+            "mtp": cfg.mtp_depth, "experts_per_rank": group[0]["experts"],
+            "cache_specs": group[0]["serve"]["cache_specs"],
+            "tokens": [FMESH_B, FMESH_S], "new": FMESH_NEW, "max_gap": max(gaps, default=None),
+            "gap_per_step": gaps[: FMESH_NEW + 1], "max_gap_by_rank": by_rank, "serve_tolerance": SERVE_MESH_TOL,
+            "greedy_equal_1x1": all(a == np.argmax(ref["logits"][step][r["serve"]["rows"][0]:r["serve"]["rows"][1]],
+                                                   axis=-1).tolist()
+                                    for r in group for step, a in enumerate(r["serve"]["argmax"])),
+            "train_steps": len(tr0["losses"]), "optimizer": arch not in FMESH_NO_OPT,
+            "losses": tr0["losses"], "grad_norm": tr0["grad_norm"], "losses_1x1": single["losses"],
+            "grad_norm_1x1": single["grad_norm"], "first_step_rel": first, "train_tolerance": TRAIN_MESH_REL,
+            "b6_launches_per_prefill": [r["serve"]["b6_prefill"] for r in group], "b6_plan": want_b6,
+            "b6_launches_per_step": tr0["b6_launches"],
+            "ranks": [{"rank": r["serve"]["rank"], "coords": r["serve"]["coords"], "draw_s": r["draw"]["s"],
+                       "draw_peak_gb": r["draw"]["peak_gb"], "gather_s": r["draw"]["gather_s"],
+                       "prefill_ms": r["serve"]["prefill_ms"],
+                       "decode_ms_median": _median(r["serve"]["decode_ms"]),
+                       "serve_comm_share": r["serve"]["comm_s"] / (
+                           (r["serve"]["prefill_ms"] + sum(r["serve"]["decode_ms"])) / 1e3),
+                       "serve_peak_gb": r["serve"]["peak_gb"], "ms_per_step": r["train"]["ms"],
+                       "step_comm_share": sum(r["train"]["comm_s"]) / (sum(r["train"]["ms"]) / 1e3),
+                       "train_peak_gb": r["train"]["peak_gb"]} for r in group],
+            "single": {"serve_s": ref["serve_s"], "ms_per_step": single["ms"], "peak_gb": single["peak_gb"]},
+        })
+    emit({"phase": "families_mesh", "gpu": nvidia_smi(), "groups": rows, "single_wall_s": refs.wall_s,
+          "ranks_wall_s": ranks_s, "parent_allocated_gb": parent_gb, "launches": launches, "failed": failed})
+    if failed:
+        raise AssertionError(f"families_mesh: {failed}")
+    check_counts(launches, ("flash_attention",), "families_mesh path")
     return launches
 
 
@@ -3233,11 +3671,13 @@ def dryrun_phase(runs_started: DryRuns) -> dict[str, int]:
     waited for before the kernel phase (``DryRuns``): ``python -m
     repro_torch.launch.dryrun`` over
     qwen1.5-0.5b's four shapes at 16x16, qwen3-32b's train_4k at both
-    production meshes and qwen2-moe's train_4k, and ``python -m
+    production meshes, train_4k and decode_32k of the four families with
+    tensor and expert parallelism (deepseek-v3's train_4k at 2x16x16 too)
+    and mamba2's, and ``python -m
     repro_torch.launch.dryrun_mate`` with its sharded build on 4 gloo ranks
     on the card.  Each cell is rank 0's program traced on fake CUDA tensors
     at the production mesh: planned figures for an H100 cluster, not
-    timings.  Held: every expected cell's status (qwen2-moe's an error
+    timings.  Held: every expected cell's status (mamba2's an error
     naming ROADMAP A.10.12), no kernel launched in a cell
     (each cell's measured ``kernel_launches`` 0; the trace also raises on
     any), the build byte-identical and B.3 launched by its ranks.  The
@@ -3582,7 +4022,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-tables", type=int, default=20000, help="tables in the main path's lake")
     ap.add_argument("--seed", type=int, default=0, help="seed of the lake and the kernel inputs")
+    ap.add_argument("--only", default=None,
+                    help=f"comma list of phases to run alone after the build ({', '.join(ONLY_PHASES)}):"
+                         " their lines and wall times, no kernels line and no result line")
     args = ap.parse_args()
+    only = args.only.split(",") if args.only else None
+    if only and set(only) - set(ONLY_PHASES):
+        ap.error(f"--only takes {', '.join(ONLY_PHASES)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3603,14 +4049,24 @@ def main() -> int:
                          if "entry function" in ln or "registers" in ln or "spill" in ln],
               "sass_wgmma": sass_count(_build._lib_path(name), "HGMMA")})
 
-    dry = DryRuns()  # host-side traces: beside the lake's draw, waited for before the kernel phase
+    # host-side traces and the families' 1x1 runs: beside the lake's draw,
+    # waited for before the kernel phase
+    dry = DryRuns() if only is None or "dryrun" in only else None
+    refs = FamilyRefs(args.seed) if only is None else None
     try:
-        return _phases(args, dry)
+        if only:
+            for name in only:
+                t = time.perf_counter()
+                dryrun_phase(dry) if name == "dryrun" else ONLY_PHASES[name](args.seed)
+                emit({"phase": "only", "ran": name, "wall_s": time.perf_counter() - t})
+            return 0
+        return _phases(args, dry, refs)
     finally:
-        dry.stop()
+        if dry is not None:
+            dry.stop()
 
 
-def _phases(args, dry: DryRuns) -> int:
+def _phases(args, dry: DryRuns, refs: FamilyRefs) -> int:
     """``main``'s phases after the kernel build."""
     from repro_torch.data import synthetic
 
@@ -3629,6 +4085,7 @@ def _phases(args, dry: DryRuns) -> int:
           "cells": int((corpus.cell_value_ids >= 0).sum()), "wall_s": time.perf_counter() - t0})
 
     dry.wait()  # from here on, nothing timed shares the host or the card with them
+    refs.get()
     rows, lane_prefixes = kernel_phase(args.seed, corpus)
     flash_grad_phase(args.seed)
     from repro_torch.core.session import DiscoveryConfig, MateSession
@@ -3636,31 +4093,42 @@ def _phases(args, dry: DryRuns) -> int:
     from repro_torch.kernels import xash_kernel as xk
 
     # each path's own launches, counted from 0 around its calls
-    by_path = {}
+    by_path, walls = {}, {}
+
+    def run(name, fn, *a):
+        t = time.perf_counter()
+        out = by_path[name] = fn(*a)
+        walls[name] = time.perf_counter() - t
+        return out
+
     with record_shapes(fk, "gather_filter_table_counts", b2_shape) as b2_shapes, \
             record_shapes(xk, "xash_superkey", b3_shape) as b3_shapes, \
             record_shapes(fk, "filter_match", b4_shape) as b4_shapes:
+        t = time.perf_counter()
         by_path["main_path"], session = main_path_phase(corpus, truth, mixed, b2_shapes, b3_shapes,
                                                         b4_shapes)
-    by_path["ops_path"] = ops_phase(session, truth)
+        walls["main_path"] = time.perf_counter() - t
+    run("ops_path", ops_phase, session, truth)
     session256 = MateSession.build(corpus, DiscoveryConfig(bits=256))
-    by_path["lanes"] = lanes_phase({128: session, 256: session256}, truth, mixed, lane_prefixes)
+    run("lanes", lanes_phase, {128: session, 256: session256}, truth, mixed, lane_prefixes)
     del session256
-    by_path["fd"] = fd_phase(session, truth)
+    run("fd", fd_phase, session, truth)
     del session
-    by_path["routed"] = routed_phase(corpus, truth, mixed)
-    by_path["serving_tier"] = serving_phase(corpus, truth, mixed, args.seed)
-    by_path["serve"] = serve_phase(args.seed)
-    by_path["families"] = families_phase(args.seed)
-    by_path["train"] = train_phase(args.seed)
-    by_path["train_mesh"] = train_mesh_phase(args.seed)
-    by_path["pipeline"] = pipeline_phase(args.seed)
-    by_path["serve_mesh"] = serve_mesh_phase(args.seed)
-    by_path["dryrun"] = dryrun_phase(dry)
-    by_path["driver"] = driver_phase(args, lake_cells)
+    run("routed", routed_phase, corpus, truth, mixed)
+    run("serving_tier", serving_phase, corpus, truth, mixed, args.seed)
+    run("serve", serve_phase, args.seed)
+    run("families", families_phase, args.seed)
+    run("train", train_phase, args.seed)
+    run("train_mesh", train_mesh_phase, args.seed)
+    run("pipeline", pipeline_phase, args.seed)
+    run("serve_mesh", serve_mesh_phase, args.seed)
+    run("families_mesh", families_mesh_phase, args.seed, refs)
+    run("dryrun", dryrun_phase, dry)
+    run("driver", driver_phase, args, lake_cells)
     del lake_cells
-    by_path["conformance"] = conformance_phase()
-    by_path["examples"] = examples_phase()
+    run("conformance", conformance_phase)
+    run("examples", examples_phase)
+    emit({"phase": "timeline", "wall_s": walls, "since_corpus_s": time.perf_counter() - t0})
     # ``launches``: the count on the kernel's own path (HOME_PATH); every
     # path that launched it, with its own count, beside it
     for name, row in rows.items():
@@ -3672,6 +4140,11 @@ def _phases(args, dry: DryRuns) -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+# the phases ``--only`` runs alone: each needs the kernel build and nothing else
+ONLY_PHASES = {"train_mesh": train_mesh_phase, "pipeline": pipeline_phase, "serve_mesh": serve_mesh_phase,
+               "families_mesh": families_mesh_phase, "dryrun": None}
 
 
 if __name__ == "__main__":

@@ -49,14 +49,19 @@ What a cell records:
   * ``kernel_launches``: the launches the kernel wrappers counted during the
     trace, 0 in every record, since the trace raises on any.
 
-A cell that cannot run records ``error``: the MoE, SSM, hybrid, MLA and
-encoder-decoder families over the model axis (ROADMAP A.10.12), and each
-variant field the port does not honour, named with its item
-(``seq_shard=True``: A.10.13; ``state_dtype=int8`` over a mesh: A.10.15).
+The variant's ``moe_impl`` and ``moe_group`` are set on ``models.moe``
+for the trace (``MOE_IMPL``, ``MOE_GROUP_SIZE``), as the reference sets
+them, and whisper's frames and the VLM's patches are zero-filled inputs of
+rank 0's rows, as the reference's ``_extra_input_sds``.
 
-    PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch a] [--shape s]
-        [--multi-pod | --both-meshes] [--variant name --set k=v ...]
-        [--force] [--out-dir D]
+A cell that cannot run records ``error``: the SSM and hybrid families over
+the model axis (ROADMAP A.10.12), and each variant field the port does not
+honour, named with its item (``seq_shard=True``: A.10.13;
+``state_dtype=int8`` over a mesh: A.10.15).
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch a[,a2...]]
+        [--shape s[,s2...]] [--multi-pod | --both-meshes]
+        [--variant name --set k=v ...] [--force] [--out-dir D]
 """
 
 from __future__ import annotations
@@ -77,7 +82,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch import configs
 from repro_torch.configs.shapes import SHAPES, applicable
 from repro_torch.launch import hlo_cost, mesh as meshlib
-from repro_torch.models import layers, params as params_lib, transformer
+from repro_torch.models import layers, moe, params as params_lib, transformer
 from repro_torch.train import optimizer as opt, sharding, step as train_step_lib
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "results", "dryrun_torch")
@@ -126,10 +131,10 @@ def check_variant(cfg, shape, variant: Variant, mesh) -> None:
                                   " block ('full')")
     if variant.flash_threshold != Variant.flash_threshold:
         raise NotImplementedError("flash_threshold: the port runs kernel B.6 at every length")
-    if mesh.shape["model"] > 1 and not transformer.is_dense(cfg):
-        raise ValueError(f"{cfg.name} over a model axis of {mesh.shape['model']}: tensor parallelism for the"
-                         " MoE, SSM, hybrid, MLA, cross-attention and encoder-decoder families (and their"
-                         f" moe_impl={variant.moe_impl!r} / moe_group={variant.moe_group}) is ROADMAP A.10.12")
+    if variant.moe_impl not in ("einsum", "scatter"):
+        raise ValueError(f"moe_impl={variant.moe_impl!r}: the port has 'einsum' and 'scatter'")
+    if mesh.shape["model"] > 1:
+        transformer.check_model_axis(cfg, f"a model axis of {mesh.shape['model']}")
 
 
 def trace_device() -> str:
@@ -240,29 +245,57 @@ def _local_rows(batch: int, mesh) -> int:
 def program(cfg, shape, variant: Variant, mesh, place, dev):
     """(fn, its arguments) of a cell's program on this rank of ``mesh``:
     zero-filled arguments (fake ones under ``FakeTensorMode``; real ones
-    run the same program, as the tests do on gloo ranks)."""
+    run the same program, as the tests do on gloo ranks).  ``fn`` runs
+    under the variant's MoE rules (``moe_rules``)."""
+    fn, args = _program(cfg, shape, variant, mesh, place, dev)
+
+    def run(*a):
+        with moe_rules(variant):
+            return fn(*a)
+
+    return run, args
+
+
+@contextlib.contextmanager
+def moe_rules(variant: Variant):
+    """While active, ``models.moe`` dispatches by the variant's rule and
+    group size (the reference's ``MOE_IMPL`` / ``MOE_GROUP_SIZE``)."""
+    saved = moe.MOE_IMPL, moe.MOE_GROUP_SIZE
+    moe.MOE_IMPL, moe.MOE_GROUP_SIZE = variant.moe_impl, variant.moe_group
+    try:
+        yield
+    finally:
+        moe.MOE_IMPL, moe.MOE_GROUP_SIZE = saved
+
+
+def _program(cfg, shape, variant: Variant, mesh, place, dev):
     specs = transformer.model_specs(cfg)
     full = params_lib._map_tree(lambda s: torch.zeros(s.shape, dtype=torch.bfloat16, device=dev), specs)
     params = sharding.local_tree(full, place, mesh)
     del full
     b, s = shape.global_batch, shape.seq_len
     rows = _local_rows(b, mesh)
+    extra = {}
+    if cfg.encoder is not None:
+        extra["frames"] = torch.zeros(rows, cfg.encoder.n_frames, cfg.d_model, dtype=torch.bfloat16, device=dev)
+    if cfg.vision is not None:
+        extra["patches"] = torch.zeros(rows, cfg.vision.n_tokens, cfg.d_model, dtype=torch.bfloat16, device=dev)
     if shape.kind == "train":
         tcfg = train_step_lib.TrainConfig(adamw=opt.AdamWConfig(state_dtype=variant.state_dtype),
                                           remat=variant.remat, ce_chunk=variant.ce_chunk)
         state = opt.init_state(params, tcfg.adamw)
         batch = {"tokens": torch.zeros(rows, s, dtype=torch.long, device=dev),
-                 "labels": torch.zeros(rows, s, dtype=torch.long, device=dev)}
+                 "labels": torch.zeros(rows, s, dtype=torch.long, device=dev), **extra}
         step = train_step_lib.make_train_step(cfg, tcfg, mesh, place)
         return step, (params, state, batch)
     if shape.kind == "prefill":
         tokens = torch.zeros(rows, s, dtype=torch.long, device=dev)
 
-        def prefill(params, tokens):
+        def prefill(params, tokens, extra):
             with torch.no_grad():
-                return transformer.prefill(params, cfg, tokens, s + 64)
+                return transformer.prefill(params, cfg, tokens, s + 64, **extra)
 
-        return prefill, (params, tokens)
+        return prefill, (params, tokens, extra)
     cache = transformer.init_cache(cfg, b, s, enc_len=transformer._enc_len(cfg), device=dev)
     token = torch.zeros(rows, dtype=torch.long, device=dev)
 
@@ -426,8 +459,8 @@ def main(argv=None):
     os.makedirs(out_dir, exist_ok=True)
     variant = Variant.parse(args.variant, args.sets)
 
-    archs = [args.arch] if args.arch else list(configs.ARCHS)
-    shapes = [args.shape] if args.shape else list(SHAPES)
+    archs = args.arch.split(",") if args.arch else list(configs.ARCHS)
+    shapes = args.shape.split(",") if args.shape else list(SHAPES)
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
 
     for arch in archs:

@@ -403,6 +403,7 @@ def run_ranks(
     args: tuple = (),
     timeout_s: float = 120.0,
     grid: dict | None = None,
+    env: dict | None = None,
 ) -> list:
     """Run ``fn(mesh, *args)`` on ``world_size`` spawned ranks and return
     their results in rank order.
@@ -411,7 +412,9 @@ def run_ranks(
     result.  ``devices`` gives each rank's device (default:
     ``rank_devices``, the cards round robin; raises without one).  With
     ``grid`` (axis name → size, product ``world_size``) each rank is handed
-    its ``GridMesh`` instead of the one-axis ``Mesh``.  Raises
+    its ``GridMesh`` instead of the one-axis ``Mesh``.  ``env``: environment
+    variables the ranks' processes start with (this process's environment
+    is restored once they have started).  Raises
     ``RuntimeError`` when a rank fails or dies, and
     ``TimeoutError`` when the ranks have not all reported within
     ``timeout_s``; every rank is stopped before this returns or raises.
@@ -431,8 +434,17 @@ def run_ranks(
             )
             for r in range(world_size)
         ]
-        for p in procs:
-            p.start()
+        saved = {k: os.environ.get(k) for k in env or {}}
+        os.environ.update(env or {})
+        try:
+            for p in procs:
+                p.start()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
         deadline = time.monotonic() + timeout_s
         try:
             while len(got) < world_size:

@@ -1,8 +1,9 @@
 """Training driver: ``python -m repro_torch.launch.train --arch <id> [--smoke] ...``
 
 Port of ``repro.launch.train``: the same flags and defaults, plus
-``--device`` (default CUDA; ``--device cpu`` runs the plain PyTorch path),
-and the same ``[train]`` lines.  Randomly initialises the model from
+``--device`` (default CUDA; ``--device cpu`` runs the plain PyTorch path)
+and ``--layers N`` (the config cut to N layers, its widths whole), and the
+same ``[train]`` lines.  Randomly initialises the model from
 ``--seed``, trains it with AdamW on ``TokenPipeline`` batches (the stub
 frontends' frames / patches for whisper and the VLM), checkpoints every
 ``--ckpt-every`` steps (atomic, keep 3), resumes from the latest
@@ -21,10 +22,12 @@ mesh, 1x1 included.  Rank 0's ``[train]`` lines are printed when the ranks
 are done, and ``main`` returns rank 0's losses.  The kernels are built once,
 before the ranks are spawned.
 
-``--mesh Dx1`` (FSDP only) takes every arch.  A model axis M > 1 takes the
-dense decoders (qwen1.5-0.5b, qwen3-32b, h2o-danube-3-4b, starcoder2-3b);
-tensor parallelism for the MoE, SSM, hybrid, MLA and encoder-decoder
-families is ROADMAP A.10.12, and such a mesh raises.  Int8 moments are
+``--mesh Dx1`` (FSDP only) takes every arch.  A model axis M > 1 takes
+every attention-based family: the dense decoders, the MoE ones (expert
+parallelism: E/M experts a rank where M divides E, else every expert on
+each), MLA with MTP (deepseek-v3), cross-attention (llama-3.2-vision) and
+the encoder-decoder (whisper); tensor parallelism for the SSM and hybrid
+families (mamba2, jamba) is ROADMAP A.10.12, and such a mesh raises.  Int8 moments are
 block-quantised over a whole leaf, so ``--state-dtype int8`` takes 1x1
 only (ROADMAP A.10.15).
 """
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import time
 
 import torch
@@ -65,23 +69,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--state-dtype", default="f32")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep N layers of the config, its widths whole (the port's own flag)")
     return ap.parse_args(argv)
 
 
 def _config(args):
     cfg = configs.get_config(args.arch)
-    return configs.reduce_config(cfg) if args.smoke else cfg
+    cfg = configs.reduce_config(cfg) if args.smoke else cfg
+    return dataclasses.replace(cfg, n_layers=args.layers) if args.layers else cfg
 
 
 def check_mesh(cfg, dp: int, tp: int, args) -> None:
     """Raise ``ValueError`` for a mesh this run cannot use."""
     if dp < 1 or tp < 1:
         raise ValueError(f"--mesh {args.mesh}: both axes must be >= 1")
-    if tp > 1 and not transformer.is_dense(cfg):
-        raise ValueError(
-            f"--mesh {args.mesh}: a model axis > 1 takes the dense decoder family; tensor parallelism"
-            f" for {cfg.name} (MoE, SSM, hybrid, MLA and encoder-decoder) is ROADMAP A.10.12;"
-            f" run --mesh {dp * tp}x1")
+    if tp > 1:
+        transformer.check_model_axis(cfg, f"--mesh {args.mesh} (run --mesh {dp * tp}x1)")
     if args.global_batch % dp:
         raise ValueError(f"--global-batch {args.global_batch} does not split over {dp} data ranks")
     if dp * tp > 1 and args.state_dtype == "int8":

@@ -52,8 +52,13 @@ writes it, every rank
 scores the query heads it needs (all of them, gathered over 'model' when
 the heads are split) against its own slots in float32, and the partial
 softmaxes are merged over the slot axes — a max all-reduce, then one sum
-all-reduce of the (sum of exp, P·V) pairs (flash-decoding) — before the
-result is cut to this rank's heads for the row-parallel ``wo``.
+all-reduce of the (sum of exp, P·V) pairs (flash-decoding,
+``merge_softmax``) — before the result is cut to this rank's heads for
+the row-parallel ``wo``.  ``cross_attention_decode`` reads the memory's
+cache the same way (its KV heads, or its positions split), and MLA's
+decode merges over its latent slots (``models.mla``).  A sublayer whose
+query heads do not divide the model axis runs whole on every model rank
+and sums nothing over it.
 """
 
 from __future__ import annotations
@@ -404,8 +409,33 @@ def attention_decode(
         cpos = sharding.all_gather(cpos, mesh, pos_axes, 1) if pos_axes else cpos
         cpos = cpos[:, off : off + local]
 
+    diff = pos[:, None] - cpos  # [B, slots]
+    ok = (diff >= 0) & (cpos >= 0)  # cpos < 0 marks never-written slots
+    if window > 0:
+        ok &= diff < window
+    out = _attend_cached(cfg, q, ck, cv, ok, slot_axes, tp)
+    pos.add_(1)  # in place: the cache tensors may be views of a layer stack
+    y = _out_proj(out.to(x.dtype), p["wo"])
+    return (sharding.reduce_from(y, mesh) if tp else y), cache
+
+
+def _attend_cached(cfg: ModelConfig, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, ok: torch.Tensor,
+                   slot_axes: tuple, tp: bool) -> torch.Tensor:
+    """One query token against a cache shard, float32: q [B, 1, H', D]
+    (this rank's query heads, all of them when ``wq`` is whole), ck / cv
+    [B, T', Kv', D] (this rank's KV heads, or every KV head over its slots
+    of ``slot_axes``), ok [B, T'] the slots to attend.  Returns the output
+    of this rank's query heads [B, 1, H', D].
+
+    With the KV heads split, each rank's query heads read its own; with
+    every KV head but split slots, every query head is scored here (all
+    gathered over 'model' when split), the partial softmaxes are merged over
+    ``slot_axes`` (flash-decoding: a max all-reduce, then one sum all-reduce
+    of the (P·V, sum of exp) pairs) and cut to this rank's heads."""
+    mesh = _ACT_MESH
     hl = q.shape[-2]
     lo = mesh.axis_index(_ACT_MODEL_AXIS) * hl if tp else 0
+    n_slot = mesh.axis_size(slot_axes) if slot_axes else 1
     if ck.shape[2] < cfg.n_kv_heads:  # KV heads split: this rank's query heads read its own
         qs, kk, vv = q, repeat_kv(ck, hl), repeat_kv(cv, hl)
     elif n_slot > 1:  # every KV head, some slots: score every query head here
@@ -417,39 +447,49 @@ def attention_decode(
             kk, vv = kk[:, :, lo : lo + hl], vv[:, :, lo : lo + hl]
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bshd,bthd->bhst", qs.float(), kk.float()) * scale
-    diff = pos[:, None] - cpos  # [B, slots]
-    ok = (diff >= 0) & (cpos >= 0)  # cpos < 0 marks never-written slots
-    if window > 0:
-        ok &= diff < window
+    out = merge_softmax(scores, ok, slot_axes, lambda w: torch.einsum("bhst,bthd->bshd", w, vv.float()))
+    return out[:, :, lo : lo + hl] if qs.shape[-2] > hl else out
+
+
+def merge_softmax(scores: torch.Tensor, ok: torch.Tensor, slot_axes: tuple, pv) -> torch.Tensor:
+    """softmax(scores) · V over every slot of ``slot_axes``, float32:
+    scores [B, H, 1, T'] over this rank's slots, ok [B, T'] the slots to
+    attend, ``pv(w)`` the product of weights w [B, H, 1, T'] with this
+    rank's values ([B, 1, H, D]).  With ``slot_axes`` the partial
+    softmaxes of the ranks are merged (flash-decoding): a max all-reduce,
+    then one sum all-reduce of the (P·V, sum of exp) pairs."""
     scores = scores + torch.where(ok, 0.0, NEG_INF)[:, None, None, :]
-    if n_slot > 1:  # flash-decoding: merge the partial softmaxes over the slot axes
-        m = sharding.all_reduce(scores.amax(dim=-1, keepdim=True), mesh, slot_axes, op=dist.ReduceOp.MAX)
-        e = torch.exp(scores - m)
-        num = torch.einsum("bhst,bthd->bshd", e, vv.float())  # [B, 1, H', D]
-        den = e.sum(dim=-1).permute(0, 2, 1)  # [B, 1, H']
-        both = sharding.all_reduce(torch.cat([num.flatten(), den.flatten()]), mesh, slot_axes)
-        num, den = both[: num.numel()].view(num.shape), both[num.numel() :].view(den.shape)
-        out = num / den[..., None]
-        if qs.shape[-2] > hl:
-            out = out[:, :, lo : lo + hl]
-    else:
-        out = torch.einsum("bhst,bthd->bshd", torch.softmax(scores, dim=-1), vv.float())
-    pos.add_(1)  # in place: the cache tensors may be views of a layer stack
-    y = _out_proj(out.to(x.dtype), p["wo"])
-    return (sharding.reduce_from(y, mesh) if tp else y), cache
+    if not slot_axes or _ACT_MESH.axis_size(slot_axes) == 1:
+        return pv(torch.softmax(scores, dim=-1))
+    mesh = _ACT_MESH
+    m = sharding.all_reduce(scores.amax(dim=-1, keepdim=True), mesh, slot_axes, op=dist.ReduceOp.MAX)
+    e = torch.exp(scores - m)
+    num = pv(e)  # [B, 1, H, D]
+    den = e.sum(dim=-1).permute(0, 2, 1)  # [B, 1, H]
+    both = sharding.all_reduce(torch.cat([num.flatten(), den.flatten()]), mesh, slot_axes)
+    num, den = both[: num.numel()].view(num.shape), both[num.numel() :].view(den.shape)
+    return num / den[..., None]
 
 
-def cross_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict) -> torch.Tensor:
+def cross_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+                           slot_axes: tuple = ()) -> torch.Tensor:
     """One token against the memory K/V cached at prefill ({'k', 'v': [B,
     T, Kv, D]}), no mask.  Scores and P·V in float32 like
-    ``attention_decode``; the reference rounds both to bf16 here."""
+    ``attention_decode``; the reference rounds both to bf16 here.
+
+    Over the activation mesh the query heads are this rank's (all when
+    ``wq`` is whole) and the cache is its shard: its KV heads, or every KV
+    head over its slice of the memory (``slot_axes``, the axes its T dim is
+    split over), merged over those ranks (``_attend_cached``).  The
+    row-parallel ``wo`` sums over 'model' only when the heads are split: a
+    replicated sublayer needs no all-reduce."""
+    mesh = model_parallel()
+    tp = mesh is not None and p["wq"].shape[-2] < cfg.n_heads
     q = _project_q(p, cfg, x)
-    kk = repeat_kv(cache["k"], cfg.n_heads)
-    vv = repeat_kv(cache["v"], cfg.n_heads)
-    scores = torch.einsum("bshd,bthd->bhst", q.float(), kk.float()) / math.sqrt(q.shape[-1])
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhst,bthd->bshd", probs, vv.float()).to(x.dtype)
-    return _out_proj(out, p["wo"])
+    ok = torch.ones(cache["k"].shape[:2], dtype=torch.bool, device=x.device)
+    out = _attend_cached(cfg, q, cache["k"], cache["v"], ok, slot_axes, tp)
+    y = _out_proj(out.to(x.dtype), p["wo"])
+    return sharding.reduce_from(y, mesh) if tp else y
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_seq: int, window: int = 0,
@@ -487,16 +527,26 @@ def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return F.silu(x) if cfg.act == "silu" else F.gelu(x, approximate="tanh")
 
 
-def mlp_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def mlp_split(p: dict, d_ff: int) -> bool:
+    """True when this rank holds a slice of the MLP's hidden width ``d_ff``
+    (its ``wo`` rows fewer) under a model axis > 1."""
+    return model_parallel() is not None and p["wo"].shape[0] < d_ff
+
+
+def mlp_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, *, d_ff: int | None = None,
+            reduce: bool = True) -> torch.Tensor:
     """Under a model axis whose ranks split the hidden width (``wo``'s
-    rows fewer than ``cfg.d_ff``): column-parallel in, row-parallel out."""
+    rows fewer than ``d_ff``, default ``cfg.d_ff``): column-parallel in,
+    row-parallel out.  ``reduce=False`` hands back the row-parallel partial
+    sum of a split MLP, its input taken as the region's already (the MoE
+    layer sums it with its experts' in one all-reduce)."""
     mesh = model_parallel()
-    tp = mesh is not None and p["wo"].shape[0] < cfg.d_ff
-    if tp:
+    tp = mlp_split(p, d_ff or cfg.d_ff)
+    if tp and reduce:
         x = sharding.copy_to(x, mesh)
     if cfg.glu:
         h = _act(cfg, x @ p["wi_gate"].to(x.dtype)) * (x @ p["wi_up"].to(x.dtype))
     else:
         h = _act(cfg, x @ p["wi"].to(x.dtype))
     y = h @ p["wo"].to(x.dtype)
-    return sharding.reduce_from(y, mesh) if tp else y
+    return sharding.reduce_from(y, mesh) if tp and reduce else y

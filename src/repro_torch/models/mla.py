@@ -25,6 +25,7 @@ from repro_torch.kernels import flash_kernel
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
+from repro_torch.train import sharding
 
 
 def mla_specs(cfg: ModelConfig) -> dict:
@@ -52,11 +53,18 @@ def _latents(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     q = layers._proj(cq, p["wuq"])
     qn, qr = q[..., :dn], q[..., dn:]
     qr = layers.rope(qr, positions, cfg.rope_theta)
+    return (torch.cat([qn, qr], dim=-1),) + kv_latents(p, cfg, x, positions)
+
+
+def kv_latents(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """The cached latents of tokens x: (c_kv [B, S, r], k_rope [B, S,
+    dr]) — what prefill writes to the cache, without the queries."""
+    m = cfg.mla
     ckv_full = x @ p["wdkv"].to(x.dtype)
     ckv = layers.rms_norm_simple(ckv_full[..., : m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
     kr = ckv_full[..., m.kv_lora_rank :][:, :, None, :]  # [B, S, 1, dr]
     kr = layers.rope(kr, positions, cfg.rope_theta)[:, :, 0]
-    return torch.cat([qn, qr], dim=-1), ckv, kr
+    return ckv, kr
 
 
 def _keys(p: dict, cfg: ModelConfig, ckv: torch.Tensor, kr: torch.Tensor):
@@ -67,48 +75,88 @@ def _keys(p: dict, cfg: ModelConfig, ckv: torch.Tensor, kr: torch.Tensor):
     return k, v
 
 
+_WHOLE = ("wdq", "q_norm", "wdkv", "kv_norm")  # replicated over 'model' (q_lora / kv_lora: no rule)
+
+
+def _split(p: dict, cfg: ModelConfig) -> bool:
+    """True when this rank holds a slice of the heads (``wuq`` / ``wuk`` /
+    ``wuv`` column-parallel, ``wo`` row-parallel) under a model axis > 1."""
+    return layers.model_parallel() is not None and p["wuq"].shape[1] < cfg.n_heads
+
+
 def mla_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence causal MLA (prefill / scoring), through kernel B.6."""
+    """Full-sequence causal MLA (prefill / scoring), through kernel B.6.
+
+    Over a model axis that splits the heads, the latents are computed whole
+    on every model rank (their weights replicated, entered through
+    ``copy_to`` so their gradients sum over the ranks), the per-head
+    decompression and B.6 run on this rank's heads, and the row-parallel
+    ``wo`` ends in the model all-reduce."""
+    mesh = layers.model_parallel()
+    tp = _split(p, cfg)
+    if tp:
+        x = sharding.copy_to(x, mesh)
+        p = {n: sharding.copy_to(w, mesh) if n in _WHOLE else w for n, w in p.items()}
     q, ckv, kr = _latents(p, cfg, x, positions)
     k, v = _keys(p, cfg, ckv, kr)
     out = flash_kernel.flash_attention(q, k, v, causal=True)
-    return layers._out_proj(out, p["wo"])
+    y = layers._out_proj(out, p["wo"])
+    return sharding.reduce_from(y, mesh) if tp else y
 
 
 def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
-               absorb: bool = True) -> tuple[torch.Tensor, dict]:
+               absorb: bool = True, slot_axes: tuple = ()) -> tuple[torch.Tensor, dict]:
     """Single-token decode. cache: {'ckv': [B, S, r], 'kr': [B, S, dr],
-    'pos': [B]}, updated in place and returned."""
+    'pos': [B]}, updated in place and returned.
+
+    Over the activation mesh the query heads are this rank's and the cache
+    its shard.  With its slots split (``slot_axes``: the reference places
+    the latents' slots over 'model') the rank that owns the new token's
+    slot writes it, every query head is scored against this rank's slots
+    and the partial softmaxes are merged over ``slot_axes``
+    (``layers.merge_softmax``) before the result is cut to this rank's heads
+    for the row-parallel ``wo``.  Scoring every head needs, when the heads
+    are split, every head's query gathered over 'model' — on the absorbed
+    path its latent query [B, 1, H, r] and rope part, on the naive path the
+    query and ``wuk`` / ``wuv`` whole (the naive path decompresses every
+    head's K/V for its slots)."""
     m = cfg.mla
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    mesh = layers._ACT_MESH
+    tp = _split(p, cfg)
     pos = cache["pos"]
-    q, ckv1, kr1 = _latents(p, cfg, x, pos[:, None])  # q: [B, 1, H, dn + dr]
-    layers._cache_write(cache["ckv"], pos, ckv1[:, 0])
-    layers._cache_write(cache["kr"], pos, kr1[:, 0])
+    q, ckv1, kr1 = _latents(p, cfg, x, pos[:, None])  # q: [B, 1, H', dn + dr]
+    layers._owned_write(cache["ckv"], pos, ckv1[:, 0], slot_axes)
+    layers._owned_write(cache["kr"], pos, kr1[:, 0], slot_axes)
     ckv, kr = cache["ckv"], cache["kr"]
     slots = ckv.shape[1]
-    valid = torch.arange(slots, device=x.device)[None, :] <= pos[:, None]  # [B, S]
+    off = mesh.axis_index(slot_axes) * slots if slot_axes else 0
+    valid = torch.arange(off, off + slots, device=x.device)[None, :] <= pos[:, None]  # [B, S']
+    every = tp and slot_axes and mesh.axis_size(slot_axes) > 1  # score every head here
+    gather = (lambda t, dim: sharding.all_gather(t, mesh, layers._ACT_MODEL_AXIS, dim)) if every else (
+        lambda t, dim: t)
+    hl = q.shape[-2]
+    lo = mesh.axis_index(layers._ACT_MODEL_AXIS) * hl if every else 0
     scale = 1.0 / math.sqrt(dn + dr)
     qn, qr = q[..., :dn], q[..., dn:]
 
     if absorb:
         # fold W_uk into the query: score = (qn W_uk^T) · ckv + qr · kr
-        q_lat = torch.einsum("bshk,rhk->bshr", qn, p["wuk"].to(x.dtype))
+        q_lat = gather(torch.einsum("bshk,rhk->bshr", qn, p["wuk"].to(x.dtype)), 2)
         sc = (torch.einsum("bshr,btr->bhst", q_lat.float(), ckv.float())
-              + torch.einsum("bshk,btk->bhst", qr.float(), kr.float())) * scale
-        sc = sc + torch.where(valid, 0.0, layers.NEG_INF)[:, None, None, :]
-        probs = torch.softmax(sc, dim=-1)
+              + torch.einsum("bshk,btk->bhst", gather(qr, 2).float(), kr.float())) * scale
         # attend in latent space, then decompress once per step
-        lat = torch.einsum("bhst,btr->bshr", probs, ckv.float()).to(x.dtype)  # [B, 1, H, r]
+        lat = layers.merge_softmax(sc, valid, slot_axes, lambda w: torch.einsum("bhst,btr->bshr", w, ckv.float()))
+        lat = lat[:, :, lo : lo + hl].to(x.dtype)  # [B, 1, H', r]
         out = torch.einsum("bshr,rhk->bshk", lat, p["wuv"].to(x.dtype))
     else:
-        k, v = _keys(p, cfg, ckv, kr)
-        sc = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
-        sc = sc + torch.where(valid, 0.0, layers.NEG_INF)[:, None, None, :]
-        probs = torch.softmax(sc, dim=-1)
-        out = torch.einsum("bhst,bthd->bshd", probs, v.float()).to(x.dtype)
+        k, v = _keys({"wuk": gather(p["wuk"], 1), "wuv": gather(p["wuv"], 1)}, cfg, ckv, kr)
+        sc = torch.einsum("bshd,bthd->bhst", gather(q, 2).float(), k.float()) * scale
+        out = layers.merge_softmax(sc, valid, slot_axes, lambda w: torch.einsum("bhst,bthd->bshd", w, v.float()))
+        out = out[:, :, lo : lo + hl].to(x.dtype)
     pos.add_(1)  # in place: the cache tensors may be views of a layer stack
-    return layers._out_proj(out, p["wo"]), cache
+    y = layers._out_proj(out, p["wo"])
+    return (sharding.reduce_from(y, layers.model_parallel()) if tp else y), cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,

@@ -48,14 +48,15 @@ def _init_tensor(spec: ParamSpec, gen: torch.Generator, dtype, device) -> torch.
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
+    # scaled in place: the float32 draw of a leaf is the only transient
     noise = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
     if spec.init == "embed":
-        return (noise * 0.02).to(dtype)
+        return noise.mul_(0.02).to(dtype)
     fan_in = spec.shape[0] if len(spec.shape) > 1 else max(spec.shape[0], 1)
     if len(spec.shape) >= 3:  # stacked/experts: fan-in is the contract dim
         fan_in = spec.shape[-2]
     scale = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
-    return (noise * scale).to(dtype)
+    return noise.mul_(scale).to(dtype)
 
 
 def _map_tree(fn, tree):

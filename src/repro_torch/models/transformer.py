@@ -33,11 +33,15 @@ does; ``prefill`` takes this rank's rows of a global batch split over the
 batch axes.  ``init_cache`` gives each leaf this rank's shard under
 ``launch.mesh.cache_pspec_for`` (a ``MeshCache``, which keeps the
 placements), ``prefill`` writes what this rank holds (``_prefill_attn``),
-``decode_step`` hands each attention layer the axes its slots are split
-over, and both return logits over the whole vocabulary for this rank's
-rows.  The model axis takes the dense decoders (``is_dense``); the other
-families raise over M > 1, over D×1 unless the batch splits over D, and
-the MoE ones over any mesh of more than one rank (ROADMAP A.10.12).
+``decode_step`` hands each attention, cross-attention and MLA layer the
+axes its slots (or memory positions) are split over, and both return
+logits over the whole vocabulary for this rank's rows.  The model axis
+takes every family but the SSM and hybrid ones (``check_model_axis``:
+ROADMAP A.10.12): the MoE layers run expert parallel (``models.moe``),
+MLA its heads (``models.mla``), cross-attention and whisper's encoder
+the attention's column- and row-parallel path; the MTP module's embedding
+is vocab-parallel like the model's.  The non-dense families need their
+batch split over D, and jamba a mesh of one rank.
 """
 
 from __future__ import annotations
@@ -125,15 +129,17 @@ def _layer_fwd(p, cfg, x, positions, mixer, ffn, *, window=0, enc_out=None,
 def _layer_decode(p, cfg, x, cache, mixer, ffn, *, window=0, slot_axes=((), ())):
     """Residual decoder layer, one token, with cache (updated in place).
     ``slot_axes``: the mesh axes the slots of an attention cache's K/V and
-    of its 'slot_pos' are split over.  Returns (x, cache)."""
+    of its 'slot_pos' are split over (``_slot_axes``; a cross-attention
+    cache's memory positions and MLA's latent slots in the first entry).
+    Returns (x, cache)."""
     h = layers.norm_fwd(p["mixer_norm"], cfg, x)
     if mixer == "attn":
         h, cache = layers.attention_decode(p["mixer"], cfg, h, cache, window=window, slot_axes=slot_axes[0],
                                            pos_axes=slot_axes[1])
     elif mixer == "cross":  # memory K/V cached at prefill, no mask
-        h = layers.cross_attention_decode(p["mixer"], cfg, h, cache)
+        h = layers.cross_attention_decode(p["mixer"], cfg, h, cache, slot_axes=slot_axes[0])
     elif mixer == "mla":
-        h, cache = mla.mla_decode(p["mixer"], cfg, h, cache, absorb=cfg.mla_absorb)
+        h, cache = mla.mla_decode(p["mixer"], cfg, h, cache, absorb=cfg.mla_absorb, slot_axes=slot_axes[0])
     elif mixer == "ssm":
         h, cache = ssm.ssm_decode(p["mixer"], cfg, h, cache)
     else:
@@ -364,7 +370,7 @@ def mtp_hidden(params, cfg: ModelConfig, tokens: torch.Tensor, hidden: torch.Ten
         return None
     p = params["mtp"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    nxt = params["embed"].to(hidden.dtype)[torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)]
+    nxt = _embed(params, torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)).to(hidden.dtype)
     h = torch.cat([hidden, nxt], dim=-1) @ p["proj"].to(hidden.dtype)
     h, _ = _layer_fwd(p["layer"], cfg, h, positions, "mla" if cfg.mla else "attn", "mlp")
     return layers.norm_fwd(p["norm"], cfg, h)
@@ -391,44 +397,63 @@ class MeshCache(dict):
         self.specs = specs
 
 
-def is_dense(cfg: ModelConfig) -> bool:
-    """A uniform stack of attention + MLP layers: the family a model axis
-    M > 1 takes."""
-    return (cfg.moe is None and cfg.mla is None and cfg.ssm is None and cfg.encoder is None
-            and cfg.vision is None and cfg.layer_pattern == "uniform")
+def check_model_axis(cfg: ModelConfig, where: str) -> None:
+    """Raise ``ValueError`` naming ROADMAP A.10.12 for a family without
+    tensor parallelism over a model axis > 1: the SSM and the hybrid
+    (mamba2, jamba).  Every attention-based family takes one: the dense
+    decoders, MoE (expert parallelism), MLA with MTP, cross-attention and
+    the encoder-decoder.  ``where`` names the caller's use."""
+    if cfg.ssm is not None:
+        raise ValueError(f"{where}: tensor parallelism for {cfg.name}'s SSM layers (the SSM and hybrid"
+                         " families) is ROADMAP A.10.12")
 
 
 def _serve_mesh(cfg: ModelConfig, batch: int | None = None):
     """The activation mesh when serving runs over one (None without), after
-    checking that it can: a model axis M > 1 takes the dense decoders; the
-    other families need their batch split over D (the other caches do not
-    split below the batch), and the MoE ones a mesh of one rank (a dispatch
-    group spans the whole batch's tokens: a decode step's B tokens are one
-    group, which no rank holds)."""
+    checking that it can: a model axis M > 1 takes every family but the
+    SSM and hybrid ones (``check_model_axis``); the non-dense families need
+    their batch split over D (their caches and MoE groups do not split
+    below the batch), and jamba a mesh of one rank."""
     mesh = layers._ACT_MESH
-    if mesh is None or is_dense(cfg):
+    if mesh is None:
         return mesh
     if layers._ACT_MODEL_SIZE > 1:
-        raise ValueError(f"serving {cfg.name} over a model axis > 1: tensor parallelism for the MoE, SSM,"
-                         " hybrid, MLA, cross-attention and encoder-decoder families is ROADMAP A.10.12")
-    if cfg.moe is not None and mesh.size > 1:
-        raise ValueError(f"serving {cfg.name} over {mesh.size} ranks: its MoE dispatch groups span the"
-                         " batch, split over the ranks (ROADMAP A.10.12)")
+        check_model_axis(cfg, f"serving over a model axis of {layers._ACT_MODEL_SIZE}")
+    dense = (cfg.moe is None and cfg.mla is None and cfg.ssm is None and cfg.encoder is None
+             and cfg.vision is None and cfg.layer_pattern == "uniform")
+    if dense:
+        return mesh
+    if cfg.ssm is not None and cfg.moe is not None and mesh.size > 1:
+        raise ValueError(f"serving {cfg.name} over {mesh.size} ranks: the hybrid of SSM and MoE layers over"
+                         " a mesh is ROADMAP A.10.12")
     if batch is not None and batch % layers._ACT_BATCH_SIZE:
         raise ValueError(f"serving {cfg.name} over a mesh needs its batch {batch} split over the"
-                         f" {layers._ACT_BATCH_SIZE} batch ranks (ROADMAP A.10.12)")
+                         f" {layers._ACT_BATCH_SIZE} batch ranks")
     return mesh
 
 
 def _serve_params(params: dict, cfg: ModelConfig, mesh) -> dict:
-    """This rank's shards with their FSDP dims gathered (the batch axes)."""
+    """This rank's shards with their FSDP dims gathered over the batch axes,
+    as the reference's serving program gathers them on every call.  A leaf
+    handed over gathered already (``sharding.gather_tree`` of the shards,
+    run once by a caller that keeps 1/M of the weights a rank to serve many
+    calls) is used as it is: its shape tells which it is."""
     if mesh is None:
         return params
     from repro_torch.launch import mesh as meshlib
     from repro_torch.models import params as params_lib
 
-    place = params_lib.validate_divisibility(model_specs(cfg), mesh, meshlib.rules_for(mesh))
-    return sharding.gather_tree(params, place, mesh)
+    specs = model_specs(cfg)
+    place = params_lib.validate_divisibility(specs, mesh, meshlib.rules_for(mesh))
+
+    def go(t, spec, pl):
+        if isinstance(t, dict):
+            return {k: go(t[k], spec[k], pl[k]) for k in t}
+        model = [tuple(a for a in sharding._entry_axes(e) if a not in meshlib.batch_axes(mesh)) for e in pl]
+        gathered = tuple(n // mesh.axis_size(axes) for n, axes in zip(spec.shape, model))
+        return t if tuple(t.shape) == gathered else sharding.fsdp_gather(t, pl, mesh)
+
+    return go(params, specs, place)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
@@ -468,15 +493,30 @@ def _local_shape(shape: tuple, spec: tuple, mesh) -> tuple:
     return tuple(n // (mesh.axis_size(e) if e is not None else 1) for n, e in zip(shape, spec))
 
 
-def _slot_axes(cache, plan: str, sub: str) -> tuple[tuple, tuple]:
-    """The mesh axes an attention cache's slots are split over: (those of
-    'k' / 'v', those of 'slot_pos'), () when whole."""
+def _slot_axes(cache, plan: str, sub: str, mixer: str) -> tuple[tuple, tuple]:
+    """The mesh axes a cache's slots are split over, () when whole: for an
+    attention layer (those of 'k' / 'v', those of 'slot_pos'); for a
+    cross-attention layer (those of its memory's T dim, ()); for MLA
+    (those of the latents' slots, ())."""
     specs = getattr(cache, "specs", None)
     if specs is None:
         if layers._ACT_MESH is not None:
             raise ValueError("decode over a mesh takes the cache init_cache / prefill made there")
         return (), ()
-    return tuple(sharding._entry_axes(specs[plan][sub][key][2]) for key in ("k", "slot_pos"))
+    leaves = specs[plan][sub]
+    if mixer == "attn":
+        return tuple(sharding._entry_axes(leaves[key][2]) for key in ("k", "slot_pos"))
+    if mixer in ("cross", "mla"):
+        return sharding._entry_axes(leaves["k" if mixer == "cross" else "ckv"][2]), ()
+    return (), ()
+
+
+def _held(buf: torch.Tensor, axes: tuple) -> slice:
+    """The global slots (or memory positions) of ``buf`` [B, local slots,
+    ...], this rank's shard of them over ``axes``."""
+    local = buf.shape[1]
+    off = layers._ACT_MESH.axis_index(axes) * local if axes else 0
+    return slice(off, off + local)
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor, cache: dict):
@@ -488,7 +528,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor, cache: dict
         lc = _index(cache[plan.name], li)
         for i, (mixer, ffn) in enumerate(plan.sublayers):
             window = cfg.sliding_window if mixer == "attn" else 0
-            axes = _slot_axes(cache, plan.name, f"s{i}") if mixer == "attn" else ((), ())
+            axes = _slot_axes(cache, plan.name, f"s{i}", mixer)
             x, _ = _layer_decode(lp[f"s{i}"], cfg, x, lc[f"s{i}"], mixer, ffn, window=window, slot_axes=axes)
     x = layers.norm_fwd(params["final_norm"], cfg, x)
     return _logits(params, cfg, x[:, 0]), cache
@@ -558,14 +598,18 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int, 
                 continue
             hh = layers.norm_fwd(spec["mixer_norm"], cfg, x)
             if mixer == "attn":
-                _prefill_attn(spec, cfg, hh, positions, c, li, _slot_axes(cache, plan.name, f"s{i}"))
-            elif mixer == "mla":
-                _q, ckv, kr = mla._latents(spec["mixer"], cfg, hh, positions)
-                c["ckv"][li, :, :s] = ckv
-                c["kr"][li, :, :s] = kr
+                _prefill_attn(spec, cfg, hh, positions, c, li, _slot_axes(cache, plan.name, f"s{i}", mixer))
+            elif mixer == "mla":  # the prompt's latents at the slots this rank holds
+                ckv, kr = mla.kv_latents(spec["mixer"], cfg, hh, positions)
+                held = _held(c["ckv"][li], _slot_axes(cache, plan.name, f"s{i}", mixer)[0])
+                ckv, kr = ckv[:, held], kr[:, held]  # fewer than the slots past the prompt's end
+                c["ckv"][li, :, : ckv.shape[1]] = ckv
+                c["kr"][li, :, : kr.shape[1]] = kr
                 c["pos"][li] = s
-            elif mixer == "cross":
-                c["k"][li], c["v"][li] = layers._project_kv(spec["mixer"], cfg, enc_out)
+            elif mixer == "cross":  # this rank's KV heads (every one when wk / wv are whole), its T
+                k, v = layers._project_kv(spec["mixer"], cfg, enc_out)
+                held = _held(c["k"][li], _slot_axes(cache, plan.name, f"s{i}", mixer)[0])
+                c["k"][li], c["v"][li] = k[:, held], v[:, held]
             window = cfg.sliding_window if mixer == "attn" else 0
             x, _ = _layer_fwd(spec, cfg, x, positions, mixer, ffn, window=window,
                               enc_out=enc_out, enc_positions=enc_positions)

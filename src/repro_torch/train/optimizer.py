@@ -126,7 +126,9 @@ def init_state(params, cfg: AdamWConfig) -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum((x.float() ** 2).sum() for x in leaves(tree)))
+    # each leaf's norm in float32 without a float32 copy of it (a gradient
+    # may be the size of an MoE layer's experts)
+    return torch.sqrt(sum(torch.linalg.vector_norm(x, dtype=torch.float32).square() for x in leaves(tree)))
 
 
 @torch.no_grad()

@@ -20,7 +20,12 @@ does that work here, by placement (``models.params`` tuples):
   max and two sum all-reduces for the log-sum-exp, the gold logit from the
   rank that owns it);
 * ``sync_grads`` sums the gradient of a leaf over the batch axes it is
-  replicated on, and ``global_norm`` counts each distinct shard once.
+  replicated on, and ``global_norm`` counts each distinct shard once;
+* for expert parallelism (``models.moe``): ``exclusive_prefix`` (per-expert
+  counts of the ranks before this one over the batch axes) and
+  ``reduce_scatter`` (sum, then this rank's slice; backward an
+  all-gather), which with ``fsdp_gather`` moves an expert buffer's
+  capacity rows to the data rank that owns them and back.
 
 Every differentiable operator is a ``torch.autograd.Function``.  Over gloo
 a CUDA tensor's collective runs on a host copy (the ranks share one card,
@@ -278,6 +283,35 @@ def gather_tree(tree, specs, mesh):
     return zip_map(lambda t, s: fsdp_gather(t, s, mesh), tree, specs)
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _chunk(all_reduce(x, mesh, axes), dim, mesh.axis_size(axes), mesh.axis_index(axes)).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """``x`` summed over the ranks of ``axes``, this rank's slice of
+    ``dim`` kept (an all-reduce and a slice, counted as 'all-reduce', as
+    FSDP's backward); the gradient is all-gathered."""
+    return _ReduceScatter.apply(x, mesh, axes, dim) if mesh.axis_size(axes) > 1 else x
+
+
+def exclusive_prefix(counts: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of ``counts`` (an integer vector, no gradient) over the ranks
+    that come before this one over ``axes``: where this rank's entries
+    start in an order that runs rank by rank (one all-gather)."""
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return torch.zeros_like(counts)
+    every = all_gather(counts[None], mesh, axes, 0)  # [n, ...], row i from the rank at index i
+    return every[: mesh.axis_index(axes)].sum(dim=0)
+
+
 # -- Megatron's operators on the model axis -------------------------------------
 
 
@@ -407,7 +441,7 @@ def global_norm(grads, specs, mesh) -> torch.Tensor:
     for g, spec in pairs:
         used = {a for e in spec for a in _entry_axes(e)}
         if not any(mesh.coords[a] for a in mesh.axis_names if a not in used):
-            total = total + (g.float() ** 2).sum()
+            total = total + torch.linalg.vector_norm(g, dtype=torch.float32).square()
     return torch.sqrt(all_reduce(total, mesh, tuple(mesh.axis_names)))
 
 

@@ -12,7 +12,8 @@ training).
 (params, opt_state, metrics)``: zero-grad, the loss, its backward through
 the model (remat blocks, B.6's autograd path) and ``adamw_update``, which
 writes the new parameters and moments into the tensors it was given, as
-``decode_step`` updates its caches.  After a step each parameter leaf
+``decode_step`` updates its caches.  ``make_grad_step`` is its first half:
+the gradients and their global norm, no update.  After a step each parameter leaf
 keeps its gradient in ``.grad`` until the next step clears it.
 """
 
@@ -110,6 +111,38 @@ def loss_fn(params, cfg: ModelConfig, tcfg: TrainConfig, batch: dict):
     return loss, metrics
 
 
+def make_grad_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, placement=None):
+    """Returns grad_step(params, batch) -> (grads, grad_norm, metrics): the
+    first half of ``make_train_step``'s step — zero-grad, the loss and its
+    backward, each leaf's gradient left in ``.grad`` — with the gradients'
+    global norm (the clip's), and no update.  Over a mesh as there."""
+
+    def grad_step(params, batch):
+        leaves = opt.leaves(params)
+        for p in leaves:
+            p.grad = None
+            p.requires_grad_(True)
+        used = params if mesh is None else sharding.gather_tree(params, placement, mesh)
+        loss, metrics = loss_fn(used, cfg, tcfg, batch)
+        loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is None:
+            # a leaf the loss never reached gets a zero gradient, as under jax.grad
+            grads = opt.tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, params)
+            return grads, opt.global_norm(grads), metrics
+        sharding.sync_grads(params, placement, mesh)
+        grads = opt.tree_map(lambda p: p.grad, params)
+        norm = sharding.global_norm(grads, placement, mesh)
+        # each rank's CE / MTP is its rows' share of the global mean; aux is global already
+        for k in ("ce", "mtp"):
+            if k in metrics:
+                metrics[k] = layers.batch_sum(metrics[k])
+        metrics["loss"] = metrics["ce"] + tcfg.mtp_weight * metrics.get("mtp", 0.0) + metrics["aux"]
+        return grads, norm, metrics
+
+    return grad_step
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, placement=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), updating ``params`` and ``opt_state`` in place.
@@ -123,29 +156,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, placement=No
     summed over it (``sharding.sync_grads``), the clip's norm counts each
     shard once (``sharding.global_norm``), and AdamW runs elementwise on
     the shards.  The metrics are the global batch's."""
+    grad_step = make_grad_step(cfg, tcfg, mesh, placement)
 
     def train_step(params, opt_state, batch):
-        leaves = opt.leaves(params)
-        for p in leaves:
-            p.grad = None
-            p.requires_grad_(True)
-        used = params if mesh is None else sharding.gather_tree(params, placement, mesh)
-        loss, metrics = loss_fn(used, cfg, tcfg, batch)
-        loss.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if mesh is None:
-            # a leaf the loss never reached gets a zero gradient, as under jax.grad
-            grads = opt.tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, params)
-            norm = None
-        else:
-            sharding.sync_grads(params, placement, mesh)
-            grads = opt.tree_map(lambda p: p.grad, params)
-            norm = sharding.global_norm(grads, placement, mesh)
-            # each rank's CE / MTP is its rows' share of the global mean; aux is global already
-            for k in ("ce", "mtp"):
-                if k in metrics:
-                    metrics[k] = layers.batch_sum(metrics[k])
-            metrics["loss"] = metrics["ce"] + tcfg.mtp_weight * metrics.get("mtp", 0.0) + metrics["aux"]
+        grads, norm, metrics = grad_step(params, batch)
         params, opt_state, om = opt.adamw_update(params, grads, opt_state, tcfg.adamw, grad_norm=norm)
         metrics.update(om)
         return params, opt_state, metrics

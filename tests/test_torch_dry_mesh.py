@@ -96,12 +96,12 @@ def test_a_fake_tensor_reaches_no_build(monkeypatch):
     assert [w.launches for w in wrappers] == before
 
 
-@pytest.mark.parametrize("arch,grid", [("qwen2-moe-a2.7b", {"data": 2, "model": 2}),
+@pytest.mark.parametrize("arch,grid", [("mamba2-1.3b", {"data": 2, "model": 2}),
                                        ("mamba2-1.3b", {"data": 1, "model": 2}),
-                                       ("qwen2-moe-a2.7b", {"data": 2, "model": 1})])
+                                       ("jamba-v0.1-52b", {"data": 2, "model": 1})])
 def test_serving_the_other_families_over_a_mesh_names_its_item(arch, grid):
-    """Over a model axis the non-dense families raise; over the data axis
-    the MoE ones do too (a dispatch group spans the batch)."""
+    """Over a model axis the SSM and hybrid families raise; over the data
+    axis the hybrid does too (SSM and MoE layers together)."""
     from repro_torch.models import layers, transformer
 
     cfg = configs.reduce_config(configs.get_config(arch))

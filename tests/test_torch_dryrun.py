@@ -11,8 +11,8 @@ reference's.
   ``benchmarks/roofline.py`` reads it (``load_cells(out_dir=...)``,
   ``terms``);
 * the cells the port cannot trace are ``error`` records that name their
-  ROADMAP item: a non-dense family over the model axis (A.10.12) and
-  ``seq_shard=True`` (A.10.13);
+  ROADMAP item: the SSM and hybrid families over the model axis
+  (A.10.12) and ``seq_shard=True`` (A.10.13);
 * ``python -m repro_torch.launch.dryrun`` writes a train cell here, on a
   CPU-only host without ``nvcc``.
 """
@@ -93,11 +93,11 @@ def test_param_bytes_per_device_equal_the_reference(arch, multi_pod, reference_p
 
 @pytest.fixture(scope="module")
 def cells(tmp_path_factory):
-    """A traced decode cell, a non-dense cell and a seq_shard cell, written
+    """A traced decode cell, an SSM cell and a seq_shard cell, written
     by ``main`` into one directory."""
     out = tmp_path_factory.mktemp("dryrun_torch")
     dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "decode_32k", "--out-dir", str(out)])
-    dryrun.main(["--arch", "qwen2-moe-a2.7b", "--shape", "decode_32k", "--out-dir", str(out)])
+    dryrun.main(["--arch", "mamba2-1.3b", "--shape", "decode_32k", "--out-dir", str(out)])
     dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "prefill_32k", "--variant", "sp", "--set",
                  "seq_shard=true", "--out-dir", str(out)])
     return out
@@ -153,7 +153,7 @@ def test_roofline_reads_a_port_cell(cells):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("qwen2-moe-a2.7b__decode_32k__16x16.json", "A.10.12"),
+    ("mamba2-1.3b__decode_32k__16x16.json", "A.10.12"),
     ("qwen1.5-0.5b__prefill_32k__16x16__sp.json", "A.10.13"),
 ])
 def test_cells_the_port_cannot_trace_name_their_item(cells, name, item):

@@ -12,9 +12,16 @@ lowering of the same cell on 4 fake XLA devices: the reference's
 config and the shapes cut to this size.  Prefill and decode hold within
 5%; the train step within 15% (remat: the reference's XLA may fold some
 of the recompute, and the SDPA backward formula recomputes the scores
-once more than the reference's saved-probability backward).
+once more than the reference's saved-probability backward).  The same
+holds, at the same bounds, for the four families that run tensor and
+expert parallelism over the model axis: qwen2-moe, deepseek-v3 (MLA, MoE,
+MTP; naive MLA decode, the dry run's default), whisper and
+llama-3.2-vision, each under the dry run's default MoE rule ('scatter':
+the one group's capacity rows split over the data ranks where they
+divide, as the reference's placement of the expert buffer splits them).
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -31,6 +38,7 @@ from repro_torch.launch import dryrun, hlo_cost, mesh as meshlib
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "qwen1.5-0.5b"
+FAMILIES = ("qwen2-moe-a2.7b", "deepseek-v3-671b", "whisper-base", "llama-3.2-vision-11b")
 SHAPES = {"train": (8, 64), "prefill": (8, 64), "decode": (8, 64)}
 BOUNDS = {"train": 0.15, "prefill": 0.05, "decode": 0.05}
 
@@ -45,16 +53,17 @@ REFERENCE = textwrap.dedent(
     from repro.configs.shapes import ShapeSpec
     from repro.launch import dryrun, mesh as meshlib
 
-    arch, shapes = sys.argv[1], json.loads(sys.argv[2])
+    archs, shapes = sys.argv[1].split(","), json.loads(sys.argv[2])
     get = configs.get_config
     configs.get_config = lambda a: configs.reduce_config(get(a))
     meshlib.make_production_mesh = lambda multi_pod=False: meshlib.make_mesh((2, 2), ("data", "model"))
     dryrun.SHAPES.clear()
     dryrun.SHAPES.update({k: ShapeSpec(k, s, b, k) for k, (b, s) in shapes.items()})
     out = {}
-    for kind in shapes:
-        rec = dryrun.lower_cell(arch, kind, False, dryrun.Variant())
-        out[kind] = rec["hlo_cost"]["flops"]
+    for arch in archs:
+        for kind in shapes:
+            rec = dryrun.lower_cell(arch, kind, False, dryrun.Variant())
+            out.setdefault(arch, {})[kind] = rec["hlo_cost"]["flops"]
     print("REF " + json.dumps(out))
     """
 )
@@ -97,20 +106,33 @@ def test_collectives_are_counted_by_kind():
 
 @pytest.fixture(scope="module")
 def reference_flops():
-    res = subprocess.run([sys.executable, "-c", REFERENCE, ARCH, json.dumps(SHAPES)], capture_output=True,
-                         text=True, cwd=ROOT, timeout=600)
+    res = subprocess.run([sys.executable, "-c", REFERENCE, ",".join((ARCH,) + FAMILIES), json.dumps(SHAPES)],
+                         capture_output=True, text=True, cwd=ROOT, timeout=600)
     line = next((x for x in res.stdout.splitlines() if x.startswith("REF ")), None)
     assert line is not None, res.stderr[-3000:]
     return json.loads(line[4:])
 
 
-@pytest.mark.parametrize("kind", list(SHAPES))
-def test_flops_per_device_match_the_reference(kind, reference_flops):
-    cfg = configs.reduce_config(configs.get_config(ARCH))
+def _flops_gap(arch: str, kind: str, reference_flops) -> tuple[float, float, float]:
+    variant = dryrun.Variant()  # the reference's lower_cell sets its mla_absorb on the config, as the port's
+    cfg = dataclasses.replace(configs.reduce_config(configs.get_config(arch)), mla_absorb=variant.mla_absorb)
     b, s = SHAPES[kind]
     mesh = meshlib.dry_grid_mesh({"data": 2, "model": 2}, device="cpu")
-    got = dryrun.trace_program(cfg, ShapeSpec(kind, s, b, kind), dryrun.Variant(), mesh)["hlo_cost"]["flops"]
-    want = reference_flops[kind]
+    got = dryrun.trace_program(cfg, ShapeSpec(kind, s, b, kind), variant, mesh)["hlo_cost"]["flops"]
+    want = reference_flops[arch][kind]
     gap = abs(got - want) / want
-    print(f"{kind}: port {got:.0f} reference {want:.0f} gap {gap:.4f}")
+    print(f"{arch} {kind}: port {got:.0f} reference {want:.0f} gap {gap:.4f}")
+    return got, want, gap
+
+
+@pytest.mark.parametrize("kind", list(SHAPES))
+def test_flops_per_device_match_the_reference(kind, reference_flops):
+    got, want, gap = _flops_gap(ARCH, kind, reference_flops)
     assert gap <= BOUNDS[kind], (kind, got, want, gap)
+
+
+@pytest.mark.parametrize("kind", list(SHAPES))
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_families_flops_per_device_match_the_reference(arch, kind, reference_flops):
+    got, want, gap = _flops_gap(arch, kind, reference_flops)
+    assert gap <= BOUNDS[kind], (arch, kind, got, want, gap)

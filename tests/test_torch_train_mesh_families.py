@@ -1,5 +1,7 @@
 """Training over the data axis (``--mesh 2x1``, FSDP only) for the families
-other than the dense decoders, against the port's own 1×1.
+other than the dense decoders, and over a (data, model) mesh (``--mesh
+2x2``: tensor and expert parallelism) for the attention-based ones,
+against the port's own 1×1.
 
 As ``test_torch_train_mesh.py``: float32 on every rank, each run resuming
 one conditioned step-0 checkpoint of the driver's own draw, 4 steps at the
@@ -17,6 +19,12 @@ because its top-2-of-4 routing flips on near-ties (ROADMAP C.17): one
 float32 ulp on one router weight moves its 1×1 run's 4th-step gradient
 norm by ~9e-2 (``nudge``, the witness run here), and the 2×1 run stays
 within that run's own spread at every step.
+
+At 2×2 the attention-based families — qwen2-moe (2 of its 4 experts a
+rank, the shared expert split with them), deepseek-v3 (MLA's heads, 2
+experts a rank, MTP), whisper and llama-3.2-vision (self- and
+cross-attention, the encoder's layers) — are held at the same 1e-5 over 4
+steps; mamba2 and jamba raise naming ROADMAP A.10.12 there.
 """
 
 import shutil
@@ -31,6 +39,7 @@ FAMILIES = ("qwen2-moe-a2.7b", "mamba2-1.3b", "jamba-v0.1-52b", "deepseek-v3-671
             "llama-3.2-vision-11b")
 MOE = ("qwen2-moe-a2.7b", "jamba-v0.1-52b", "deepseek-v3-671b")
 CHAOTIC = {"jamba-v0.1-52b": "['params']['blocks']['s1']['ffn']['router']"}
+MODEL_PARALLEL = ("qwen2-moe-a2.7b", "deepseek-v3-671b", "whisper-base", "llama-3.2-vision-11b")
 
 
 def _args(arch, mesh, ckpt_dir) -> dict:
@@ -45,9 +54,9 @@ def runs(tmp_path_factory):
     for arch in FAMILIES:
         worker.write_start(str(tmp / arch / "start"), _args(arch, "1x1", ""))
     out = {}
-    for mesh in ("1x1", "2x1"):
+    for mesh in ("1x1", "2x1", "2x2"):
         todo = []
-        for arch in FAMILIES:
+        for arch in FAMILIES if mesh != "2x2" else MODEL_PARALLEL:
             shutil.copytree(tmp / arch / "start", tmp / arch / mesh)
             todo.append(_args(arch, mesh, str(tmp / arch / mesh)))
         if mesh == "1x1":
@@ -56,7 +65,7 @@ def runs(tmp_path_factory):
                 worker.nudge(str(tmp / arch / "nudged"), leaf)
                 todo.append(_args(arch, mesh, str(tmp / arch / "nudged")))
         reports = spawn(mesh, todo)[0]
-        out[mesh] = dict(zip(FAMILIES, reports))
+        out[mesh] = dict(zip(FAMILIES if mesh != "2x2" else MODEL_PARALLEL, reports))
         out["nudged"] = dict(zip(CHAOTIC, reports[len(FAMILIES):])) if mesh == "1x1" else out["nudged"]
     return out
 
@@ -78,3 +87,17 @@ def test_data_parallel_steps_match_1x1(runs, arch):
     gaps, witness = _steps(got, ref), _steps(runs["nudged"][arch], ref)
     assert gaps[0] <= TOL, gaps
     assert max(gaps) <= max(witness), (gaps, witness)
+
+
+@pytest.mark.parametrize("arch", MODEL_PARALLEL)
+def test_model_parallel_steps_match_1x1(runs, arch):
+    ref, got = runs["1x1"][arch], runs["2x2"][arch]
+    assert len(got["losses"]) == STEPS and got["devices"] == ["cpu"]
+    assert rel(got["losses"], ref["losses"]) <= TOL, (got["losses"], ref["losses"])
+    assert rel(got["grad_norm"], ref["grad_norm"]) <= TOL, (got["grad_norm"], ref["grad_norm"])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-v0.1-52b"])
+def test_model_axis_raises_for_the_ssm_families(arch):
+    with pytest.raises(ValueError, match="ROADMAP A.10.12"):
+        train.main(ARGV + ["--arch", arch, "--mesh", "2x2"])

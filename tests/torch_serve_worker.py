@@ -30,14 +30,17 @@ def _leaves(tree, prefix="") -> dict:
 
 
 def serve(mesh, arch: str, weights: dict | None, tokens: np.ndarray, n_decode: int, max_seq: int,
-          window: int | None = None) -> dict:
+          window: int | None = None, extra: dict | None = None) -> dict:
     """This rank's prefill of its rows of ``tokens`` and ``n_decode``
-    greedy decode steps (the next token: argmax of the first row's
-    logits over the whole batch, so every rank feeds the same one) on
-    ``arch``'s reduced config (``window`` overrides its sliding window).
-    ``weights`` None draws the port's float32 seed-0 weights.  Returns
-    numpy logits per step, the cache leaves after prefill and at the end,
-    and ``sharding.KINDS`` per phase."""
+    decode steps (the tokens a fixed function of the step, the same on
+    every rank) on ``arch``'s reduced config (``window`` overrides its
+    sliding window; ``arch`` ending in ':naive' decodes MLA on the naive
+    path, in ':gathered' serves from the shards gathered over the batch
+    axes once, before the prefill, instead of on every call).  ``extra``: whisper's frames / the VLM's patches of the global
+    batch (numpy), split with the rows.  ``weights`` None draws the port's
+    float32 seed-0 weights.  Returns numpy logits per step, the cache
+    leaves after prefill and at the end, and ``sharding.KINDS`` per
+    phase."""
     import dataclasses
 
     from repro_torch import configs
@@ -46,27 +49,35 @@ def serve(mesh, arch: str, weights: dict | None, tokens: np.ndarray, n_decode: i
     from repro_torch.train import sharding
 
     torch.set_num_threads(1)
+    arch, _, path = arch.partition(":")
     cfg = configs.reduce_config(configs.get_config(arch))
+    if path == "naive":
+        cfg = dataclasses.replace(cfg, mla_absorb=False)
     if window is not None:
         cfg = dataclasses.replace(cfg, sliding_window=window)
     specs = transformer.model_specs(cfg)
     full = (params_lib.materialize(specs, 0, torch.float32, "cpu") if weights is None
             else params_lib.from_reference(weights, "cpu"))
-    embed, init_defaults = transformer._embed.__defaults__, transformer.init_cache.__defaults__
+    saved = (transformer._embed.__defaults__, transformer.init_cache.__defaults__,
+             transformer._encode.__defaults__)
     transformer._embed.__defaults__ = (torch.float32,)
     transformer.init_cache.__defaults__ = (torch.float32, 0, None)
+    transformer._encode.__defaults__ = (torch.float32,)
     try:
         layers.enable_activation_sharding(mesh, vocab_size=cfg.vocab_size)
         place = params_lib.validate_divisibility(specs, mesh, meshlib.rules_for(mesh))
         local = sharding.local_tree(full, place, mesh)
+        if path == "gathered":
+            local = sharding.gather_tree(local, place, mesh)
         ba = meshlib.batch_axes(mesh)
         share = tokens.shape[0] // mesh.axis_size(ba)
         d = mesh.axis_index(ba)
         rows = torch.from_numpy(tokens[d * share : (d + 1) * share]).long()
+        kw = {k: torch.from_numpy(v[d * share : (d + 1) * share]) for k, v in (extra or {}).items()}
         out = {"kinds": {}, "logits": []}
         with torch.no_grad():
             sharding.reset_kinds()
-            logits, cache = transformer.prefill(local, cfg, rows, max_seq)
+            logits, cache = transformer.prefill(local, cfg, rows, max_seq, **kw)
             out["kinds"]["prefill"] = sharding.kinds_snapshot()
             out["logits"].append(_np(logits))
             out["cache_prefill"] = {k: _np(v) for k, v in _leaves(cache).items()}
@@ -83,7 +94,8 @@ def serve(mesh, arch: str, weights: dict | None, tokens: np.ndarray, n_decode: i
         return out
     finally:
         layers.disable_activation_sharding()
-        transformer._embed.__defaults__, transformer.init_cache.__defaults__ = embed, init_defaults
+        (transformer._embed.__defaults__, transformer.init_cache.__defaults__,
+         transformer._encode.__defaults__) = saved
 
 
 def serve_many(mesh, runs: list) -> list:

@@ -224,3 +224,54 @@ def one_step(mesh, argd: dict, ref_tree: dict, tokens: np.ndarray, labels: np.nd
 def one_steps(mesh, runs: list) -> list:
     """``one_step`` for each argument tuple of ``runs`` (one spawn)."""
     return [one_step(mesh, *run) for run in runs]
+
+
+def moe_layer(mesh, runs: list) -> list:
+    """Reduced qwen2-moe's MoE layer on this rank of a (data, model) mesh,
+    float32, its weights split over 'model' only (no FSDP: 2 of the 4
+    experts and half the shared expert's width a rank): for each ``(impl,
+    capacity_factor, weights, x, wy)`` of ``runs`` (numpy; ``x`` [B, S, D]
+    and ``wy`` the global batch), this rank's rows of x through
+    ``moe.moe_fwd`` under ``impl`` and the backward of sum(y · wy) + aux.
+    Returns the routing of its tokens ('top_e', 'keep' as [tokens, k]), y,
+    aux, x's gradient and every leaf's gradient summed over 'data' (this
+    rank's shard; numpy)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import layers, moe, params as params_lib
+    from repro_torch.train import sharding
+
+    torch.set_num_threads(1)
+    base = configs.reduce_config(configs.get_config("qwen2-moe-a2.7b"))
+    out = []
+    layers.enable_activation_sharding(mesh)
+    saved = moe.MOE_IMPL
+    try:
+        for impl, cf, weights, x, wy in runs:
+            cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=cf))
+            specs = moe.moe_specs(cfg)
+            place = params_lib.validate_divisibility(specs, mesh, meshlib.rules_for(mesh, fsdp=False))
+            p = sharding.local_tree(params_lib.from_reference(weights, "cpu"), place, mesh)
+            leaves = []
+            sharding.zip_map(lambda t, _s: leaves.append(t.requires_grad_(True)), p, place)
+            share = x.shape[0] // mesh.shape["data"]
+            rows = slice(mesh.coords["data"] * share, (mesh.coords["data"] + 1) * share)
+            xr = torch.from_numpy(x[rows]).requires_grad_(True)
+            moe.MOE_IMPL = impl
+            route = moe.route_einsum if impl == "einsum" else moe.route_scatter
+            with torch.no_grad():
+                r = route(p, cfg, xr)
+            y, aux = moe.moe_fwd(p, cfg, xr)
+            ((y * torch.from_numpy(wy[rows])).sum() + aux).backward()
+            k = cfg.moe.top_k
+            grads = sharding.zip_map(lambda t, _s: sharding.all_reduce(t.grad, mesh, "data").numpy(), p, place)
+            out.append({"top_e": r["top_e"].reshape(-1, k).numpy(), "keep": r["keep"].reshape(-1, k).numpy(),
+                        "spans": r["spans"], "y": y.detach().numpy(), "aux": float(aux.detach()),
+                        "x_grad": xr.grad.numpy(), "grads": grads, "specs": place, "rows": (rows.start, rows.stop),
+                        "coords": mesh.coords})
+    finally:
+        moe.MOE_IMPL = saved
+        layers.disable_activation_sharding()
+    return out
