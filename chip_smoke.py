@@ -170,27 +170,36 @@ Phases, each printing one JSON line:
    per rank per prefill equal to the layers kept, every cache leaf on
    cuda:0 at its local shape; prefill and decode ms per rank and the
    collectives' share printed;
-11e. families_mesh — tensor and expert parallelism for the attention-based
-   families (``FAMILIES_MESH``), each at its published widths cut to the
-   fewest layers that hold every kind of its sublayers: qwen2-moe 2 MoE
-   layers at 2x2 (30 of 60 experts a rank), llama-3.2-vision a [self,
-   cross] block at 2x2, whisper whole (6 + 6) at 2x2, deepseek-v3 1 dense
-   + 1 MoE layer with its MTP module at 1x4 (64 of 256 experts and 32 of
-   128 heads a rank); the 1x1 runs in a process of their own first, then 4
-   gloo ranks on the card, one group after another, each rank drawing its
-   shards leaf by leaf (deepseek-v3's ranks in turns): 4 prompts of 128
-   tokens and 8 decode steps of the 1x1 run's greedy tokens in float32
-   (the bf16 draw's values) within 0.05 of max|logit|, then in bf16 3
-   training steps of [4, 128] (deepseek-v3: one forward and backward, no
-   AdamW) with the first step's loss and gradient norm within 2e-2 of
-   1x1's, B.6 launches per rank per prefill as planned, every cache leaf
-   at its shard's shape, E/M experts a rank; per rank the draw, prefill,
-   decode and step times, the collectives' share and peak GB printed;
+11e. families_mesh — tensor and expert parallelism for every family
+   beside the dense decoders (``FAMILIES_MESH``), each at its published
+   widths cut to the fewest layers that hold every kind of its sublayers:
+   qwen2-moe 1 MoE layer at 2x2 (30 of 60 experts a rank),
+   llama-3.2-vision a [self, cross] block at 2x2, whisper whole (6 + 6) at
+   2x2, deepseek-v3 1 dense + 1 MoE layer with its MTP module at 1x4 (64 of
+   256 experts and 32 of 128 heads a rank), mamba2 2 layers at 2x2 (32 of
+   64 SSM heads a rank, 2176 conv channels against 2048 of x), jamba one
+   block of (SSM, MLP) and (attention, MoE) at 1x4 (4 of 16 experts and 2
+   of 8 KV heads a rank); the 1x1 runs in a process of their own first,
+   then 4 gloo ranks on the card, one group after another, each rank
+   drawing its shards leaf by leaf (deepseek-v3's ranks in turns): 4
+   prompts of 128 tokens (mamba2: 512, past its 256-token SSD chunk) and 8
+   decode steps of the 1x1 run's greedy tokens in float32 (the bf16 draw's
+   values) within 0.05 of max|logit|, then in bf16 3 training steps of [4,
+   128] ([4, 512]; deepseek-v3: one forward and backward, no AdamW) with
+   the first step's loss and gradient norm within 2e-2 of 1x1's, B.6
+   launches per rank per prefill as planned, every cache leaf (the SSM's
+   'h' and 'conv' too) at its shard's shape, E/M experts a rank; per rank
+   the draw, prefill, decode and step times, the collectives' share and
+   peak GB printed, and the card's memory in use by every process beside
+   each 1x1 run; 11d's and 11e's groups run in one spawn of 4 ranks
+   (``mesh_serving_phase``, with ``--only`` too when both are asked for),
+   which start and warm up once, and the timeline gives the two phases'
+   seconds together;
 11f. dryrun — ``python -m repro_torch.launch.dryrun`` (qwen1.5-0.5b's four
    shapes at 16x16, qwen3-32b's train_4k at both meshes; train_4k and
-   decode_32k of qwen2-moe, whisper, llama-3.2-vision and deepseek-v3 at
-   16x16 and deepseek-v3's train_4k at 2x16x16; mamba2's, an error naming
-   ROADMAP A.10.12) and ``python -m
+   decode_32k of qwen2-moe, whisper, llama-3.2-vision, deepseek-v3, mamba2
+   and jamba at 16x16, deepseek-v3's train_4k at 2x16x16 and mamba2's
+   long_500k) and ``python -m
    repro_torch.launch.dryrun_mate`` (filter_1g, broadcast, the sharded
    build on 4 gloo ranks on the card) in subprocesses started together
    right after the kernel build (they trace on the host while phase 1
@@ -425,16 +434,17 @@ PIPE_STAGES, PIPE_SEQ, PIPE_BATCH, PIPE_MICRO, PIPE_TOL = 2, 512, 8, 4, 1e-2
 # weights (tests/test_models.py's serving bound); qwen1.5's 16 KV heads
 # split over 'model', starcoder2's 2 leave the cache's slots split
 SERVE_MESH = (("qwen1.5-0.5b", {"data": 2, "model": 2}), ("starcoder2-3b", {"data": 1, "model": 4}))
-SERVE_MESH_RANKS = 4  # one spawn of 4 ranks serves every group, one after the other
+# the mesh phases (11d, 11e): one spawn of MESH_SERVING_RANKS ranks takes every group of both, one after the other
+MESH_PHASES, MESH_SERVING_RANKS = ("serve_mesh", "families_mesh"), 4
 SERVE_MESH_B, SERVE_MESH_S, SERVE_MESH_NEW, SERVE_MESH_TOL = 4, 512, 16, 0.05
 SERVE_MESH_LAYERS = 6  # of qwen1.5-0.5b's 24 and starcoder2-3b's 30, their widths whole
-# the attention-based families over a mesh (phase 11e): each at its
-# published widths, cut to the fewest layers that hold every kind of its
-# sublayers (``family_mesh_cfg``), one group after the other on 4 gloo
-# ranks on the one card; serving in float32 (FMESH_B prompts of FMESH_S
-# tokens, FMESH_NEW decode steps of the 1x1 run's greedy tokens) held within
+# the families over a mesh (phase 11e): each at its published widths, cut
+# to the fewest layers that hold every kind of its sublayers
+# (``family_mesh_cfg``), one group after the other on 4 gloo ranks on the
+# one card; serving in float32 (FMESH_B prompts of ``fmesh_seq`` tokens,
+# FMESH_NEW decode steps of the 1x1 run's greedy tokens) held within
 # SERVE_MESH_TOL of max|logit|, training in bf16 (FMESH_STEPS steps of
-# [FMESH_B, FMESH_S]: B/D·S = 256 tokens, whole MoE dispatch groups) its
+# [FMESH_B, fmesh_seq]: B/D·S = 256 tokens, whole MoE dispatch groups) its
 # first step's loss and gradient norm within TRAIN_MESH_REL, both against
 # 1x1 in a process of its own on the same draw.  Serving is compared in
 # float32 because the MoE routing is chaotic in bf16: a near tie of the
@@ -446,8 +456,13 @@ FAMILIES_MESH = (
     ("llama-3.2-vision-11b", {"data": 2, "model": 2}),
     ("whisper-base", {"data": 2, "model": 2}),
     ("deepseek-v3-671b", {"data": 1, "model": 4}),  # 64 of 256 experts and 32 of 128 heads a rank
+    ("mamba2-1.3b", {"data": 2, "model": 2}),  # 32 of 64 SSM heads, 2176 conv channels against 2048 of x
+    ("jamba-v0.1-52b", {"data": 1, "model": 4}),  # 4 of 16 experts, 2 of 8 KV heads, 2056 conv channels
 )
 FMESH_B, FMESH_S, FMESH_NEW, FMESH_STEPS = 4, 128, 8, 3
+# mamba2's prompts cross its 256-token SSD chunk, so that the state carried
+# between chunks (split over heads) is used
+FMESH_SEQ = {"mamba2-1.3b": 512}
 # deepseek-v3's cut holds 14.6 B parameters (29.3 GB in bf16; its one MoE
 # layer's experts 22.5 GB): its ranks draw one after the other (one whole
 # leaf, up to 15 GB in float32, at a time), and its training check is one
@@ -457,7 +472,9 @@ FMESH_TURNS = ("deepseek-v3-671b",)
 FMESH_NO_OPT = ("deepseek-v3-671b",)
 FMESH_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}  # the spawned processes': less fragmentation
 # the dry run (phase 11e): each entry point's argv and the status expected
-# of each cell it writes ('error:<item>': an error record naming it)
+# of each cell it writes ('error:<item>': an error record naming it);
+# mamba2's and jamba's cells trace in processes of their own, beside the
+# others
 DRYRUN_CALLS = (
     ("repro_torch.launch.dryrun", ["--arch", "qwen1.5-0.5b"],
      {"qwen1.5-0.5b__train_4k__16x16": "ok", "qwen1.5-0.5b__prefill_32k__16x16": "ok",
@@ -467,10 +484,13 @@ DRYRUN_CALLS = (
     ("repro_torch.launch.dryrun", ["--arch", "qwen2-moe-a2.7b,whisper-base", "--shape", "train_4k,decode_32k"],
      {"qwen2-moe-a2.7b__train_4k__16x16": "ok", "qwen2-moe-a2.7b__decode_32k__16x16": "ok",
       "whisper-base__train_4k__16x16": "ok", "whisper-base__decode_32k__16x16": "ok"}),
-    ("repro_torch.launch.dryrun", ["--arch", "llama-3.2-vision-11b,mamba2-1.3b", "--shape",
-                                   "train_4k,decode_32k"],
-     {"llama-3.2-vision-11b__train_4k__16x16": "ok", "llama-3.2-vision-11b__decode_32k__16x16": "ok",
-      "mamba2-1.3b__train_4k__16x16": "error:A.10.12", "mamba2-1.3b__decode_32k__16x16": "error:A.10.12"}),
+    ("repro_torch.launch.dryrun", ["--arch", "llama-3.2-vision-11b", "--shape", "train_4k,decode_32k"],
+     {"llama-3.2-vision-11b__train_4k__16x16": "ok", "llama-3.2-vision-11b__decode_32k__16x16": "ok"}),
+    ("repro_torch.launch.dryrun", ["--arch", "mamba2-1.3b", "--shape", "train_4k,decode_32k,long_500k"],
+     {"mamba2-1.3b__train_4k__16x16": "ok", "mamba2-1.3b__decode_32k__16x16": "ok",
+      "mamba2-1.3b__long_500k__16x16": "ok"}),
+    ("repro_torch.launch.dryrun", ["--arch", "jamba-v0.1-52b", "--shape", "train_4k,decode_32k"],
+     {"jamba-v0.1-52b__train_4k__16x16": "ok", "jamba-v0.1-52b__decode_32k__16x16": "ok"}),
     ("repro_torch.launch.dryrun", ["--arch", "deepseek-v3-671b", "--shape", "train_4k"],
      {"deepseek-v3-671b__train_4k__16x16": "ok"}),
     ("repro_torch.launch.dryrun", ["--arch", "deepseek-v3-671b", "--shape", "train_4k", "--multi-pod"],
@@ -3182,31 +3202,16 @@ def serve_mesh_ranks(mesh, groups: list) -> list[dict]:
     return out
 
 
-def serve_mesh_phase(seed, device="cuda:0") -> dict[str, int]:
-    """Prefill and decode over a mesh (``SERVE_MESH``): for each dense
-    decoder, ``SERVE_MESH_B`` prompts of ``SERVE_MESH_S`` tokens drawn from
-    ``seed`` and ``SERVE_MESH_NEW`` greedy decode steps at 1x1 in this
-    process (published widths, cut to ``SERVE_MESH_LAYERS`` layers, random
-    weights from ``seed`` with the attention projections rescaled,
-    ``conditioned``), then the same prefill and the
-    same decode tokens on 4 gloo ranks on the one card (one spawn), one
-    configuration after the other, so no rank's host-clock times carry
-    another group's load (``serve_mesh_rank``: this rank's shards and rows, the cache
-    placed by ``cache_pspec_for``).  Held: prefill's last-token logits and every
-    decode step's within ``SERVE_MESH_TOL`` of max|logit| of the 1x1 run;
-    B.6 launches per rank per prefill equal to the layers kept; every cache
-    leaf on cuda:0 at its local shape.  Printed, not held: the greedy
-    tokens against 1x1's (near ties may flip), prefill and decode ms per
-    rank, the collectives' share.  The line is printed before a failed
-    check raises."""
+def serve_mesh_refs(seed, device="cuda:0") -> dict:
+    """The 1x1 run of each ``SERVE_MESH`` configuration in this process,
+    outside the path's window: {arch: (prompts, every step's logits, the
+    greedy tokens fed, seconds)}."""
     from repro_torch import configs
-    from repro_torch.launch import mesh as meshlib
     from repro_torch.models import params as params_lib, transformer
 
     dev = torch.device(device)
-    launches = {name: 0 for name in counters()}
-    rows, failed, refs = [], [], {}
-    for arch, _grid in SERVE_MESH:  # the 1x1 references first, outside the path's window
+    refs = {}
+    for arch, _grid in SERVE_MESH:
         cfg = dataclasses.replace(configs.get_config(arch), n_layers=SERVE_MESH_LAYERS)
         specs = transformer.model_specs(cfg)
         tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(SERVE_MESH_B, SERVE_MESH_S))
@@ -3217,11 +3222,22 @@ def serve_mesh_phase(seed, device="cuda:0") -> dict[str, int]:
         refs[arch] = (tokens, single, forced, time.perf_counter() - t)
         del weights
         torch.cuda.empty_cache()
-    t = time.perf_counter()
-    groups = [(arch, grid, seed, refs[arch][0], refs[arch][2], SERVE_MESH_LAYERS) for arch, grid in SERVE_MESH]
-    ranks = meshlib.run_ranks(serve_mesh_ranks, SERVE_MESH_RANKS, backend="gloo", devices=[device] * SERVE_MESH_RANKS,
-                              args=(groups,), timeout_s=TRAIN_MESH_TIMEOUT_S)
-    ranks_wall = time.perf_counter() - t
+    return refs
+
+
+def serve_mesh_groups(seed, refs: dict) -> list:
+    """``serve_mesh_ranks``' groups: each configuration with the 1x1 run's
+    prompts and greedy tokens."""
+    return [(arch, grid, seed, refs[arch][0], refs[arch][2], SERVE_MESH_LAYERS) for arch, grid in SERVE_MESH]
+
+
+def serve_mesh_report(refs: dict, ranks: list, ranks_wall: float) -> dict[str, int]:
+    """The ``serve_mesh`` line from every rank's reports (``serve_mesh_ranks``)
+    against the 1x1 runs ``refs``; raises after the line if a check failed."""
+    from repro_torch import configs
+
+    launches = {name: 0 for name in counters()}
+    rows, failed = [], []
     results = {arch: [r[i] for r in ranks] for i, (arch, _grid) in enumerate(SERVE_MESH)}
     wall = {arch: max(r["group_s"] for r in results[arch]) for arch, _grid in SERVE_MESH}
     for arch, grid in SERVE_MESH:
@@ -3267,20 +3283,23 @@ def serve_mesh_phase(seed, device="cuda:0") -> dict[str, int]:
 
 def family_mesh_cfg(arch: str):
     """``arch`` at its published widths cut to the fewest layers that hold
-    every kind of its sublayers: qwen2-moe 2 MoE layers; the VLM one block
+    every kind of its sublayers: qwen2-moe 1 MoE layer; the VLM one block
     of [self, cross] (``family_cut``'s 2-sublayer block); whisper whole (6
     encoder + 6 decoder layers); deepseek-v3 1 dense + 1 MoE layer and its
-    MTP module."""
+    MTP module; mamba2 2 layers; jamba one block of 2 sublayers, (SSM,
+    MLP) and (attention, MoE)."""
     from repro_torch import configs
 
     cfg = configs.get_config(arch)
+    if cfg.layer_pattern == "jamba":
+        return dataclasses.replace(cfg, n_layers=2, attn_every=2)
     if cfg.vision is not None:
         return dataclasses.replace(cfg, n_layers=2, vision=dataclasses.replace(cfg.vision, cross_attn_every=2))
     if cfg.encoder is not None:
         return cfg
     if cfg.moe is not None and cfg.moe.first_dense:
         return dataclasses.replace(cfg, n_layers=2, moe=dataclasses.replace(cfg.moe, first_dense=1))
-    return dataclasses.replace(cfg, n_layers=2)
+    return dataclasses.replace(cfg, n_layers=1 if cfg.moe is not None else 2)
 
 
 def draw_shards(cfg, seed: int, dev, mesh=None, place=None, turns: bool = False) -> dict:
@@ -3343,9 +3362,15 @@ def serve_single(cfg, weights: dict, tokens: np.ndarray, extra: dict, n_new: int
     return single, np.stack(forced)
 
 
-def train_family(cfg, params: dict, dev, seed: int, no_opt: bool, mesh=None, place=None, extra=None) -> dict:
+def fmesh_seq(arch: str) -> int:
+    """The prompt and training length of a ``FAMILIES_MESH`` group."""
+    return FMESH_SEQ.get(arch, FMESH_S)
+
+
+def train_family(cfg, params: dict, dev, seed: int, no_opt: bool, mesh=None, place=None, extra=None,
+                 seq: int = FMESH_S) -> dict:
     """``FMESH_STEPS`` AdamW steps of ``launch.train``'s loop on this
-    rank's rows of [FMESH_B, FMESH_S] batches (one step without the update
+    rank's rows of [FMESH_B, seq] batches (one step without the update
     where ``no_opt``), from ``params`` (updated in place), on one process or
     this rank of ``mesh``.  Returns the losses, gradient norms, ms per step
     (host clock, ending in a sync), the seconds in collectives per step,
@@ -3356,13 +3381,13 @@ def train_family(cfg, params: dict, dev, seed: int, no_opt: bool, mesh=None, pla
     from repro_torch.train import optimizer as opt, sharding, step as step_lib
 
     tcfg = step_lib.TrainConfig(adamw=opt.AdamWConfig(warmup_steps=1, total_steps=FMESH_STEPS),
-                                ce_chunk=min(1024, FMESH_S))
+                                ce_chunk=min(1024, seq))
     rows = slice(0, FMESH_B)
     if mesh is not None:
         ba = meshlib.batch_axes(mesh)
         share = FMESH_B // mesh.axis_size(ba)
         rows = slice(mesh.axis_index(ba) * share, (mesh.axis_index(ba) + 1) * share)
-    data = TokenPipeline(DataConfig(FMESH_S, FMESH_B, cfg.vocab_size, seed))
+    data = TokenPipeline(DataConfig(seq, FMESH_B, cfg.vocab_size, seed))
     if no_opt:
         grad_step = step_lib.make_grad_step(cfg, tcfg, mesh, place)
     else:
@@ -3390,32 +3415,82 @@ def train_family(cfg, params: dict, dev, seed: int, no_opt: bool, mesh=None, pla
     return out
 
 
+class CardMemory:
+    """The card's memory in use by every process (``cudaMemGetInfo``, what
+    ``nvidia-smi`` gives as memory.used), sampled from a thread every
+    ``every_s`` while the block runs.  ``report()``: ``peak_gb`` the most
+    a sample saw; ``bound_gb`` the most the other processes (and this
+    one's context) held beside this process's allocator, plus the most
+    that allocator reserved, which a peak between two samples does not
+    hide (``others_gb`` and ``reserved_gb``, the two terms); ``total_gb``
+    the card's."""
+
+    def __init__(self, dev, every_s: float = 0.005):
+        self.dev, self.every_s = dev, every_s
+        self.peak, self.others, self.reserved, self.samples = 0, 0, 0, 0
+
+    def _sample(self) -> None:
+        reserved = torch.cuda.memory_reserved(self.dev)
+        free, self.total = torch.cuda.mem_get_info(self.dev)
+        used = self.total - free
+        self.peak, self.others = max(self.peak, used), max(self.others, used - reserved)
+        self.reserved, self.samples = max(self.reserved, reserved), self.samples + 1
+
+    def _run(self) -> None:
+        while not self.stop.wait(self.every_s):
+            self._sample()
+
+    def __enter__(self):
+        import threading
+
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop.set()
+        self.thread.join()
+        self._sample()
+        self.reserved = max(self.reserved, torch.cuda.max_memory_reserved(self.dev))
+
+    def report(self) -> dict:
+        return {"peak_gb": self.peak / 1e9, "bound_gb": (self.others + self.reserved) / 1e9,
+                "others_gb": self.others / 1e9, "reserved_gb": self.reserved / 1e9, "total_gb": self.total / 1e9,
+                "samples": self.samples}
+
+
 def families_mesh_single(_mesh, seed: int) -> dict:
     """The 1x1 comparator of every ``FAMILIES_MESH`` group, in a process of
     its own (one rank of a one-rank group): each cut model drawn whole from
     ``seed`` (``materialize``, ``conditioned``), served (``serve_single``:
     the logits and the greedy tokens the ranks will feed) and trained
-    (``train_family``), then freed before the next."""
+    (``train_family``), then freed before the next; the card's memory in
+    use (``CardMemory``) watched throughout, as it runs beside the dry
+    runs' processes in the whole smoke."""
     from repro_torch.data.pipeline import stub_inputs
 
     dev = _mesh.device
     out = {}
     for arch, _grid in FAMILIES_MESH:
-        cfg = family_mesh_cfg(arch)
-        weights = cast_tree(draw_shards(cfg, seed, dev), torch.float32, True)  # served in float32, the bf16 draw's values
-        extra = stub_inputs(cfg, FMESH_B, device=dev)
-        tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(FMESH_B, FMESH_S))
-        t = time.perf_counter()
-        with float32_activations():
-            single, forced = serve_single(cfg, weights, tokens, extra, FMESH_NEW, dev)
-        serve_s = time.perf_counter() - t
-        cast_tree(weights, torch.bfloat16, True)  # exact: the values came from bf16
-        torch.cuda.empty_cache()
-        train = train_family(cfg, weights, dev, seed, arch in FMESH_NO_OPT, extra=extra)
-        out[arch] = {"tokens": tokens, "logits": single, "forced": forced, "serve_s": serve_s, "train": train}
-        del weights, extra
-        gc.collect()
-        torch.cuda.empty_cache()
+        with CardMemory(dev) as card:
+            cfg = family_mesh_cfg(arch)
+            # served in float32, the bf16 draw's values
+            weights = cast_tree(draw_shards(cfg, seed, dev), torch.float32, True)
+            extra = stub_inputs(cfg, FMESH_B, device=dev)
+            tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(FMESH_B, fmesh_seq(arch)))
+            t = time.perf_counter()
+            with float32_activations():
+                single, forced = serve_single(cfg, weights, tokens, extra, FMESH_NEW, dev)
+            serve_s = time.perf_counter() - t
+            cast_tree(weights, torch.bfloat16, True)  # exact: the values came from bf16
+            torch.cuda.empty_cache()
+            train = train_family(cfg, weights, dev, seed, arch in FMESH_NO_OPT, extra=extra, seq=fmesh_seq(arch))
+            out[arch] = {"tokens": tokens, "logits": single, "forced": forced, "serve_s": serve_s, "train": train}
+            del weights, extra
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[arch]["card"] = card.report()
     return out
 
 
@@ -3447,8 +3522,9 @@ def families_mesh_ranks(mesh, seed: int, refs: dict) -> list[dict]:
             t = time.perf_counter()
             local = draw_shards(cfg, seed, dev, grid_mesh, place, arch in FMESH_TURNS)
             draw = {"s": time.perf_counter() - t, "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
-            experts = {plan: sub["s0"]["ffn"]["wi_gate"].shape[1] for plan, sub in local.items()
-                       if isinstance(sub, dict) and "ffn" in sub.get("s0", {}) and "router" in sub["s0"]["ffn"]}
+            experts = {f"{plan}.{name}": sl["ffn"]["wi_gate"].shape[1] for plan, sub in local.items()
+                       if isinstance(sub, dict) for name, sl in sub.items()
+                       if isinstance(sl, dict) and "router" in sl.get("ffn", {})}
             extra = stub_inputs(cfg, FMESH_B, device=dev)
             t = time.perf_counter()
             if grid_mesh.shape["data"] > 1:  # gathered over 'data' once (bf16): prefill and decode gather nothing
@@ -3463,7 +3539,8 @@ def families_mesh_ranks(mesh, seed: int, refs: dict) -> list[dict]:
             del served_params
             cast_tree(local, torch.bfloat16, True)  # exact: the values came from bf16
             torch.cuda.empty_cache()
-            train = train_family(cfg, local, dev, seed, arch in FMESH_NO_OPT, grid_mesh, place, extra)
+            train = train_family(cfg, local, dev, seed, arch in FMESH_NO_OPT, grid_mesh, place, extra,
+                                 fmesh_seq(arch))
             reports.append({"arch": arch, "grid": grid, "draw": draw, "serve": served, "train": train,
                             "experts": experts,
                             "devices": sorted({str(t_.device) for t_ in opt.leaves(local)})})
@@ -3507,35 +3584,22 @@ class FamilyRefs:
         return self.result
 
 
-def families_mesh_phase(seed, refs: FamilyRefs | None = None, device="cuda:0") -> dict[str, int]:
-    """Tensor and expert parallelism for the attention-based families
-    (``FAMILIES_MESH``): each cut model's 1x1 run first, in a process of
-    its own (``FamilyRefs``: started beside the lake's draw by ``main``,
-    here when none is given), then 4 gloo ranks on the one card take the
-    groups one after the other (``families_mesh_ranks``).  Held, per group:
-    prefill's and every decode step's logits (float32) within
-    ``SERVE_MESH_TOL`` of max|logit| of 1x1's; the first training step's
-    loss and gradient norm within ``TRAIN_MESH_REL`` of 1x1's; B.6 launches
-    per rank per prefill equal to the plan (``flash_per_prefill``); every
-    cache leaf and parameter shard on the card, each cache leaf at its
-    shard's shape; E/M experts a rank on every MoE layer where M divides
-    E.  Printed per rank: the draw's seconds and peak GB, prefill ms,
-    decode ms (median), ms per step, the collectives' share of serving and
-    of a step, the steps' peak GB.  The path's B.6 launches are the
-    ranks' own, from each group's prefill, decode and steps.  The line is
-    printed before a failed check raises."""
-    from repro_torch import configs
-    from repro_torch.launch import mesh as meshlib
-
-    refs = refs or FamilyRefs(seed, device)
+def _parent_gb(device) -> float:
+    """This process's allocated GB after its cached blocks are released,
+    before 4 ranks share the card."""
     gc.collect()
-    torch.cuda.empty_cache()  # this process's cached blocks, before 4 ranks share the card
-    parent_gb = torch.cuda.memory_allocated(torch.device(device)) / 1e9
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(torch.device(device)) / 1e9
+
+
+def families_mesh_report(refs: FamilyRefs, ranks: list, ranks_s: float, parent_gb: float,
+                         device="cuda:0") -> dict[str, int]:
+    """The ``families_mesh`` line from every rank's reports
+    (``families_mesh_ranks``) against the 1x1 runs of ``refs``; raises
+    after the line if a check failed."""
+    from repro_torch import configs
+
     results = refs.get()
-    t = time.perf_counter()
-    ranks = meshlib.run_ranks(families_mesh_ranks, 4, backend="gloo", devices=[device] * 4, args=(seed, results),
-                              timeout_s=TRAIN_MESH_TIMEOUT_S, env=FMESH_ENV)
-    ranks_s = time.perf_counter() - t
     launches = {name: 0 for name in counters()}
     failed, rows = [], []
     for g, (arch, grid) in enumerate(FAMILIES_MESH):
@@ -3575,7 +3639,7 @@ def families_mesh_phase(seed, refs: FamilyRefs | None = None, device="cuda:0") -
             "encoder_layers": cfg.encoder.n_layers if cfg.encoder is not None else None,
             "mtp": cfg.mtp_depth, "experts_per_rank": group[0]["experts"],
             "cache_specs": group[0]["serve"]["cache_specs"],
-            "tokens": [FMESH_B, FMESH_S], "new": FMESH_NEW, "max_gap": max(gaps, default=None),
+            "tokens": [FMESH_B, fmesh_seq(arch)], "new": FMESH_NEW, "max_gap": max(gaps, default=None),
             "gap_per_step": gaps[: FMESH_NEW + 1], "max_gap_by_rank": by_rank, "serve_tolerance": SERVE_MESH_TOL,
             "greedy_equal_1x1": all(a == np.argmax(ref["logits"][step][r["serve"]["rows"][0]:r["serve"]["rows"][1]],
                                                    axis=-1).tolist()
@@ -3594,14 +3658,80 @@ def families_mesh_phase(seed, refs: FamilyRefs | None = None, device="cuda:0") -
                        "serve_peak_gb": r["serve"]["peak_gb"], "ms_per_step": r["train"]["ms"],
                        "step_comm_share": sum(r["train"]["comm_s"]) / (sum(r["train"]["ms"]) / 1e3),
                        "train_peak_gb": r["train"]["peak_gb"]} for r in group],
-            "single": {"serve_s": ref["serve_s"], "ms_per_step": single["ms"], "peak_gb": single["peak_gb"]},
+            "single": {"serve_s": ref["serve_s"], "ms_per_step": single["ms"], "peak_gb": single["peak_gb"],
+                       "card": ref["card"]},
         })
     emit({"phase": "families_mesh", "gpu": nvidia_smi(), "groups": rows, "single_wall_s": refs.wall_s,
+          "single_card_margin_gb": min(r["card"]["total_gb"] - r["card"]["bound_gb"] for r in results.values()),
           "ranks_wall_s": ranks_s, "parent_allocated_gb": parent_gb, "launches": launches, "failed": failed})
     if failed:
         raise AssertionError(f"families_mesh: {failed}")
     check_counts(launches, ("flash_attention",), "families_mesh path")
     return launches
+
+
+def mesh_ranks(mesh, serve_groups: list, seed: int, refs: dict | None) -> tuple[list, list]:
+    """One rank of ``mesh_serving_phase``: ``serve_mesh``'s groups, then
+    ``families_mesh``'s (none where ``refs`` is None)."""
+    return serve_mesh_ranks(mesh, serve_groups), [] if refs is None else families_mesh_ranks(mesh, seed, refs)
+
+
+def mesh_serving_phase(seed, phases=MESH_PHASES, refs: FamilyRefs | None = None,
+                       device="cuda:0") -> dict[str, dict[str, int]]:
+    """The mesh phases of ``phases``, their groups in one spawn of 4 gloo
+    ranks on the one card (``mesh_ranks``), which start and warm up once.
+
+    ``serve_mesh``: prefill and decode over a mesh (``SERVE_MESH``): for
+    each dense decoder, ``SERVE_MESH_B`` prompts of ``SERVE_MESH_S`` tokens
+    drawn from ``seed`` and ``SERVE_MESH_NEW`` greedy decode steps at 1x1
+    in this process first (``serve_mesh_refs``: published widths, cut to
+    ``SERVE_MESH_LAYERS`` layers, random weights from ``seed`` with the
+    attention projections rescaled, ``conditioned``), then the same prefill
+    and decode tokens on the ranks, one configuration after the other
+    (``serve_mesh_rank``: this rank's shards and rows, the cache placed by
+    ``cache_pspec_for``).  Held: prefill's last-token logits and every
+    decode step's within ``SERVE_MESH_TOL`` of max|logit| of the 1x1 run;
+    B.6 launches per rank per prefill equal to the layers kept; every cache
+    leaf on the card at its local shape.  Printed, not held: the greedy
+    tokens against 1x1's (near ties may flip), prefill and decode ms per
+    rank, the collectives' share.
+
+    ``families_mesh``: tensor and expert parallelism for every family
+    beside the dense decoders (``FAMILIES_MESH``): each cut model's 1x1 run
+    in a process of its own (``refs``: started beside the lake's draw by
+    ``main``, here when none is given), then the ranks take the groups one
+    after the other (``families_mesh_ranks``).  Held, per group: prefill's
+    and every decode step's logits (float32) within ``SERVE_MESH_TOL`` of
+    max|logit| of 1x1's; the first training step's loss and gradient norm
+    within ``TRAIN_MESH_REL`` of 1x1's, and every rank's losses equal; B.6
+    launches per rank per prefill equal to the plan (``flash_per_prefill``);
+    every cache leaf and parameter shard on the card, each cache leaf at
+    its shard's shape; E/M experts a rank on every MoE layer where M
+    divides E.  Printed per rank: the draw's seconds and peak GB, prefill
+    ms, decode ms (median), ms per step, the collectives' share of serving
+    and of a step, the steps' peak GB; per 1x1 run, the card's memory in
+    use beside it.  The path's B.6 launches are the ranks' own, from each
+    group's prefill, decode and steps.
+
+    Each phase's line carries the seconds of the whole spawn and is printed
+    before a failed check raises.  Returns each phase's launches."""
+    from repro_torch.launch import mesh as meshlib
+
+    serve_refs = serve_mesh_refs(seed, device) if "serve_mesh" in phases else None
+    refs = (refs or FamilyRefs(seed, device)) if "families_mesh" in phases else None
+    parent_gb = _parent_gb(device)
+    groups = serve_mesh_groups(seed, serve_refs) if serve_refs else []
+    family_refs = refs.get() if refs else None
+    t = time.perf_counter()
+    ranks = meshlib.run_ranks(mesh_ranks, MESH_SERVING_RANKS, backend="gloo", devices=[device] * MESH_SERVING_RANKS,
+                              args=(groups, seed, family_refs), timeout_s=TRAIN_MESH_TIMEOUT_S, env=FMESH_ENV)
+    wall = time.perf_counter() - t
+    out = {}
+    if serve_refs:
+        out["serve_mesh"] = serve_mesh_report(serve_refs, [r[0] for r in ranks], wall)
+    if refs:
+        out["families_mesh"] = families_mesh_report(refs, [r[1] for r in ranks], wall, parent_gb, device)
+    return out
 
 
 class DryRuns:
@@ -3671,14 +3801,13 @@ def dryrun_phase(runs_started: DryRuns) -> dict[str, int]:
     waited for before the kernel phase (``DryRuns``): ``python -m
     repro_torch.launch.dryrun`` over
     qwen1.5-0.5b's four shapes at 16x16, qwen3-32b's train_4k at both
-    production meshes, train_4k and decode_32k of the four families with
-    tensor and expert parallelism (deepseek-v3's train_4k at 2x16x16 too)
-    and mamba2's, and ``python -m
+    production meshes, train_4k and decode_32k of the six other families
+    (deepseek-v3's train_4k at 2x16x16 too, mamba2's long_500k), and
+    ``python -m
     repro_torch.launch.dryrun_mate`` with its sharded build on 4 gloo ranks
     on the card.  Each cell is rank 0's program traced on fake CUDA tensors
     at the production mesh: planned figures for an H100 cluster, not
-    timings.  Held: every expected cell's status (mamba2's an error
-    naming ROADMAP A.10.12), no kernel launched in a cell
+    timings.  Held: every expected cell's status, no kernel launched in a cell
     (each cell's measured ``kernel_launches`` 0; the trace also raises on
     any), the build byte-identical and B.3 launched by its ranks.  The
     path's launches are the build ranks' own, summed over the ranks (the
@@ -4024,7 +4153,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0, help="seed of the lake and the kernel inputs")
     ap.add_argument("--only", default=None,
                     help=f"comma list of phases to run alone after the build ({', '.join(ONLY_PHASES)}):"
-                         " their lines and wall times, no kernels line and no result line")
+                         " their lines and wall times, no kernels line and no result line (the mesh"
+                         " phases asked for together share one spawn, as in the whole run)")
     args = ap.parse_args()
     only = args.only.split(",") if args.only else None
     if only and set(only) - set(ONLY_PHASES):
@@ -4055,10 +4185,15 @@ def main() -> int:
     refs = FamilyRefs(args.seed) if only is None else None
     try:
         if only:
-            for name in only:
+            mesh = tuple(n for n in MESH_PHASES if n in only)  # the mesh phases asked for share one spawn
+            for name in dict.fromkeys(mesh if n in mesh else n for n in only):
                 t = time.perf_counter()
-                dryrun_phase(dry) if name == "dryrun" else ONLY_PHASES[name](args.seed)
-                emit({"phase": "only", "ran": name, "wall_s": time.perf_counter() - t})
+                if name == mesh:
+                    mesh_serving_phase(args.seed, mesh)
+                else:
+                    dryrun_phase(dry) if name == "dryrun" else ONLY_PHASES[name](args.seed)
+                emit({"phase": "only", "ran": "+".join(mesh) if name == mesh else name,
+                      "wall_s": time.perf_counter() - t})
             return 0
         return _phases(args, dry, refs)
     finally:
@@ -4121,8 +4256,9 @@ def _phases(args, dry: DryRuns, refs: FamilyRefs) -> int:
     run("train", train_phase, args.seed)
     run("train_mesh", train_mesh_phase, args.seed)
     run("pipeline", pipeline_phase, args.seed)
-    run("serve_mesh", serve_mesh_phase, args.seed)
-    run("families_mesh", families_mesh_phase, args.seed, refs)
+    t = time.perf_counter()
+    by_path.update(mesh_serving_phase(args.seed, MESH_PHASES, refs))
+    walls["+".join(MESH_PHASES)] = time.perf_counter() - t
     run("dryrun", dryrun_phase, dry)
     run("driver", driver_phase, args, lake_cells)
     del lake_cells
@@ -4142,9 +4278,10 @@ def _phases(args, dry: DryRuns, refs: FamilyRefs) -> int:
     return 0
 
 
-# the phases ``--only`` runs alone: each needs the kernel build and nothing else
-ONLY_PHASES = {"train_mesh": train_mesh_phase, "pipeline": pipeline_phase, "serve_mesh": serve_mesh_phase,
-               "families_mesh": families_mesh_phase, "dryrun": None}
+# the phases ``--only`` runs alone: each needs the kernel build and nothing
+# else (the mesh phases and the dry runs are run by ``main`` itself)
+ONLY_PHASES = {"train_mesh": train_mesh_phase, "pipeline": pipeline_phase, "serve_mesh": None,
+               "families_mesh": None, "dryrun": None}
 
 
 if __name__ == "__main__":

@@ -54,10 +54,10 @@ for the trace (``MOE_IMPL``, ``MOE_GROUP_SIZE``), as the reference sets
 them, and whisper's frames and the VLM's patches are zero-filled inputs of
 rank 0's rows, as the reference's ``_extra_input_sds``.
 
-A cell that cannot run records ``error``: the SSM and hybrid families over
-the model axis (ROADMAP A.10.12), and each variant field the port does not
-honour, named with its item (``seq_shard=True``: A.10.13;
-``state_dtype=int8`` over a mesh: A.10.15).
+A cell that cannot run records ``error``: each variant field the port does
+not honour, named with its item where it has one (``seq_shard=True``:
+A.10.13; ``state_dtype=int8`` over a mesh: A.10.15; ``remat_policy``
+other than 'full': A.10.16).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch a[,a2...]]
         [--shape s[,s2...]] [--multi-pod | --both-meshes]
@@ -119,22 +119,20 @@ class Variant:
         return v
 
 
-def check_variant(cfg, shape, variant: Variant, mesh) -> None:
+def check_variant(shape, variant: Variant, mesh) -> None:
     """Raise for a cell the port cannot trace: each variant field it does
-    not honour, and the families without tensor parallelism."""
+    not honour."""
     if variant.seq_shard:
         raise NotImplementedError("seq_shard=True: sequence parallelism over the model axis is ROADMAP A.10.13")
     if shape.kind == "train" and variant.state_dtype == "int8" and mesh.size > 1:
         raise NotImplementedError("state_dtype=int8 quantises whole leaves: over a mesh it is ROADMAP A.10.15")
     if variant.remat_policy != "full":
         raise NotImplementedError(f"remat_policy={variant.remat_policy!r}: the port's remat is the whole"
-                                  " block ('full')")
+                                  " block ('full'); the reference's 'dots' / 'none' are ROADMAP A.10.16")
     if variant.flash_threshold != Variant.flash_threshold:
         raise NotImplementedError("flash_threshold: the port runs kernel B.6 at every length")
     if variant.moe_impl not in ("einsum", "scatter"):
         raise ValueError(f"moe_impl={variant.moe_impl!r}: the port has 'einsum' and 'scatter'")
-    if mesh.shape["model"] > 1:
-        transformer.check_model_axis(cfg, f"a model axis of {mesh.shape['model']}")
 
 
 def trace_device() -> str:
@@ -393,7 +391,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool, variant: Variant) ->
     if not ok:
         return {"skipped": True, "reason": reason}
     mesh = meshlib.dry_production_mesh(multi_pod=multi_pod, device=trace_device())
-    check_variant(cfg, shape, variant, mesh)
+    check_variant(shape, variant, mesh)
     got = trace_program(cfg, shape, variant, mesh)
     pbytes = param_bytes_formula(transformer.model_specs(cfg), placement(cfg, mesh, variant.fsdp), mesh)
     if pbytes != got["param_bytes_traced"]:

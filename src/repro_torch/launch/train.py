@@ -22,12 +22,12 @@ mesh, 1x1 included.  Rank 0's ``[train]`` lines are printed when the ranks
 are done, and ``main`` returns rank 0's losses.  The kernels are built once,
 before the ranks are spawned.
 
-``--mesh Dx1`` (FSDP only) takes every arch.  A model axis M > 1 takes
-every attention-based family: the dense decoders, the MoE ones (expert
-parallelism: E/M experts a rank where M divides E, else every expert on
-each), MLA with MTP (deepseek-v3), cross-attention (llama-3.2-vision) and
-the encoder-decoder (whisper); tensor parallelism for the SSM and hybrid
-families (mamba2, jamba) is ROADMAP A.10.12, and such a mesh raises.  Int8 moments are
+``--mesh Dx1`` (FSDP only) and a model axis M > 1 take every arch: the
+dense decoders, the MoE ones (expert parallelism: E/M experts a rank
+where M divides E, else every expert on each), MLA with MTP
+(deepseek-v3), cross-attention (llama-3.2-vision), the encoder-decoder
+(whisper), the SSM (mamba2: its heads split, ``models.ssm``) and the
+hybrid (jamba: SSM, attention and MoE sublayers).  Int8 moments are
 block-quantised over a whole leaf, so ``--state-dtype int8`` takes 1x1
 only (ROADMAP A.10.15).
 """
@@ -84,8 +84,6 @@ def check_mesh(cfg, dp: int, tp: int, args) -> None:
     """Raise ``ValueError`` for a mesh this run cannot use."""
     if dp < 1 or tp < 1:
         raise ValueError(f"--mesh {args.mesh}: both axes must be >= 1")
-    if tp > 1:
-        transformer.check_model_axis(cfg, f"--mesh {args.mesh} (run --mesh {dp * tp}x1)")
     if args.global_batch % dp:
         raise ValueError(f"--global-batch {args.global_batch} does not split over {dp} data ranks")
     if dp * tp > 1 and args.state_dtype == "int8":

@@ -36,12 +36,15 @@ placements), ``prefill`` writes what this rank holds (``_prefill_attn``),
 ``decode_step`` hands each attention, cross-attention and MLA layer the
 axes its slots (or memory positions) are split over, and both return
 logits over the whole vocabulary for this rank's rows.  The model axis
-takes every family but the SSM and hybrid ones (``check_model_axis``:
-ROADMAP A.10.12): the MoE layers run expert parallel (``models.moe``),
+takes every family: the MoE layers run expert parallel (``models.moe``),
 MLA its heads (``models.mla``), cross-attention and whisper's encoder
-the attention's column- and row-parallel path; the MTP module's embedding
-is vocab-parallel like the model's.  The non-dense families need their
-batch split over D, and jamba a mesh of one rank.
+the attention's column- and row-parallel path, the SSM blocks their heads
+(``models.ssm``: 'h' split with them, the 'conv' shard exchanged over
+'model'), and jamba mixes the SSM, attention, MLP and MoE paths; the MTP
+module's embedding is vocab-parallel like the model's.  The families with
+MoE, MLA, cross-attention or an encoder need their batch split over D;
+the dense decoders and the pure SSM take a batch the data axis does not
+divide (every data rank runs all of it).
 """
 
 from __future__ import annotations
@@ -120,7 +123,7 @@ def _layer_fwd(p, cfg, x, positions, mixer, ffn, *, window=0, enc_out=None,
     elif mixer == "mla":
         h = mla.mla_fwd(p["mixer"], cfg, h, positions)
     elif mixer == "ssm":
-        h, _ = ssm.ssm_fwd(p["mixer"], cfg, h)
+        h, _ = ssm.ssm_fwd(p["mixer"], cfg, h, state=False)
     else:
         raise ValueError(mixer)
     return _ffn(p, cfg, x + h, ffn)
@@ -397,36 +400,18 @@ class MeshCache(dict):
         self.specs = specs
 
 
-def check_model_axis(cfg: ModelConfig, where: str) -> None:
-    """Raise ``ValueError`` naming ROADMAP A.10.12 for a family without
-    tensor parallelism over a model axis > 1: the SSM and the hybrid
-    (mamba2, jamba).  Every attention-based family takes one: the dense
-    decoders, MoE (expert parallelism), MLA with MTP, cross-attention and
-    the encoder-decoder.  ``where`` names the caller's use."""
-    if cfg.ssm is not None:
-        raise ValueError(f"{where}: tensor parallelism for {cfg.name}'s SSM layers (the SSM and hybrid"
-                         " families) is ROADMAP A.10.12")
-
-
 def _serve_mesh(cfg: ModelConfig, batch: int | None = None):
     """The activation mesh when serving runs over one (None without), after
-    checking that it can: a model axis M > 1 takes every family but the
-    SSM and hybrid ones (``check_model_axis``); the non-dense families need
-    their batch split over D (their caches and MoE groups do not split
-    below the batch), and jamba a mesh of one rank."""
+    checking that it can: the families with MoE, MLA, cross-attention or an
+    encoder need their batch split over D (their caches and MoE groups do
+    not split below the batch); the dense decoders and the pure SSM do
+    not."""
     mesh = layers._ACT_MESH
     if mesh is None:
         return mesh
-    if layers._ACT_MODEL_SIZE > 1:
-        check_model_axis(cfg, f"serving over a model axis of {layers._ACT_MODEL_SIZE}")
-    dense = (cfg.moe is None and cfg.mla is None and cfg.ssm is None and cfg.encoder is None
-             and cfg.vision is None and cfg.layer_pattern == "uniform")
-    if dense:
-        return mesh
-    if cfg.ssm is not None and cfg.moe is not None and mesh.size > 1:
-        raise ValueError(f"serving {cfg.name} over {mesh.size} ranks: the hybrid of SSM and MoE layers over"
-                         " a mesh is ROADMAP A.10.12")
-    if batch is not None and batch % layers._ACT_BATCH_SIZE:
+    rows_free = (cfg.moe is None and cfg.mla is None and cfg.encoder is None and cfg.vision is None
+                 and cfg.layer_pattern == "uniform")
+    if not rows_free and batch is not None and batch % layers._ACT_BATCH_SIZE:
         raise ValueError(f"serving {cfg.name} over a mesh needs its batch {batch} split over the"
                          f" {layers._ACT_BATCH_SIZE} batch ranks")
     return mesh

@@ -14,7 +14,11 @@ does that work here, by placement (``models.params`` tuples):
   over those ranks and keeps this rank's slice (a reduce-scatter);
 * ``copy_to`` (identity forward, all-reduce backward) and ``reduce_from``
   (all-reduce forward, identity backward): Megatron's two operators at the
-  edges of a tensor-parallel region on the model axis;
+  edges of a tensor-parallel region on the model axis; ``sum_over`` (an
+  all-reduce both ways: a statistic summed over the ranks' slices, as the
+  SSM's gated norm takes) and ``gather_reduce_scatter`` (a gather whose
+  backward is FSDP's: a small leaf gathered whole for work split over the
+  ranks, as the SSM's conv weights);
 * ``vocab_parallel_embed`` and ``vocab_parallel_ce``: the embedding lookup
   and the cross-entropy with the vocabulary split over the model axis (a
   max and two sum all-reduces for the log-sum-exp, the gold logit from the
@@ -334,6 +338,22 @@ class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None, None
+
+
+def sum_over(x: torch.Tensor, mesh, axes="model") -> torch.Tensor:
+    """Partial sums all-reduced over ``axes`` into a value every rank there
+    then uses: the gradient is all-reduced too (``copy_to`` of
+    ``reduce_from``), since each rank's use contributes a part of it."""
+    return copy_to(reduce_from(x, mesh, axes), mesh, axes)
+
+
+def gather_reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """Shards over ``axes`` concatenated along ``dim`` for work that is split
+    over those ranks: each rank's gradient of the whole is a part, so the
+    backward sums them and keeps this rank's slice (a reduce-scatter, as
+    FSDP's backward; counted as 'all-reduce')."""
+    axes = _entry_axes(axes)
+    return _FsdpGather.apply(x, mesh, ((dim, axes),)) if mesh.axis_size(axes) > 1 else x
 
 
 def copy_to(x: torch.Tensor, mesh, axes="model") -> torch.Tensor:

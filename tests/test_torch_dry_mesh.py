@@ -2,11 +2,12 @@
 counted on fake tensors equal those of the same program run for real.
 
 For one train step, one prefill and one decode step of reduced
-qwen1.5-0.5b (KV heads split over 'model') and qwen3-32b (one KV head:
-the cache's slots split), ``launch.dryrun``'s program at 2×2 (data,
-model) is traced on the dry mesh under ``FakeTensorMode`` and run on 4
-real gloo CPU ranks (``torch_serve_worker.program_kinds``): rank 0's
-per-kind counts and bytes are equal.  A real tensor given to a dry mesh
+qwen1.5-0.5b (KV heads split over 'model'), qwen3-32b (one KV head: the
+cache's slots split) and mamba2 (its SSM heads split, the conv exchanged
+over 'model'), ``launch.dryrun``'s program at 2×2 (data, model) is traced
+on the dry mesh under ``FakeTensorMode`` and run on 4 real gloo CPU ranks
+(``torch_serve_worker.program_kinds``): rank 0's per-kind counts and
+bytes are equal.  A real tensor given to a dry mesh
 raises, and a fake tensor reaches no ``_build.load``: each kernel gives it
 its shape rule and counts no launch.
 """
@@ -25,7 +26,8 @@ from repro_torch.launch import dryrun, hlo_cost, mesh as meshlib
 from repro_torch.train import sharding
 
 GRID = {"data": 2, "model": 2}
-RUNS = [(arch, kind, 4, 32) for arch in ("qwen1.5-0.5b", "qwen3-32b") for kind in ("train", "prefill", "decode")]
+RUNS = [(arch, kind, 4, 32) for arch in ("qwen1.5-0.5b", "qwen3-32b", "mamba2-1.3b")
+        for kind in ("train", "prefill", "decode")]
 
 
 @pytest.fixture(scope="module")
@@ -96,19 +98,51 @@ def test_a_fake_tensor_reaches_no_build(monkeypatch):
     assert [w.launches for w in wrappers] == before
 
 
-@pytest.mark.parametrize("arch,grid", [("mamba2-1.3b", {"data": 2, "model": 2}),
-                                       ("mamba2-1.3b", {"data": 1, "model": 2}),
-                                       ("jamba-v0.1-52b", {"data": 2, "model": 1})])
+SSM_SERVE_GRIDS = [("mamba2-1.3b", {"data": 2, "model": 2}), ("mamba2-1.3b", {"data": 1, "model": 2}),
+                   ("jamba-v0.1-52b", {"data": 2, "model": 1})]
+
+
+@pytest.mark.parametrize("arch,grid", SSM_SERVE_GRIDS)
+def test_ssm_caches_are_their_shards_over_a_mesh(arch, grid):
+    """The SSM and hybrid families serve over a model axis and over the
+    data axis: each SSM cache leaf is its shard under ``cache_pspec_for``
+    ('h' by heads, 'conv' by channels, both by rows)."""
+    from repro_torch.models import layers, transformer
+
+    cfg = configs.reduce_config(configs.get_config(arch))
+    mesh = meshlib.dry_grid_mesh(grid, device="cpu")
+    plan = transformer.group_plans(cfg)[0]
+    layers.enable_activation_sharding(mesh, vocab_size=cfg.vocab_size)
+    try:
+        with FakeTensorMode():
+            cache = transformer.init_cache(cfg, 4, 16)
+            for key in ("h", "conv", "pos"):
+                spec = cache.specs[plan.name]["s0"][key]
+                whole = transformer._layer_cache(cfg, "ssm", 4, 16, device="meta")[key].shape
+                want = transformer._local_shape((plan.n, *whole), spec, mesh)
+                assert tuple(cache[plan.name]["s0"][key].shape) == want, (key, spec)
+    finally:
+        layers.disable_activation_sharding()
+
+
+@pytest.mark.parametrize("arch,grid", SSM_SERVE_GRIDS)
 def test_serving_the_other_families_over_a_mesh_names_its_item(arch, grid):
-    """Over a model axis the SSM and hybrid families raise; over the data
-    axis the hybrid does too (SSM and MoE layers together)."""
+    """The one refusal left to the SSM and hybrid families over a mesh
+    names its rule: the hybrid (MoE layers) needs its batch split over the
+    data ranks, the pure SSM does not (the shards themselves:
+    ``test_ssm_caches_are_their_shards_over_a_mesh``)."""
     from repro_torch.models import layers, transformer
 
     cfg = configs.reduce_config(configs.get_config(arch))
     mesh = meshlib.dry_grid_mesh(grid, device="cpu")
     layers.enable_activation_sharding(mesh, vocab_size=cfg.vocab_size)
     try:
-        with FakeTensorMode(), pytest.raises(ValueError, match="A.10.12"):
-            transformer.init_cache(cfg, 4, 16)
+        with FakeTensorMode():
+            if cfg.moe is not None:
+                with pytest.raises(ValueError, match="split over the 2 batch ranks"):
+                    transformer.init_cache(cfg, 3, 16)
+            else:
+                cache = transformer.init_cache(cfg, 3, 16)
+                assert cache[transformer.group_plans(cfg)[0].name]["s0"]["h"].shape[1] == 3
     finally:
         layers.disable_activation_sharding()

@@ -10,9 +10,12 @@ reference's.
 * a traced cell carries every key of the reference's record, and
   ``benchmarks/roofline.py`` reads it (``load_cells(out_dir=...)``,
   ``terms``);
-* the cells the port cannot trace are ``error`` records that name their
-  ROADMAP item: the SSM and hybrid families over the model axis
-  (A.10.12) and ``seq_shard=True`` (A.10.13);
+* mamba2's decode_32k cell is ``ok``: its SSM heads split over 'model',
+  its arguments the parameter shards, the cache shards ('h', 'conv',
+  'pos' by the reference's ``cache_pspec_for``, each leaf's bytes over
+  the product of its axes' sizes) and the token rows;
+* a cell the port cannot trace is an ``error`` record that names its
+  ROADMAP item (``seq_shard=True``: A.10.13);
 * ``python -m repro_torch.launch.dryrun`` writes a train cell here, on a
   CPU-only host without ``nvcc``.
 """
@@ -152,8 +155,28 @@ def test_roofline_reads_a_port_cell(cells):
     assert row["t_compute_s"] > 0 and row["t_memory_s"] > 0 and row["t_collective_s"] > 0
 
 
+def test_ssm_decode_cell_holds_its_cache_shards(cells):
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.models import transformer
+
+    rec = _read(cells, "mamba2-1.3b__decode_32k__16x16.json")
+    assert "error" not in rec, rec.get("error")
+    assert rec["kernel_launches"] == 0 and rec["collectives"]["all-gather"]["count"] > 0
+    cfg, shape = configs.get_config("mamba2-1.3b"), SHAPES["decode_32k"]
+    mesh = meshlib.dry_production_mesh(device="cpu")
+    plan = transformer.group_plans(cfg)[0]
+    cache = 0
+    for key, t in transformer._layer_cache(cfg, "ssm", shape.global_batch, shape.seq_len, device="meta").items():
+        whole = (plan.n, *t.shape)
+        denom = 1
+        for entry in meshlib.cache_pspec_for(key, whole, mesh):
+            denom *= mesh.axis_size(entry) if entry is not None else 1
+        cache += t.numel() * plan.n * t.element_size() // denom
+    token = shape.global_batch // 16 * 8  # this rank's int64 rows
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == rec["param_bytes_per_device"] + cache + token
+
+
 @pytest.mark.parametrize("name,item", [
-    ("mamba2-1.3b__decode_32k__16x16.json", "A.10.12"),
     ("qwen1.5-0.5b__prefill_32k__16x16__sp.json", "A.10.13"),
 ])
 def test_cells_the_port_cannot_trace_name_their_item(cells, name, item):

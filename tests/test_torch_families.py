@@ -31,13 +31,18 @@ the reference's own move under that one-ulp nudge (``_one_ulp``, the
 witness ``chip_smoke.py`` also prints) is below the bound
 (``test_bf16_bound_above_reference_sensitivity``).  jamba stays chaotic
 on the rescaled weights — its MoE routing (top-2 of 4, router logits of
-standard deviation ~0.16) flips on near-ties, and the one-ulp move is
-0.35, the bound itself — so its bf16 logits, prefill and decode, and
-cache values are not compared (``BF16_CHAOTIC``, ROADMAP C.17): its
-shapes, dtypes, finiteness, aux loss and int32 cache leaves are, and its
-float32 run and every sublayer are held like the others'.  Every
-sublayer of every family is held on its own, fed the reference's input,
-within 0.05 of its output (``test_sublayers_match_reference``).
+standard deviation ~0.16) flips on near-ties, and its one-ulp move with
+the router free is 0.35, the bound itself (ROADMAP C.17) — so its bf16
+run is held with the router's choices shared between the packages
+(``SHARED_ROUTING``, fixture ``shared_routing``): the reference's top-k
+records each call's experts, in call order, and the port's router takes
+them in the same order, its own probabilities gathered there; the
+reference's one-ulp witness replays its first run's choices into the
+nudged one.  Everything else of the MoE layer (the router's
+probabilities, the capacity fill, the experts, the combine) runs as
+without the tape.  Every sublayer of every family is held on its own,
+fed the reference's input, within 0.05 of its output
+(``test_sublayers_match_reference``).
 The encoder's and the cross-attention's frontend inputs come from
 each package's ``stub_inputs`` (equal bit for bit).
 
@@ -83,26 +88,95 @@ HERE = ["qwen2-moe-a2.7b", "mamba2-1.3b"]
 B, S, MAX_SEQ = 2, 20, 48
 
 
-# the arch whose bf16 whole-model output is not compared (module docstring)
-BF16_CHAOTIC = {"jamba-v0.1-52b"}
+# the arch whose bf16 whole-model runs share the router's choices (module docstring)
+SHARED_ROUTING = {"jamba-v0.1-52b"}
 
 
 def _tol(cfg) -> float:
     return 0.35 if (cfg.ssm is not None and cfg.moe is not None) else 0.05
 
 
-def _one_ulp(ref_cfg, ref_p, tokens, ref_ex) -> float:
+def _one_ulp(ref_cfg, ref_p, tokens, ref_ex, routing=None) -> float:
     """How far the reference's forward moves, in max|logit|, when block 0's
     first norm scale (1.0) moves one bf16 ulp (its XLA attention, compiled
-    once for both calls)."""
-    fwd = jax.jit(lambda p: ref_tf.forward(p, ref_cfg, jnp.asarray(tokens), remat=False, **ref_ex)[0])
-    want = fwd(ref_p)
+    once for both calls; with ``routing``, a ``_SharedRouting``, the nudged
+    run is compiled apart and takes the first run's router choices)."""
+    def fwd(p):
+        return ref_tf.forward(p, ref_cfg, jnp.asarray(tokens), remat=False, **ref_ex)[0]
+
+    run = jax.jit(fwd)
+    want = run(ref_p)
     group = ref_tf.group_plans(ref_cfg)[0].name
     nudged = jax.tree.map(lambda a: a, ref_p)
     norm = nudged[group]["s0"]["mixer_norm"]
     norm["scale"] = norm["scale"].at[0, 0].add(2.0 ** -7)
-    moved = fwd(nudged)
+    if routing is not None:
+        routing.replay_reference()
+        run = jax.jit(lambda p: fwd(p))
+    moved = run(nudged)
+    if routing is not None:
+        routing.consumed()
     return float(jnp.max(jnp.abs(moved - want))) / _scale(want)
+
+
+class _SharedRouting:
+    """The router's choices shared between the packages: the reference's
+    ``jax.lax.top_k`` in ``repro.models.moe`` appends each call's experts
+    to a tape (an ordered ``jax.debug.callback``, so it works under jit and
+    scan); the port's ``torch.topk`` in ``repro_torch.models.moe`` takes
+    them off it in call order and gathers its own probabilities there.
+    After ``replay_reference`` the reference's top-k takes them off the
+    tape too (an ordered ``io_callback``)."""
+
+    def __init__(self, monkeypatch):
+        from jax.experimental import io_callback
+
+        self.tape, self.replaying = [], False
+        top_k = jax.lax.top_k
+
+        def ref_top_k(probs, k):
+            if self.replaying:
+                idx = io_callback(lambda: self.tape.pop(0), jax.ShapeDtypeStruct(probs.shape[:-1] + (k,), jnp.int32),
+                                  ordered=True)
+                return jnp.take_along_axis(probs, idx, axis=-1), idx
+            vals, idx = top_k(probs, k)
+            jax.debug.callback(lambda a: self.tape.append(np.asarray(a, np.int32)), idx, ordered=True)
+            return vals, idx
+
+        def port_topk(probs, k, dim=-1):
+            jax.effects_barrier()
+            idx = torch.tensor(self.tape.pop(0), dtype=torch.long).reshape(*probs.shape[:-1], k)
+            return probs.gather(-1, idx), idx
+
+        monkeypatch.setattr(ref_moe, "jax", _With(jax, lax=_With(jax.lax, top_k=ref_top_k)))
+        monkeypatch.setattr(moe, "torch", _With(torch, topk=port_topk))
+
+    def replay_reference(self) -> None:
+        jax.effects_barrier()
+        self.replaying = True
+
+    def consumed(self) -> None:
+        """Check that every recorded choice was taken (one router call on
+        each side for each)."""
+        jax.effects_barrier()
+        assert not self.tape, f"{len(self.tape)} router calls of the reference were not replayed"
+
+
+class _With:
+    """``module`` with some attributes replaced."""
+
+    def __init__(self, module, **attrs):
+        self._module = module
+        self.__dict__.update(attrs)
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
+@pytest.fixture
+def shared_routing(pair, monkeypatch):
+    """A ``_SharedRouting`` for an arch of ``SHARED_ROUTING``, else None."""
+    return _SharedRouting(monkeypatch) if pair[2].cfg.name.removesuffix("-smoke") in SHARED_ROUTING else None
 
 
 def _generous(cfg):
@@ -151,15 +225,13 @@ def _scale(want) -> float:
 
 def make_pair(name: str):
     """(ref cfg, ref params, port model, tokens [B, S + 1], ref extra
-    inputs, port extra inputs, (bf16 bound, whether the bf16 logits are
-    compared)) for one family."""
+    inputs, port extra inputs, the bf16 bound) for one family."""
     ref_cfg, cfg = _cfgs(name)
     ref_p = _ref_params(name)
     model = TransformerLM(cfg, params.from_reference(jax.tree.map(np.asarray, ref_p), "cpu"))
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(B, S + 1)).astype(np.int32)
     ref_ex = ref_pipeline.stub_inputs(ref_cfg, B)
-    bf16 = (_tol(cfg), name not in BF16_CHAOTIC)
-    return (ref_cfg, ref_p, model, tokens, ref_ex, pipeline.stub_inputs(cfg, B, device="cpu"), bf16)
+    return (ref_cfg, ref_p, model, tokens, ref_ex, pipeline.stub_inputs(cfg, B, device="cpu"), _tol(cfg))
 
 
 @pytest.fixture(scope="module", params=HERE)
@@ -221,23 +293,29 @@ def test_stub_inputs_equal_reference(name):
         assert np.array_equal(got[k].float().numpy(), np.asarray(want[k], np.float32))
 
 
-def test_bf16_bound_above_reference_sensitivity(pair, reference_flash):  # noqa: F811
+def test_bf16_bound_above_reference_sensitivity(pair, reference_flash, shared_routing):  # noqa: F811
     """The premise of the bf16 comparisons: the reference's own logits
     (its attention as in the comparisons) move by less than the bound when
-    one weight moves one bf16 ulp; for the chaotic arch, that they move by
-    more than half of it (so its exclusion is still needed)."""
-    ref_cfg, ref_p, _model, tokens, ref_ex, _ex, (bound, compared) = pair
-    one_ulp = _one_ulp(ref_cfg, ref_p, tokens, ref_ex)
-    assert one_ulp < bound if compared else one_ulp > bound / 2, (one_ulp, bound)
+    one weight moves one bf16 ulp — with the router's choices of the
+    first run kept for the arch that shares them."""
+    ref_cfg, ref_p, _model, tokens, ref_ex, _ex, bound = pair
+    one_ulp = _one_ulp(ref_cfg, ref_p, tokens, ref_ex, shared_routing)
+    assert one_ulp < bound, (one_ulp, bound)
 
 
-def test_forward_matches_reference(pair, reference_flash):  # noqa: F811
-    ref_cfg, ref_p, model, tokens, ref_ex, ex, (bound, compared) = pair
+def _taken(routing) -> None:
+    if routing is not None:
+        routing.consumed()
+
+
+def test_forward_matches_reference(pair, reference_flash, shared_routing):  # noqa: F811
+    ref_cfg, ref_p, model, tokens, ref_ex, ex, bound = pair
     want, want_aux = ref_tf.forward(ref_p, ref_cfg, jnp.asarray(tokens), remat=False, **ref_ex)
     got, aux = transformer.forward(model.params, model.cfg, torch.from_numpy(tokens).long(), **ex)
+    _taken(shared_routing)
     assert got.shape == (B, S + 1, ref_cfg.vocab_size) and got.dtype == torch.float32
     assert bool(torch.isfinite(got).all())
-    assert not compared or _rel(got, want, _scale(want)) < bound
+    assert _rel(got, want, _scale(want)) < bound
     assert aux.dtype == torch.float32 and aux.shape == ()
     assert abs(float(aux) - float(want_aux)) <= 0.05 * abs(float(want_aux)) + 1e-9
 
@@ -249,7 +327,7 @@ def _prefill_both(pair):
     return ref_cfg, model, want_pre, want_cache, got_pre, cache
 
 
-def _check_cache(cache, want_cache, tol, compared=True):
+def _check_cache(cache, want_cache, tol):
     want_leaves = jax.tree_util.tree_flatten_with_path(want_cache)[0]
     assert sum(1 for _ in _leaves(cache)) == len(want_leaves)
     for path, want in want_leaves:
@@ -263,20 +341,22 @@ def _check_cache(cache, want_cache, tol, compared=True):
             assert str(got.dtype).endswith(str(want.dtype)), path
             assert bool(torch.isfinite(got).all()), path
             err = np.max(np.abs(got.float().numpy() - np.asarray(want, np.float32)))
-            assert not compared or err <= tol * float(jnp.max(jnp.abs(want))) + 1e-6, path
+            assert err <= tol * float(jnp.max(jnp.abs(want))) + 1e-6, path
 
 
-def test_prefill_and_decode_match_reference(pair, reference_flash):  # noqa: F811
+def test_prefill_and_decode_match_reference(pair, reference_flash, shared_routing):  # noqa: F811
     ref_cfg, model, want_pre, want_cache, got_pre, cache = _prefill_both(pair)
-    tol, compared = pair[-1]
+    _taken(shared_routing)
+    tol = pair[-1]
     assert bool(torch.isfinite(got_pre).all())
-    assert not compared or _rel(got_pre, want_pre, _scale(want_pre)) < tol
-    _check_cache(cache, want_cache, tol, compared)
+    assert _rel(got_pre, want_pre, _scale(want_pre)) < tol
+    _check_cache(cache, want_cache, tol)
     tokens = pair[3]
     want_dec, _ = ref_tf.decode_step(pair[1], ref_cfg, jnp.asarray(tokens[:, S]), want_cache)
     got_dec, cache = model.decode_step(tokens[:, S], cache)
+    _taken(shared_routing)
     assert got_dec.shape == tuple(want_dec.shape) and bool(torch.isfinite(got_dec).all())
-    assert not compared or _rel(got_dec, want_dec, _scale(want_dec)) < tol
+    assert _rel(got_dec, want_dec, _scale(want_dec)) < tol
     for _path, leaf in _leaves(cache):  # every position counter moved on
         if leaf.dtype == torch.int32 and leaf.dim() == 2 and _path.endswith("['pos']"):
             assert leaf.tolist() == [[S + 1] * B] * leaf.shape[0]

@@ -8,6 +8,7 @@ import pytest
 from test_torch_families import (  # noqa: F401  (the shared tests)
     check_sublayers,
     make_pair,
+    shared_routing,
     test_bf16_bound_above_reference_sensitivity,
     test_decode_consistency_within_port,
     test_float32_forward_prefill_decode_match_reference,

@@ -18,7 +18,9 @@ expert parallelism over the model axis: qwen2-moe, deepseek-v3 (MLA, MoE,
 MTP; naive MLA decode, the dry run's default), whisper and
 llama-3.2-vision, each under the dry run's default MoE rule ('scatter':
 the one group's capacity rows split over the data ranks where they
-divide, as the reference's placement of the expert buffer splits them).
+divide, as the reference's placement of the expert buffer splits them),
+and for the SSM and hybrid families: mamba2 (its heads split over
+'model') and jamba (SSM, attention, MLP and MoE sublayers).
 """
 
 import dataclasses
@@ -38,7 +40,8 @@ from repro_torch.launch import dryrun, hlo_cost, mesh as meshlib
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "qwen1.5-0.5b"
-FAMILIES = ("qwen2-moe-a2.7b", "deepseek-v3-671b", "whisper-base", "llama-3.2-vision-11b")
+FAMILIES = ("qwen2-moe-a2.7b", "deepseek-v3-671b", "whisper-base", "llama-3.2-vision-11b", "mamba2-1.3b",
+            "jamba-v0.1-52b")
 SHAPES = {"train": (8, 64), "prefill": (8, 64), "decode": (8, 64)}
 BOUNDS = {"train": 0.15, "prefill": 0.05, "decode": 0.05}
 

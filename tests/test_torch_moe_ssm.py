@@ -10,6 +10,11 @@ and ``models.ssm`` against the reference's.
   from a zero and from a given state, and ``ssm_fwd`` / ``ssm_decode``'s
   output and state: within 2e-2 of max|·| (bf16 contractions summed in
   other orders; both agree to 1e-6 in float32), the conv ring exactly.
+* the block's gradient at a 256-token chunk, where the reference's
+  exp-then-mask decay overflows and its gradient is NaN (ROADMAP C.20):
+  the port's is finite and equals its own at a 16-token chunk (the chunked
+  algorithm is exact at any chunk; float64 weights and input, the decay
+  and state in float32 as the port computes them), within 1e-4 of max|·|.
 """
 
 import jax
@@ -176,3 +181,30 @@ def test_ssm_decode_state_matches_reference():
     want_fresh = ref_ssm.init_ssm_state(ref_cfg, B)
     for k, v in want_fresh.items():
         assert tuple(fresh[k].shape) == v.shape and str(fresh[k].dtype).endswith(str(v.dtype))
+
+
+def test_ssm_gradient_is_finite_past_the_decay_overflow():
+    """S = 512 tokens in one 256-token chunk pair: the reference's gradient
+    of the decay parameters is NaN there, the port's is finite and equal to
+    its gradient at chunk 16."""
+    import dataclasses
+
+    ref_cfg = ref_configs.reduce_config(ref_configs.get_config("mamba2-1.3b"))
+    ref_cfg = dataclasses.replace(ref_cfg, ssm=dataclasses.replace(ref_cfg.ssm, chunk=256))
+    ref_p = ref_params.materialize(ref_ssm.ssm_specs(ref_cfg), jax.random.PRNGKey(0))
+    u = np.random.default_rng(1).standard_normal((B, 512, ref_cfg.d_model)).astype(np.float32)
+    g = jax.grad(lambda p: ref_ssm.ssm_fwd(p, ref_cfg, jnp.asarray(u))[0].astype(jnp.float32).sum())(ref_p)
+    assert not bool(jnp.isfinite(g["A_log"]).all())
+
+    def grads(chunk: int) -> dict:
+        cfg = configs.reduce_config(configs.get_config("mamba2-1.3b"))
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk=chunk))
+        p = {k: torch.from_numpy(np.asarray(v, np.float64)).requires_grad_(True) for k, v in ref_p.items()}
+        ssm.ssm_fwd(p, cfg, torch.from_numpy(u).double(), state=False)[0].sum().backward()
+        return {k: t.grad for k, t in p.items()}
+
+    long, short = grads(256), grads(16)
+    for k in long:
+        assert bool(torch.isfinite(long[k]).all()), k
+        scale = float(short[k].abs().max()) + 1e-30
+        assert float((long[k] - short[k]).abs().max()) / scale < 1e-4, k

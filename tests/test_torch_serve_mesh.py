@@ -30,7 +30,12 @@ last step) are held within 1e-5 of max|value| of the reference's.
 * reduced whisper: the encoder's frames split with the rows, the
   cross-attention cache's 4 KV heads over 'model';
 * reduced llama-3.2-vision: one KV head, so the cross-attention memory's
-  8 positions are split over 'model' and merged at decode.
+  8 positions are split over 'model' and merged at decode;
+* reduced mamba2: each rank's 4 of the 8 SSM heads, its 'h' heads and
+  its even slice of 'conv' (80 of conv_dim 160, against 64 x channels),
+  the prompt's 12 tokens one chunk of 16;
+* reduced jamba: one 8-sublayer block of SSM, attention (one KV head: its
+  slots split over 'model') and MoE (2 of 4 experts a rank) sublayers.
 
 Whisper's frames and the VLM's patches are one float32 draw (numpy, seed
 1) handed to both.
@@ -51,7 +56,8 @@ from repro_torch.train import sharding
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("qwen1.5-0.5b", "qwen3-32b", "h2o-danube-3-4b", "qwen2-moe-a2.7b", "qwen2-moe-a2.7b:gathered",
-         "deepseek-v3-671b", "deepseek-v3-671b:naive", "whisper-base", "llama-3.2-vision-11b")
+         "deepseek-v3-671b", "deepseek-v3-671b:naive", "whisper-base", "llama-3.2-vision-11b", "mamba2-1.3b",
+         "jamba-v0.1-52b")
 B, S, MAX_SEQ, N_DECODE = 4, 12, 24, 4
 TOL = 1e-5
 
@@ -184,7 +190,8 @@ def test_cache_shard_matches_gspmd(pair, phase):
 def test_placements_split_heads_or_slots(both):
     """qwen1.5's KV heads over 'model'; qwen3's and h2o-danube's slots;
     MLA's latent slots; the cross-attention memory's KV heads (whisper) or
-    its positions (the VLM's one KV head)."""
+    its positions (the VLM's one KV head); the SSM state's heads and the
+    conv state's channels (mamba2, jamba), jamba's attention slots."""
     k = "['layers']['s0']['k']"
     assert both["qwen1.5-0.5b"][1]["specs"][k] == (None, "data", None, "model", None)
     for arch in ("qwen3-32b", "h2o-danube-3-4b"):
@@ -193,6 +200,11 @@ def test_placements_split_heads_or_slots(both):
         assert both[name][1]["specs"]["['moe']['s0']['ckv']"] == (None, "data", "model", None), name
     assert both["whisper-base"][1]["specs"]["['dec']['s1']['k']"] == (None, "data", None, "model", None)
     assert both["llama-3.2-vision-11b"][1]["specs"]["['blocks']['s1']['k']"] == (None, "data", "model", None, None)
+    for name, sub in (("mamba2-1.3b", "['layers']['s0']"), ("jamba-v0.1-52b", "['blocks']['s0']")):
+        specs = both[name][1]["specs"]
+        assert specs[sub + "['h']"] == (None, "data", "model", None, None), name
+        assert specs[sub + "['conv']"] == (None, "data", None, "model"), name
+    assert both["jamba-v0.1-52b"][1]["specs"]["['blocks']['s4']['k']"] == (None, "data", "model", None, None)
 
 
 def test_gathered_shards_gather_no_weights(both):

@@ -8,9 +8,9 @@ train step on the CPU, beside the reference's.
 * a run that a SIGTERM marks preempted saves and exits after the step;
 * the port resumes from a checkpoint the reference's driver wrote, and its
   next step's loss is the reference's own resumed step's (bf16, within
-  2e-2); ``--mesh`` with a model axis > 1 raises for the SSM and hybrid
-  families, naming ROADMAP A.10.12, and the driver accepts it for the
-  others (D×M runs: ``test_torch_train_mesh*.py``);
+  2e-2); ``--mesh`` with a model axis > 1 takes every family, and raises
+  with int8 moments, naming ROADMAP A.10.15 (D×M runs:
+  ``test_torch_train_mesh*.py``);
 * two ``make_train_step`` steps (AdamW included, float32, weights carried
   across) give the reference's losses and gradient norms.
 """
@@ -86,16 +86,13 @@ def test_port_resumes_a_reference_checkpoint(tmp_path):
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-1.3b", "jamba-v0.1-52b", "deepseek-v3-671b",
                                   "whisper-base", "llama-3.2-vision-11b"])
 def test_mesh_other_than_1x1_raises(arch):
-    """A model axis > 1 takes every attention-based family; the SSM and
-    hybrid families' tensor parallelism is ROADMAP A.10.12 (their data axis
-    runs), and the driver refuses it before spawning a rank."""
+    """A model axis > 1 takes every family, the SSM and hybrid ones
+    included; with int8 moments the driver refuses it before spawning a
+    rank (ROADMAP A.10.15)."""
     args = train.parse_args(["--smoke", "--arch", arch, "--mesh", "2x2", "--device", "cpu"])
-    cfg = train._config(args)
-    if cfg.ssm is None:
-        assert train.check_mesh(cfg, 2, 2, args) is None
-        return
-    with pytest.raises(ValueError, match="ROADMAP A.10.12"):
-        train.main(["--smoke", "--arch", arch, "--mesh", "2x2", "--device", "cpu"])
+    assert train.check_mesh(train._config(args), 2, 2, args) is None
+    with pytest.raises(ValueError, match="ROADMAP A.10.15"):
+        train.main(["--smoke", "--arch", arch, "--mesh", "2x2", "--device", "cpu", "--state-dtype", "int8"])
 
 
 def test_train_steps_follow_reference(monkeypatch):

@@ -1,7 +1,7 @@
 """Training over the data axis (``--mesh 2x1``, FSDP only) for the families
 other than the dense decoders, and over a (data, model) mesh (``--mesh
-2x2``: tensor and expert parallelism) for the attention-based ones,
-against the port's own 1×1.
+2x2``: tensor and expert parallelism) for all of them, against the port's
+own 1×1.
 
 As ``test_torch_train_mesh.py``: float32 on every rank, each run resuming
 one conditioned step-0 checkpoint of the driver's own draw, 4 steps at the
@@ -20,11 +20,13 @@ float32 ulp on one router weight moves its 1×1 run's 4th-step gradient
 norm by ~9e-2 (``nudge``, the witness run here), and the 2×1 run stays
 within that run's own spread at every step.
 
-At 2×2 the attention-based families — qwen2-moe (2 of its 4 experts a
-rank, the shared expert split with them), deepseek-v3 (MLA's heads, 2
-experts a rank, MTP), whisper and llama-3.2-vision (self- and
-cross-attention, the encoder's layers) — are held at the same 1e-5 over 4
-steps; mamba2 and jamba raise naming ROADMAP A.10.12 there.
+At 2×2 every family — qwen2-moe (2 of its 4 experts a rank, the shared
+expert split with them), deepseek-v3 (MLA's heads, 2 experts a rank,
+MTP), whisper and llama-3.2-vision (self- and cross-attention, the
+encoder's layers), mamba2 (4 of its 8 SSM heads a rank, the conv's even
+split of conv_dim out of line with x's) and jamba (its SSM, attention, MLP
+and MoE sublayers) — is held at the same 1e-5 over 4 steps, jamba at its
+first step and then within the nudged 1×1 run's spread, as at 2×1.
 """
 
 import shutil
@@ -39,7 +41,6 @@ FAMILIES = ("qwen2-moe-a2.7b", "mamba2-1.3b", "jamba-v0.1-52b", "deepseek-v3-671
             "llama-3.2-vision-11b")
 MOE = ("qwen2-moe-a2.7b", "jamba-v0.1-52b", "deepseek-v3-671b")
 CHAOTIC = {"jamba-v0.1-52b": "['params']['blocks']['s1']['ffn']['router']"}
-MODEL_PARALLEL = ("qwen2-moe-a2.7b", "deepseek-v3-671b", "whisper-base", "llama-3.2-vision-11b")
 
 
 def _args(arch, mesh, ckpt_dir) -> dict:
@@ -56,7 +57,7 @@ def runs(tmp_path_factory):
     out = {}
     for mesh in ("1x1", "2x1", "2x2"):
         todo = []
-        for arch in FAMILIES if mesh != "2x2" else MODEL_PARALLEL:
+        for arch in FAMILIES:
             shutil.copytree(tmp / arch / "start", tmp / arch / mesh)
             todo.append(_args(arch, mesh, str(tmp / arch / mesh)))
         if mesh == "1x1":
@@ -65,7 +66,7 @@ def runs(tmp_path_factory):
                 worker.nudge(str(tmp / arch / "nudged"), leaf)
                 todo.append(_args(arch, mesh, str(tmp / arch / "nudged")))
         reports = spawn(mesh, todo)[0]
-        out[mesh] = dict(zip(FAMILIES if mesh != "2x2" else MODEL_PARALLEL, reports))
+        out[mesh] = dict(zip(FAMILIES, reports))
         out["nudged"] = dict(zip(CHAOTIC, reports[len(FAMILIES):])) if mesh == "1x1" else out["nudged"]
     return out
 
@@ -76,28 +77,25 @@ def _steps(a: dict, b: dict) -> list:
             zip(a["losses"], b["losses"], a["grad_norm"], b["grad_norm"])]
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_data_parallel_steps_match_1x1(runs, arch):
-    ref, got = runs["1x1"][arch], runs["2x1"][arch]
+def _held(got: dict, ref: dict, witness: dict | None) -> None:
+    """``got`` within 1e-5 of the 1×1 run ``ref`` at every step, or, for a
+    chaotic arch (``witness``: its nudged 1×1 run), at the first step and
+    then within the witness's own spread."""
     assert len(got["losses"]) == STEPS and got["devices"] == ["cpu"]
-    if arch not in CHAOTIC:
+    if witness is None:
         assert rel(got["losses"], ref["losses"]) <= TOL, (got["losses"], ref["losses"])
         assert rel(got["grad_norm"], ref["grad_norm"]) <= TOL, (got["grad_norm"], ref["grad_norm"])
         return
-    gaps, witness = _steps(got, ref), _steps(runs["nudged"][arch], ref)
+    gaps, spread = _steps(got, ref), _steps(witness, ref)
     assert gaps[0] <= TOL, gaps
-    assert max(gaps) <= max(witness), (gaps, witness)
+    assert max(gaps) <= max(spread), (gaps, spread)
 
 
-@pytest.mark.parametrize("arch", MODEL_PARALLEL)
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_data_parallel_steps_match_1x1(runs, arch):
+    _held(runs["2x1"][arch], runs["1x1"][arch], runs["nudged"].get(arch))
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
 def test_model_parallel_steps_match_1x1(runs, arch):
-    ref, got = runs["1x1"][arch], runs["2x2"][arch]
-    assert len(got["losses"]) == STEPS and got["devices"] == ["cpu"]
-    assert rel(got["losses"], ref["losses"]) <= TOL, (got["losses"], ref["losses"])
-    assert rel(got["grad_norm"], ref["grad_norm"]) <= TOL, (got["grad_norm"], ref["grad_norm"])
-
-
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-v0.1-52b"])
-def test_model_axis_raises_for_the_ssm_families(arch):
-    with pytest.raises(ValueError, match="ROADMAP A.10.12"):
-        train.main(ARGV + ["--arch", arch, "--mesh", "2x2"])
+    _held(runs["2x2"][arch], runs["1x1"][arch], runs["nudged"].get(arch))
