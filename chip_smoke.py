@@ -140,20 +140,30 @@ Phases, each printing one JSON line:
    the uninterrupted run's within 1e-3, the conditioned run's loss falling
    by ``TRAIN_LOSS_FALL``; then one float32 step at 2 layers through B.6
    against the same step with the plain attention (loss and
-   attention-weight gradients within 1e-3); ms per step, tokens/s, peak GB,
-   the gradient norms and the attention backward's share of the step;
-11b. train_mesh — ``launch.train.run`` (``main``'s work) at qwen1.5-0.5b's
-   published widths, cut to 6 of its 24 layers (``--layers``, as
-   ``families`` cuts jamba and deepseek-v3), with ``--mesh 2x2``
+   attention-weight gradients within 1e-3); then 3 steps under each of the
+   block's other remat policies (``transformer.REMAT_POLICY`` 'dots' and
+   'none') from the conditioned draw, with that run's settings and
+   batches: losses and gradient norms equal to its first 3 steps' within
+   1e-6, B.6 launches 2 / 1 per attention layer a step; ms per step,
+   tokens/s, peak GB (per policy too), the gradient norms and the
+   attention backward's share of the step;
+11b. train_mesh — ``launch.train``'s ``--mesh 2x2`` run (its rank body,
+   ``_rank``) at qwen1.5-0.5b's published widths, cut to 6 of its 24
+   layers (``--layers``, as ``families`` cuts jamba and deepseek-v3)
    (``TRAIN_MESH``: 4 gloo ranks on the one card, FSDP over 'data', tensor
-   parallel over 'model', [8, 512] batches, 4 steps, a checkpoint every 2),
-   then ``--mesh 1x1``, both from one step-0 checkpoint of the driver's
-   draw with its attention projections rescaled, then ``--mesh 1x1``
-   resumed from the mesh run's step-2 checkpoint: parameters and moments
-   on the card on every rank, 2 B.6 launches per rank, layer and step at
-   [4, 512, 8, 64], the first step's loss and gradient norm and the
-   resumed losses within 2e-2 of 1x1's / the mesh run's; ms per step,
-   tokens/s, peak GB and the collectives' share per rank;
+   parallel over 'model', [8, 512] batches, 4 steps, a checkpoint every
+   2), then in the same ranks the same run under sequence parallelism
+   (``layers.SEQ_SHARD``), beside
+   ``--mesh 1x1``, all from one step-0 checkpoint of the driver's draw
+   with its attention projections rescaled, then ``--mesh 1x1`` resumed
+   from the mesh run's step-2 checkpoint: parameters and moments on the
+   card on every rank, 2 B.6 launches per rank, layer and step at [4, 512,
+   8, 64] in both mesh runs, the first step's loss and gradient norm of
+   both within 2e-2 of 1x1's, the sequence-parallel losses and the resumed
+   losses within 2e-2 of the mesh run's; ms per step, tokens/s, peak GB
+   and the collectives' share per rank and run; its ranks are those of
+   11d and 11e (one spawn, below; ``launch.train.run``'s own spawn for
+   ``--mesh`` is driven by the CPU tests only);
 11c. pipeline — ``train.pipeline.pipeline_loss_fn`` at full-width
    qwen1.5-0.5b over 2 gloo ranks (one stage of 12 layers each), [8, 512]
    in 4 microbatches, ``loss.backward()`` on both: the loss within 1e-2 of
@@ -168,8 +178,10 @@ Phases, each printing one JSON line:
    and 16 decode steps of the 1x1 run's greedy tokens, every step's logits
    within 0.05 of max|logit| of the 1x1 run in this process, B.6 launches
    per rank per prefill equal to the layers kept, every cache leaf on
-   cuda:0 at its local shape; prefill and decode ms per rank and the
-   collectives' share printed;
+   cuda:0 at its local shape; qwen1.5-0.5b's prefill once more under
+   sequence parallelism and 4 decode steps from its cache, held the same
+   way; prefill and decode ms per rank and the collectives' share
+   printed;
 11e. families_mesh — tensor and expert parallelism for every family
    beside the dense decoders (``FAMILIES_MESH``), each at its published
    widths cut to the fewest layers that hold every kind of its sublayers:
@@ -188,21 +200,24 @@ Phases, each printing one JSON line:
    128] ([4, 512]; deepseek-v3: one forward and backward, no AdamW) with
    the first step's loss and gradient norm within 2e-2 of 1x1's, B.6
    launches per rank per prefill as planned, every cache leaf (the SSM's
-   'h' and 'conv' too) at its shard's shape, E/M experts a rank; per rank
-   the draw, prefill, decode and step times, the collectives' share and
-   peak GB printed, and the card's memory in use by every process beside
-   each 1x1 run; 11d's and 11e's groups run in one spawn of 4 ranks
-   (``mesh_serving_phase``, with ``--only`` too when both are asked for),
-   which start and warm up once, and the timeline gives the two phases'
-   seconds together;
-11f. dryrun — ``python -m repro_torch.launch.dryrun`` (qwen1.5-0.5b's four
-   shapes at 16x16, qwen3-32b's train_4k at both meshes; train_4k and
+   'h' and 'conv' too) at its shard's shape, E/M experts a rank; jamba's
+   prefill once more and one gradient step under sequence parallelism,
+   held the same way; per rank the draw, prefill, decode and step times,
+   the collectives' share and peak GB printed, and the card's memory in
+   use by every process beside each 1x1 run; 11b's runs and 11d's and
+   11e's groups run in one spawn of 4 ranks (``mesh_phase``, with
+   ``--only`` too when several are asked for), which start and warm up
+   once, and the timeline gives the three phases' seconds together;
+11f. dryrun — ``repro_torch.launch.dryrun``'s ``main`` (qwen1.5-0.5b's four
+   shapes at 16x16, its prefill_32k and train_4k with ``seq_shard=true``
+   and its train_4k with ``remat_policy`` 'dots' and 'none', qwen3-32b's
+   train_4k at both meshes; train_4k and
    decode_32k of qwen2-moe, whisper, llama-3.2-vision, deepseek-v3, mamba2
    and jamba at 16x16, deepseek-v3's train_4k at 2x16x16 and mamba2's
-   long_500k) and ``python -m
-   repro_torch.launch.dryrun_mate`` (filter_1g, broadcast, the sharded
-   build on 4 gloo ranks on the card) in subprocesses started together
-   right after the kernel build (they trace on the host while phase 1
+   long_500k) and ``repro_torch.launch.dryrun_mate``'s (filter_1g, broadcast, the sharded
+   build on 4 gloo ranks on the card) in subprocesses, the tracing ones
+   started before the kernel build at a lower priority, ``dryrun_mate``
+   right after it (they run on the host while the build runs and phase 1
    draws the lake) and collected here: each cell rank 0's program traced
    on fake CUDA tensors at the production mesh, no kernel launched, the
    build byte-identical; per cell the planned FLOPs per device, argument /
@@ -417,6 +432,14 @@ TRAIN_STEPS, TRAIN_RESUME_AT, TRAIN_FALL_STEPS = 9, 5, 20
 TRAIN_LOSS_FALL = 0.1
 TRAIN_RESUME_REL = 1e-3
 TRAIN_PARITY_LAYERS, TRAIN_PARITY_TOL = 2, 1e-3
+# the block's other remat policies (``transformer.REMAT_POLICY``): their
+# first TRAIN_POLICY_STEPS steps from the conditioned run's draw, its
+# settings and batches; losses and gradient norms held against that run's
+# ('full') within TRAIN_POLICY_REL (only what a block keeps for its
+# backward changes, so they are expected equal); B.6 launches per step
+# TRAIN_POLICY_B6 per attention layer
+TRAIN_POLICY_STEPS, TRAIN_POLICY_REL = 3, 1e-6
+TRAIN_POLICY_B6 = {"dots": 2, "none": 1}
 # training over a mesh (phase 11b): qwen1.5-0.5b at its published widths,
 # cut to TRAIN_MESH_LAYERS of its 24 layers (``--layers``), over gloo ranks
 # on the one card, its first step and a 1x1 resume of its step-2
@@ -434,10 +457,15 @@ PIPE_STAGES, PIPE_SEQ, PIPE_BATCH, PIPE_MICRO, PIPE_TOL = 2, 512, 8, 4, 1e-2
 # weights (tests/test_models.py's serving bound); qwen1.5's 16 KV heads
 # split over 'model', starcoder2's 2 leave the cache's slots split
 SERVE_MESH = (("qwen1.5-0.5b", {"data": 2, "model": 2}), ("starcoder2-3b", {"data": 1, "model": 4}))
-# the mesh phases (11d, 11e): one spawn of MESH_SERVING_RANKS ranks takes every group of both, one after the other
-MESH_PHASES, MESH_SERVING_RANKS = ("serve_mesh", "families_mesh"), 4
+# the mesh phases (11b, 11d, 11e): one spawn of MESH_SERVING_RANKS ranks takes
+# the training runs and every serving group, one after the other
+MESH_PHASES, MESH_SERVING_RANKS = ("train_mesh", "serve_mesh", "families_mesh"), 4
 SERVE_MESH_B, SERVE_MESH_S, SERVE_MESH_NEW, SERVE_MESH_TOL = 4, 512, 16, 0.05
 SERVE_MESH_LAYERS = 6  # of qwen1.5-0.5b's 24 and starcoder2-3b's 30, their widths whole
+# served once more under sequence parallelism (``layers.SEQ_SHARD``): the
+# prefill's residual stream split over 'model', then SERVE_MESH_SP_NEW of
+# the greedy decode steps from its cache, held the same way
+SERVE_MESH_SP, SERVE_MESH_SP_NEW = ("qwen1.5-0.5b",), 4
 # the families over a mesh (phase 11e): each at its published widths, cut
 # to the fewest layers that hold every kind of its sublayers
 # (``family_mesh_cfg``), one group after the other on 4 gloo ranks on the
@@ -471,36 +499,49 @@ FMESH_SEQ = {"mamba2-1.3b": 512}
 FMESH_TURNS = ("deepseek-v3-671b",)
 FMESH_NO_OPT = ("deepseek-v3-671b",)
 FMESH_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}  # the spawned processes': less fragmentation
-# the dry run (phase 11e): each entry point's argv and the status expected
-# of each cell it writes ('error:<item>': an error record naming it);
-# mamba2's and jamba's cells trace in processes of their own, beside the
-# others
+# the groups that also prefill (float32, no decode step) and take a bf16
+# gradient step under sequence parallelism, held against 1x1 as the
+# group's own are
+FMESH_SP = ("jamba-v0.1-52b",)
+# the dry run (phase 11e): each process's entry point, the argvs its
+# ``main`` is called with one after the other, and the status expected of
+# each cell they write ('error:<item>': an error record naming it); mamba2's and
+# jamba's cells trace in processes of their own, beside the others; the
+# module switches' cells (sequence parallelism, the remat policies) in the
+# process that ends first
 DRYRUN_CALLS = (
-    ("repro_torch.launch.dryrun", ["--arch", "qwen1.5-0.5b"],
+    ("repro_torch.launch.dryrun", [
+        ["--arch", "qwen1.5-0.5b"],
+        ["--arch", "qwen1.5-0.5b", "--shape", "prefill_32k,train_4k", "--variant", "sp", "--set", "seq_shard=true"],
+        ["--arch", "qwen1.5-0.5b", "--shape", "train_4k", "--variant", "dots", "--set", "remat_policy=dots"],
+        ["--arch", "qwen1.5-0.5b", "--shape", "train_4k", "--variant", "none", "--set", "remat_policy=none"]],
      {"qwen1.5-0.5b__train_4k__16x16": "ok", "qwen1.5-0.5b__prefill_32k__16x16": "ok",
-      "qwen1.5-0.5b__decode_32k__16x16": "ok", "qwen1.5-0.5b__long_500k__16x16": "skipped"}),
-    ("repro_torch.launch.dryrun", ["--arch", "qwen3-32b", "--shape", "train_4k", "--both-meshes"],
+      "qwen1.5-0.5b__decode_32k__16x16": "ok", "qwen1.5-0.5b__long_500k__16x16": "skipped",
+      "qwen1.5-0.5b__prefill_32k__16x16__sp": "ok", "qwen1.5-0.5b__train_4k__16x16__sp": "ok",
+      "qwen1.5-0.5b__train_4k__16x16__dots": "ok", "qwen1.5-0.5b__train_4k__16x16__none": "ok"}),
+    ("repro_torch.launch.dryrun", [["--arch", "qwen3-32b", "--shape", "train_4k", "--both-meshes"]],
      {"qwen3-32b__train_4k__16x16": "ok", "qwen3-32b__train_4k__2x16x16": "ok"}),
-    ("repro_torch.launch.dryrun", ["--arch", "qwen2-moe-a2.7b,whisper-base", "--shape", "train_4k,decode_32k"],
+    ("repro_torch.launch.dryrun", [["--arch", "qwen2-moe-a2.7b,whisper-base", "--shape", "train_4k,decode_32k"]],
      {"qwen2-moe-a2.7b__train_4k__16x16": "ok", "qwen2-moe-a2.7b__decode_32k__16x16": "ok",
       "whisper-base__train_4k__16x16": "ok", "whisper-base__decode_32k__16x16": "ok"}),
-    ("repro_torch.launch.dryrun", ["--arch", "llama-3.2-vision-11b", "--shape", "train_4k,decode_32k"],
+    ("repro_torch.launch.dryrun", [["--arch", "llama-3.2-vision-11b", "--shape", "train_4k,decode_32k"]],
      {"llama-3.2-vision-11b__train_4k__16x16": "ok", "llama-3.2-vision-11b__decode_32k__16x16": "ok"}),
-    ("repro_torch.launch.dryrun", ["--arch", "mamba2-1.3b", "--shape", "train_4k,decode_32k,long_500k"],
+    ("repro_torch.launch.dryrun", [["--arch", "mamba2-1.3b", "--shape", "train_4k,decode_32k,long_500k"]],
      {"mamba2-1.3b__train_4k__16x16": "ok", "mamba2-1.3b__decode_32k__16x16": "ok",
       "mamba2-1.3b__long_500k__16x16": "ok"}),
-    ("repro_torch.launch.dryrun", ["--arch", "jamba-v0.1-52b", "--shape", "train_4k,decode_32k"],
+    ("repro_torch.launch.dryrun", [["--arch", "jamba-v0.1-52b", "--shape", "train_4k,decode_32k"]],
      {"jamba-v0.1-52b__train_4k__16x16": "ok", "jamba-v0.1-52b__decode_32k__16x16": "ok"}),
-    ("repro_torch.launch.dryrun", ["--arch", "deepseek-v3-671b", "--shape", "train_4k"],
+    ("repro_torch.launch.dryrun", [["--arch", "deepseek-v3-671b", "--shape", "train_4k"]],
      {"deepseek-v3-671b__train_4k__16x16": "ok"}),
-    ("repro_torch.launch.dryrun", ["--arch", "deepseek-v3-671b", "--shape", "train_4k", "--multi-pod"],
+    ("repro_torch.launch.dryrun", [["--arch", "deepseek-v3-671b", "--shape", "train_4k", "--multi-pod"]],
      {"deepseek-v3-671b__train_4k__2x16x16": "ok"}),
-    ("repro_torch.launch.dryrun", ["--arch", "deepseek-v3-671b", "--shape", "decode_32k"],
+    ("repro_torch.launch.dryrun", [["--arch", "deepseek-v3-671b", "--shape", "decode_32k"]],
      {"deepseek-v3-671b__decode_32k__16x16": "ok"}),
-    ("repro_torch.launch.dryrun_mate", ["--shape", "filter_1g", "--impl", "broadcast", "--build-shards", "4"],
+    ("repro_torch.launch.dryrun_mate", [["--shape", "filter_1g", "--impl", "broadcast", "--build-shards", "4"]],
      {"mate-filter__filter_1g-broadcast__16x16": "ok", "mate-filter__filter_1g-broadcast__2x16x16": "ok"}),
 )
 DRYRUN_TIMEOUT_S = 600
+DRYRUN_NICE = 10  # the tracing processes' priority: below the lake's draw and the build
 
 
 def emit(obj) -> None:
@@ -2751,6 +2792,7 @@ def train_phase(seed) -> dict[str, int]:
                 torch.cuda.synchronize()
                 launches = counters()["flash_attention"].launches
             ms = 1e3 * (time.perf_counter() - t)
+            loss, norm = float(out[2]["loss"]), float(out[2]["grad_norm"])
             if not grad_check:  # after the first step: every leaf's gradient
                 for path, leaf in leaves_with_paths(params):
                     g = leaf.grad
@@ -2758,7 +2800,7 @@ def train_phase(seed) -> dict[str, int]:
                 bad = [p for p, ok in grad_check.items() if not ok]
                 if bad:
                     raise AssertionError(f"after step 1 these leaves have no finite nonzero gradient: {bad}")
-            steps.append({"ms": ms, "b6_launches": launches,
+            steps.append({"ms": ms, "b6_launches": launches, "loss": loss, "grad_norm": norm,
                           "attn_bwd_ms": sum(a.elapsed_time(b) for a, b in bwd_events)})
             return out
 
@@ -2787,6 +2829,8 @@ def train_phase(seed) -> dict[str, int]:
                     CheckpointManager(cond_dir).save(0, {"params": weights, "opt": opt.init_state(
                         weights, opt.AdamWConfig())})
                     del weights
+                    gc.collect()
+                    torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats(dev)
                 first, t = len(steps), time.perf_counter()
                 with contextlib.redirect_stdout(io.StringIO()) as buf:
@@ -2803,6 +2847,8 @@ def train_phase(seed) -> dict[str, int]:
                 torch.cuda.empty_cache()
         finally:
             step_lib.make_train_step, flk.flash_attention_backward = make_train_step, backward
+        cond_args = train_launch.parse_args(common + ["--steps", str(TRAIN_FALL_STEPS)])
+        policies = train_policies(cfg, cond_args, cond_dir, runs["conditioned"], total)
     full, resumed, cond = runs["uninterrupted"], runs["resumed"], runs["conditioned"]
 
     launches = check_counts(total, ("flash_attention",), "train path")
@@ -2850,9 +2896,77 @@ def train_phase(seed) -> dict[str, int]:
           "peak_gb": {name: run["peak_gb"] for name, run in runs.items()},
           "wall_s": {name: run["wall_s"] for name, run in runs.items()},
           "grads_finite_nonzero": len(grad_check), "deterministic_algorithms": False,
-          "parity": parity, "lines": {name: run["lines"] for name, run in runs.items()},
-          "launches": launches})
+          "parity": parity, "remat_policies": policies,
+          "lines": {name: run["lines"] for name, run in runs.items()}, "launches": launches})
+    if policies["failed"]:
+        raise AssertionError(f"train remat policies: {policies['failed']}")
     return launches
+
+
+def train_policies(cfg, args, ckpt_dir: str, full: dict, total: collections.Counter) -> dict:
+    """``TRAIN_POLICY_STEPS`` steps of ``make_train_step`` under each of the
+    block's other remat policies ('dots', 'none'), each from the
+    conditioned run's step-0 checkpoint in ``ckpt_dir`` (its parameters
+    restored as that run restores them, its fresh moments made anew: the
+    card holds the same tensors as in that run, so the peaks compare) with
+    ``launch.train``'s settings for that
+    run's arguments ``args`` and its batches, inside the train path's
+    launch window.  Held (after the line): each step's loss and
+    gradient norm equal to the conditioned run's (``full``: 'full', the
+    driver's default) within ``TRAIN_POLICY_REL``, and B.6's forward
+    launches per step ``TRAIN_POLICY_B6`` per attention layer.  Printed:
+    ms per step (host clock, ending in a sync) and the peak GB of each
+    policy's steps beside 'full''s."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import params as params_lib, transformer
+    from repro_torch.train import optimizer as opt, step as step_lib
+
+    dev = torch.device("cuda")
+    tcfg = train_launch.train_config(args)
+    like = {"params": opt.tree_map(lambda _: torch.empty(0, device=dev),
+                                   params_lib.abstract(transformer.model_specs(cfg)))}
+    data = TokenPipeline(DataConfig(args.seq_len, args.global_batch, cfg.vocab_size, args.seed))
+    n = TRAIN_POLICY_STEPS
+    head = full["steps"][:n]
+    out = {"full": {"losses": [st["loss"] for st in head], "grad_norm": [st["grad_norm"] for st in head],
+                    "ms_per_step": [st["ms"] for st in head], "peak_gb": full["peak_gb"],
+                    "b6_launches_per_step": [st["b6_launches"] for st in head]},
+           "tolerance": TRAIN_POLICY_REL, "failed": []}
+    for policy in TRAIN_POLICY_B6:
+        params = CheckpointManager(ckpt_dir).restore(0, like)["params"]
+        state = opt.init_state(params, tcfg.adamw)
+        rows = {"losses": [], "grad_norm": [], "ms_per_step": [], "b6_launches_per_step": []}
+        saved, transformer.REMAT_POLICY = transformer.REMAT_POLICY, policy
+        try:
+            train_step = step_lib.make_train_step(cfg, tcfg)
+            torch.cuda.reset_peak_memory_stats(dev)
+            for i in range(n):
+                batch = {k: torch.from_numpy(v).to(dev, torch.long) for k, v in data.batch(i).items()}
+                t = time.perf_counter()
+                with path_window(total):
+                    params, state, metrics = train_step(params, state, batch)
+                    rows["losses"].append(float(metrics["loss"]))  # ends in a sync
+                    rows["b6_launches_per_step"].append(counters()["flash_attention"].launches)
+                rows["ms_per_step"].append(1e3 * (time.perf_counter() - t))
+                rows["grad_norm"].append(float(metrics["grad_norm"]))
+            rows["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        finally:
+            transformer.REMAT_POLICY = saved
+        rows["rel"] = {key: [abs(a - b) / abs(b) for a, b in zip(rows[key], out["full"][key])]
+                       for key in ("losses", "grad_norm")}
+        worst = max(max(v) for v in rows["rel"].values())
+        if not worst <= TRAIN_POLICY_REL:
+            out["failed"].append(f"{policy}: losses / gradient norms {rows['rel']} against 'full'")
+        want = TRAIN_POLICY_B6[policy] * cfg.n_layers
+        if rows["b6_launches_per_step"] != [want] * n:
+            out["failed"].append(f"{policy}: B.6 launches per step {rows['b6_launches_per_step']}, expected {want}")
+        out[policy] = rows
+        del params, state, train_step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2875,30 +2989,15 @@ def _rank_timing(report: dict, tokens_per_step: int) -> dict:
             "peak_gb": report["peak_gb"]}
 
 
-def train_mesh_phase(seed, extra=(), device="cuda:0") -> dict[str, int]:
-    """``launch.train.run`` (``main``'s work) at qwen1.5-0.5b's published
-    widths, cut to ``TRAIN_MESH_LAYERS`` layers (``--layers``), with
-    ``--mesh TRAIN_MESH``: 4 gloo ranks on the one card (FSDP over 'data',
-    tensor parallel over 'model', B.6 on each rank's 8 of 16 heads), a
-    checkpoint every ``TRAIN_MESH_CKPT`` steps; then ``--mesh 1x1``, and
-    ``--mesh 1x1`` resumed from the mesh run's step-2 checkpoint (full
-    arrays).  Both first runs resume the same step-0 checkpoint: the
-    driver's draw from ``seed`` with its attention projections rescaled
-    (``conditioned``), since on the init rule's own draw the backward
-    explodes (gradient norm ~1e12, ROADMAP C.18): there one bf16 ulp on
-    one weight moves the first step's gradient norm by 30%, and the mesh
-    run's parts from 1x1's by 40% (``tools/train_ulp_witness.py``).  Held: every
-    rank's parameters and moments on the card; 2 B.6 launches per rank,
-    layer and step (forward and remat recompute), all at [4, 512, 8, 64];
-    the first step's loss and gradient norm within ``TRAIN_MESH_REL``
-    of 1x1's; the resumed losses within ``TRAIN_MESH_REL`` of the mesh
-    run's.  Printed, not held: ms per step, tokens/s, peak GB and the
-    collectives' share, per rank.  The line is printed before a failed
-    check raises."""
+def train_mesh_plan(seed, tmp: str, extra=(), device="cuda:0") -> dict:
+    """The parent's part of ``train_mesh`` before the shared spawn: the
+    step-0 checkpoint every run resumes (the driver's draw from ``seed``
+    with its attention projections rescaled, ``conditioned``), linked into
+    a directory per run, and the ``--mesh 1x1`` run (in the path's launch
+    window).  Returns the plan: the arguments of each run, their
+    directories, the 1x1 report."""
     import shutil
-    import tempfile
 
-    from repro_torch import configs
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.launch import train as train_launch
     from repro_torch.models import params as params_lib, transformer
@@ -2908,72 +3007,143 @@ def train_mesh_phase(seed, extra=(), device="cuda:0") -> dict[str, int]:
             "--steps", str(TRAIN_MESH_STEPS), "--ckpt-every", str(TRAIN_MESH_CKPT), "--log-every", "1",
             "--seed", str(seed), "--layers", str(TRAIN_MESH_LAYERS), *extra]
     cfg = train_launch._config(train_launch.parse_args(argv))
+    dirs = {name: os.path.join(tmp, name) for name in ("start", "mesh", "sp", "1x1", "resumed")}
+    specs = transformer.model_specs(cfg)
+    weights = params_lib.materialize(specs, seed, device=torch.device(device))
+    conditioned(specs, weights)
+    state = {"params": weights, "opt": opt.init_state(weights, opt.AdamWConfig())}
+    CheckpointManager(dirs["start"]).save(0, state)
+    del state, weights
+    for name in ("mesh", "sp", "1x1"):  # the runs write their own checkpoints beside a link to step 0
+        shutil.copytree(dirs["start"], dirs[name], copy_function=os.link)
+    # the 1x1 and sequence-parallel runs save no checkpoint before their last step
+    last_only = ["--ckpt-every", str(TRAIN_MESH_STEPS + 1)]
+    total, t = collections.Counter(), time.perf_counter()
+    with path_window(total), contextlib.redirect_stdout(io.StringIO()) as buf:
+        (single,) = train_launch.run(argv + ["--mesh", "1x1", "--ckpt-dir", dirs["1x1"], *last_only])
+    mesh_argv = argv + ["--mesh", TRAIN_MESH]
+    return {"argv": argv, "cfg": cfg, "dirs": dirs, "total": total, "device": device,
+            "1x1": {"report": single, "wall_s": time.perf_counter() - t, "lines": buf.getvalue().splitlines()},
+            "ranks": {"mesh": vars(train_launch.parse_args(mesh_argv + ["--ckpt-dir", dirs["mesh"]])),
+                      "sp": vars(train_launch.parse_args(mesh_argv + ["--ckpt-dir", dirs["sp"], *last_only]))}}
+
+
+def train_mesh_ranks(mesh, runs: dict) -> dict:
+    """One rank of ``train_mesh`` in the shared spawn: ``launch.train``'s
+    rank body (``_rank``, what ``launch.train.run`` spawns for ``--mesh``)
+    of the ``--mesh TRAIN_MESH`` run on its ``GridMesh`` over this world,
+    then, in the same rank, the same run under ``layers.SEQ_SHARD``
+    (``runs['sp']``: its own copy of the step-0 checkpoint; a module switch
+    set in the parent would not reach ``run``'s spawned ranks).  Returns
+    the first's report with the second's as 'sp'."""
+    from repro_torch.launch import mesh as meshlib, train as train_launch
+
     d, m = (int(x) for x in TRAIN_MESH.split("x"))
-    total, runs = collections.Counter(), {}
-    timeout = train_launch.RANK_TIMEOUT_S
-    with tempfile.TemporaryDirectory() as tmp:
-        dirs = {name: os.path.join(tmp, name) for name in ("start", "mesh", "1x1", "resumed")}
-        specs = transformer.model_specs(cfg)
-        weights = params_lib.materialize(specs, seed, device=torch.device(device))
-        conditioned(specs, weights)
-        state = {"params": weights, "opt": opt.init_state(weights, opt.AdamWConfig())}
-        CheckpointManager(dirs["start"]).save(0, state)
-        del state, weights
-        for name in ("mesh", "1x1"):  # the runs write their own checkpoints beside a link to step 0
-            shutil.copytree(dirs["start"], dirs[name], copy_function=os.link)
-        train_launch.RANK_TIMEOUT_S = TRAIN_MESH_TIMEOUT_S
-        try:
-            t = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()) as buf:
-                ranks = train_launch.run(argv + ["--mesh", TRAIN_MESH, "--ckpt-dir", dirs["mesh"]])
-            runs["mesh"] = {"wall_s": time.perf_counter() - t, "lines": buf.getvalue().splitlines()}
-        finally:
-            train_launch.RANK_TIMEOUT_S = timeout
-        os.makedirs(dirs["resumed"])
-        shutil.copytree(os.path.join(dirs["mesh"], f"step_{TRAIN_MESH_CKPT:06d}"),
-                        os.path.join(dirs["resumed"], f"step_{TRAIN_MESH_CKPT:06d}"))
-        for name in ("1x1", "resumed"):  # no save before the last step: only the mesh run's step 2 is read
-            t = time.perf_counter()
-            with path_window(total), contextlib.redirect_stdout(io.StringIO()) as buf:
-                (report,) = train_launch.run(argv + ["--mesh", "1x1", "--ckpt-dir", dirs[name],
-                                                     "--ckpt-every", str(TRAIN_MESH_STEPS + 1)])
-            runs[name] = {"report": report, "wall_s": time.perf_counter() - t,
-                          "lines": buf.getvalue().splitlines()}
-    single, resumed = runs["1x1"]["report"], runs["resumed"]["report"]
+    grid = meshlib.grid_mesh(mesh, {"data": d, "model": m})
+    t = time.perf_counter()
+    report = train_launch._rank(grid, runs["mesh"])
+    report["wall_s"] = time.perf_counter() - t
+    with seq_shard():
+        t = time.perf_counter()
+        report["sp"] = train_launch._rank(grid, runs["sp"])
+        report["sp"]["wall_s"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def train_mesh_report(plan: dict, ranks: list, spawn_wall: float) -> dict[str, int]:
+    """``train_mesh``: ``launch.train``'s ``--mesh TRAIN_MESH`` run at
+    qwen1.5-0.5b's published widths, cut to ``TRAIN_MESH_LAYERS`` layers
+    (``--layers``), on the shared spawn's 4 gloo ranks on the one card
+    (FSDP over 'data', tensor parallel over 'model', B.6 on each rank's 8
+    of 16 heads), a checkpoint every ``TRAIN_MESH_CKPT`` steps, then the
+    same run under sequence parallelism (``layers.SEQ_SHARD``: the residual
+    stream's 512 positions split over 'model', each region's edges an
+    all-gather and a reduce-scatter) in the same ranks; beside them
+    ``--mesh 1x1`` (``train_mesh_plan``) and, here, ``--mesh 1x1`` resumed
+    from the mesh run's step-2 checkpoint (full arrays).  Every run resumes
+    the same step-0 checkpoint of the driver's draw from ``seed`` with its
+    attention projections rescaled (``conditioned``), since on the init
+    rule's own draw the backward explodes (gradient norm ~1e12, ROADMAP
+    C.18): there one bf16 ulp on one weight moves the first step's
+    gradient norm by 30%, and the mesh run's parts from 1x1's by 40%
+    (``tools/train_ulp_witness.py``).  Held: every rank's parameters and
+    moments on the card; 2 B.6 launches per rank, layer and step (forward
+    and remat recompute), all at [4, 512, 8, 64], in both mesh runs; the
+    first step's loss and gradient norm of both within ``TRAIN_MESH_REL``
+    of 1x1's; the sequence-parallel run's losses within ``TRAIN_MESH_REL``
+    of the mesh run's; the resumed losses within ``TRAIN_MESH_REL`` of the
+    mesh run's.  Printed, not held: ms per step, tokens/s, peak GB and the
+    collectives' share, per rank and run.  The line is printed before a
+    failed check raises."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.launch import train as train_launch
+
+    cfg, dirs, total, device = plan["cfg"], plan["dirs"], plan["total"], plan["device"]
+    os.makedirs(dirs["resumed"])
+    shutil.copytree(os.path.join(dirs["mesh"], f"step_{TRAIN_MESH_CKPT:06d}"),
+                    os.path.join(dirs["resumed"], f"step_{TRAIN_MESH_CKPT:06d}"))
+    t = time.perf_counter()
+    with path_window(total), contextlib.redirect_stdout(io.StringIO()) as buf:
+        (resumed,) = train_launch.run(plan["argv"] + ["--mesh", "1x1", "--ckpt-dir", dirs["resumed"],
+                                                       "--ckpt-every", str(TRAIN_MESH_STEPS + 1)])
+    runs = {"1x1": plan["1x1"], "resumed": {"report": resumed, "wall_s": time.perf_counter() - t,
+                                            "lines": buf.getvalue().splitlines()}}
+    single = runs["1x1"]["report"]
+    d, m = (int(x) for x in TRAIN_MESH.split("x"))
     want_b6 = 2 * cfg.n_layers
     local = [TRAIN_MESH_BATCH // d, TRAIN_MESH_SEQ, cfg.n_heads // m, cfg.head_dim]
     failed = []
     for r in ranks:
-        if r["devices"] != [device]:
-            failed.append(f"rank {r['rank']}: parameters and moments on {r['devices']}, not {device}")
-        if any(n != want_b6 for n in r["b6_launches"]):
-            failed.append(f"rank {r['rank']}: B.6 launches per step {r['b6_launches']}, expected {want_b6}")
-        if r["attention_shapes"] != {str(local): want_b6 * TRAIN_MESH_STEPS}:
-            failed.append(f"rank {r['rank']}: B.6 calls {r['attention_shapes']}, expected {local}")
-    full = ranks[0]
-    first = {"loss": abs(full["losses"][0] - single["losses"][0]) / abs(single["losses"][0]),
-             "grad_norm": abs(full["grad_norm"][0] - single["grad_norm"][0]) / abs(single["grad_norm"][0])}
+        for name, run in (("mesh", r), ("sp", r["sp"])):
+            if run["devices"] != [device]:
+                failed.append(f"rank {r['rank']} {name}: parameters and moments on {run['devices']}, not {device}")
+            if any(n != want_b6 for n in run["b6_launches"]):
+                failed.append(f"rank {r['rank']} {name}: B.6 launches per step {run['b6_launches']},"
+                              f" expected {want_b6}")
+            if run["attention_shapes"] != {str(local): want_b6 * TRAIN_MESH_STEPS}:
+                failed.append(f"rank {r['rank']} {name}: B.6 calls {run['attention_shapes']}, expected {local}")
+    full, sp = ranks[0], ranks[0]["sp"]
+    rel = lambda a, b: abs(a - b) / abs(b)
+    first = {"loss": rel(full["losses"][0], single["losses"][0]),
+             "grad_norm": rel(full["grad_norm"][0], single["grad_norm"][0])}
+    first_sp = {"loss": rel(sp["losses"][0], single["losses"][0]),
+                "grad_norm": rel(sp["grad_norm"][0], single["grad_norm"][0])}
+    sp_rel = [rel(a, b) for a, b in zip(sp["losses"], full["losses"])]
     tail = full["losses"][TRAIN_MESH_CKPT:]
-    resume_rel = [abs(a - b) / abs(b) for a, b in zip(resumed["losses"], tail)]
+    resume_rel = [rel(a, b) for a, b in zip(resumed["losses"], tail)]
     if not max(first.values()) <= TRAIN_MESH_REL:
         failed.append(f"{TRAIN_MESH} first step against 1x1: {first}")
+    if not max(first_sp.values()) <= TRAIN_MESH_REL:
+        failed.append(f"{TRAIN_MESH} SEQ_SHARD first step against 1x1: {first_sp}")
+    if len(sp_rel) != TRAIN_MESH_STEPS or not max(sp_rel) <= TRAIN_MESH_REL:
+        failed.append(f"SEQ_SHARD losses {sp['losses']} against the mesh run's {full['losses']}")
     if runs["resumed"]["lines"][0] != f"[train] resumed from step {TRAIN_MESH_CKPT}" or len(resume_rel) != len(
             tail) or not max(resume_rel) <= TRAIN_MESH_REL:
         failed.append(f"resumed losses {resumed['losses']} against {tail}: {runs['resumed']['lines'][:1]}")
     tokens = TRAIN_MESH_BATCH * TRAIN_MESH_SEQ
     launches = {name: int(total[name]) for name in counters()}
-    launches["flash_attention"] += sum(r["b6_total"] for r in ranks)
+    launches["flash_attention"] += sum(r["b6_total"] + r["sp"]["b6_total"] for r in ranks)
     emit({"phase": "train_mesh", "gpu": nvidia_smi(), "arch": cfg.name, "mesh": TRAIN_MESH,
           "layers": f"{cfg.n_layers} of {configs.get_config(SERVE_ARCH).n_layers}",
-          "argv": argv + ["--mesh", TRAIN_MESH, "--ckpt-dir", "<tmp: the conditioned step 0>"],
+          "argv": plan["argv"] + ["--mesh", TRAIN_MESH, "--ckpt-dir", "<tmp: the conditioned step 0>"],
           "losses": full["losses"], "grad_norm": full["grad_norm"], "losses_1x1": single["losses"],
           "grad_norm_1x1": single["grad_norm"], "first_step_rel": first, "resumed_losses": resumed["losses"],
           "resume_rel": resume_rel, "tolerance": TRAIN_MESH_REL, "b6_launches_per_rank_step": want_b6,
           "b6_shape": local,
+          "seq_shard": {"losses": sp["losses"], "grad_norm": sp["grad_norm"], "first_step_rel": first_sp,
+                        "losses_rel_to_mesh": sp_rel,
+                        "ranks": [{"rank": r["rank"], **_rank_timing(r["sp"], tokens),
+                                   "wall_s": r["sp"]["wall_s"]} for r in ranks]},
           "ranks": [{"rank": r["rank"], "coords": r["coords"], "devices": r["devices"],
-                     **_rank_timing(r, tokens)} for r in ranks],
-          "timing_1x1": _rank_timing(single, tokens), "wall_s": {k: v["wall_s"] for k, v in runs.items()},
-          "lines": {k: v["lines"] for k, v in runs.items()}, "launches": launches, "failed": failed})
+                     **_rank_timing(r, tokens), "wall_s": r["wall_s"]} for r in ranks],
+          "timing_1x1": _rank_timing(single, tokens),
+          "wall_s": {**{k: v["wall_s"] for k, v in runs.items()}, "spawn": spawn_wall},
+          "lines": {"mesh": full["lines"], "seq_shard": sp["lines"], **{k: v["lines"] for k, v in runs.items()}},
+          "launches": launches, "failed": failed})
     if failed:
         raise AssertionError(f"train_mesh: {failed}")
     check_counts(launches, ("flash_attention",), "train_mesh path")
@@ -3172,6 +3342,7 @@ def serve_mesh_rank(mesh, arch: str, seed: int, tokens: np.ndarray, forced: np.n
     cfg = dataclasses.replace(configs.get_config(arch), n_layers=n_layers)
     specs = transformer.model_specs(cfg)
     whole = global_cache(cfg, tokens, forced)
+    whole_sp = global_cache(cfg, tokens, forced[:SERVE_MESH_SP_NEW])
     full = params_lib.materialize(specs, seed, device=dev)
     conditioned(specs, full)
     layers.enable_activation_sharding(mesh, vocab_size=cfg.vocab_size)
@@ -3180,9 +3351,25 @@ def serve_mesh_rank(mesh, arch: str, seed: int, tokens: np.ndarray, forced: np.n
         local = sharding.local_tree(full, place, mesh)
         del full
         torch.cuda.empty_cache()
-        return serve_on_mesh(mesh, cfg, local, tokens, forced, whole)
+        out = serve_on_mesh(mesh, cfg, local, tokens, forced, whole)
+        if arch in SERVE_MESH_SP:
+            with seq_shard():
+                out["sp"] = serve_on_mesh(mesh, cfg, local, tokens, forced[:SERVE_MESH_SP_NEW], whole_sp)
+        return out
     finally:
         layers.disable_activation_sharding()
+
+
+@contextlib.contextmanager
+def seq_shard():
+    """Sequence parallelism (``layers.SEQ_SHARD``) while active."""
+    from repro_torch.models import layers
+
+    saved, layers.SEQ_SHARD = layers.SEQ_SHARD, True
+    try:
+        yield
+    finally:
+        layers.SEQ_SHARD = saved
 
 
 def serve_mesh_ranks(mesh, groups: list) -> list[dict]:
@@ -3243,12 +3430,15 @@ def serve_mesh_report(refs: dict, ranks: list, ranks_wall: float) -> dict[str, i
     for arch, grid in SERVE_MESH:
         cfg = dataclasses.replace(configs.get_config(arch), n_layers=SERVE_MESH_LAYERS)
         ranks, (_tokens, single, _forced, single_s) = results[arch], refs[arch]
-        gaps, greedy_equal = [], True
+        gaps, greedy_equal, sp_gaps = [], True, []
         for r in ranks:
             lo, hi = r["rows"]
             for step, got in enumerate(r["logits"]):
                 want = single[step]
                 gaps.append(float(np.max(np.abs(got - want[lo:hi]))) / float(np.max(np.abs(want))))
+            for step, got in enumerate(r["sp"]["logits"] if arch in SERVE_MESH_SP else []):
+                want = single[step]
+                sp_gaps.append(float(np.max(np.abs(got - want[lo:hi]))) / float(np.max(np.abs(want))))
             greedy_equal &= all(a == np.argmax(single[step][lo:hi], axis=-1).tolist()
                                 for step, a in enumerate(r["argmax"]))
             if r["b6_prefill"] != cfg.n_layers:
@@ -3257,8 +3447,18 @@ def serve_mesh_report(refs: dict, ranks: list, ranks_wall: float) -> dict[str, i
             if r["cache_bad"]:
                 failed.append(f"{arch} rank {r['rank']}: cache leaves {r['cache_bad']}")
             launches["flash_attention"] += r["b6_prefill"]
+            if arch in SERVE_MESH_SP:
+                sp = r["sp"]
+                if sp["b6_prefill"] != cfg.n_layers or sp["cache_bad"]:
+                    failed.append(f"{arch} rank {r['rank']} SEQ_SHARD: {sp['b6_prefill']} B.6 launches per"
+                                  f" prefill, cache leaves {sp['cache_bad']}")
+                launches["flash_attention"] += sp["b6_prefill"]
         if not gaps or max(gaps) > SERVE_MESH_TOL:
             failed.append(f"{arch} {grid}: logits gap {max(gaps, default=None)} against 1x1, bound {SERVE_MESH_TOL}")
+        if arch in SERVE_MESH_SP and (len(sp_gaps) != len(gaps) // (SERVE_MESH_NEW + 1) * (SERVE_MESH_SP_NEW + 1)
+                                      or max(sp_gaps) > SERVE_MESH_TOL):
+            failed.append(f"{arch} {grid} SEQ_SHARD: logits gap {max(sp_gaps, default=None)} against 1x1,"
+                          f" bound {SERVE_MESH_TOL}")
         rows.append({
             "arch": arch, "grid": grid, "layers": f"{cfg.n_layers} of {configs.get_config(arch).n_layers}",
             "kv_heads": cfg.n_kv_heads,
@@ -3272,6 +3472,13 @@ def serve_mesh_report(refs: dict, ranks: list, ranks_wall: float) -> dict[str, i
                        "comm_share": r["comm_s"] / ((r["prefill_ms"] + sum(r["decode_ms"])) / 1e3),
                        "peak_gb": r["peak_gb"]} for r in ranks],
             "single_s": single_s, "group_s": wall[arch],
+            "seq_shard": None if arch not in SERVE_MESH_SP else {
+                "max_gap": max(sp_gaps), "gap_per_step": sp_gaps[: SERVE_MESH_SP_NEW + 1],
+                "b6_launches_per_prefill": [r["sp"]["b6_prefill"] for r in ranks],
+                "ranks": [{"rank": r["rank"], "prefill_ms": r["sp"]["prefill_ms"],
+                           "decode_ms_median": _median(r["sp"]["decode_ms"]),
+                           "comm_share": r["sp"]["comm_s"] / ((r["sp"]["prefill_ms"] + sum(r["sp"]["decode_ms"])) / 1e3),
+                           "peak_gb": r["sp"]["peak_gb"]} for r in ranks]},
         })
     emit({"phase": "serve_mesh", "gpu": nvidia_smi(), "configs": rows, "ranks_wall_s": ranks_wall,
           "launches": launches, "failed": failed})
@@ -3514,6 +3721,7 @@ def families_mesh_ranks(mesh, seed: int, refs: dict) -> list[dict]:
         dev = grid_mesh.device
         cfg = family_mesh_cfg(arch)
         whole = global_cache(cfg, refs[arch]["tokens"], refs[arch]["forced"])
+        whole_sp = global_cache(cfg, refs[arch]["tokens"], refs[arch]["forced"][:0])
         torch.cuda.reset_peak_memory_stats(dev)
         layers.enable_activation_sharding(grid_mesh, vocab_size=cfg.vocab_size)
         try:
@@ -3536,12 +3744,21 @@ def families_mesh_ranks(mesh, seed: int, refs: dict) -> list[dict]:
             with float32_activations():
                 served = serve_on_mesh(grid_mesh, cfg, served_params, refs[arch]["tokens"], refs[arch]["forced"],
                                        whole, extra)
+                if arch in FMESH_SP:
+                    with seq_shard():
+                        served["sp"] = serve_on_mesh(grid_mesh, cfg, served_params, refs[arch]["tokens"],
+                                                     refs[arch]["forced"][:0], whole_sp, extra)
             del served_params
             cast_tree(local, torch.bfloat16, True)  # exact: the values came from bf16
             torch.cuda.empty_cache()
+            sp_train = None
+            if arch in FMESH_SP:  # one gradient step, no update: the training below starts from the same draw
+                with seq_shard():
+                    sp_train = train_family(cfg, local, dev, seed, True, grid_mesh, place, extra, fmesh_seq(arch))
             train = train_family(cfg, local, dev, seed, arch in FMESH_NO_OPT, grid_mesh, place, extra,
                                  fmesh_seq(arch))
             reports.append({"arch": arch, "grid": grid, "draw": draw, "serve": served, "train": train,
+                            "sp_train": sp_train,
                             "experts": experts,
                             "devices": sorted({str(t_.device) for t_ in opt.leaves(local)})})
             del local, extra
@@ -3607,7 +3824,7 @@ def families_mesh_report(refs: FamilyRefs, ranks: list, ranks_s: float, parent_g
         group = [r[g] for r in ranks]
         want_b6 = flash_per_prefill(cfg)
         m = grid["model"]
-        gaps, by_rank = [], {}
+        gaps, by_rank, sp_gaps = [], {}, []
         for r in group:
             sv, tr = r["serve"], r["train"]
             lo, hi = sv["rows"]
@@ -3625,6 +3842,14 @@ def families_mesh_report(refs: FamilyRefs, ranks: list, ranks_s: float, parent_g
                 failed.append(f"{arch} rank {sv['rank']}: experts per MoE layer {r['experts']},"
                               f" expected {cfg.moe.n_routed // m}")
             launches["flash_attention"] += sv["b6_prefill"] + sum(tr["b6_launches"])
+            if arch in FMESH_SP:
+                for step, got in enumerate(sv["sp"]["logits"]):
+                    want = ref["logits"][step]
+                    sp_gaps.append(float(np.max(np.abs(got - want[lo:hi]))) / float(np.max(np.abs(want))))
+                if sv["sp"]["b6_prefill"] != want_b6 or sv["sp"]["cache_bad"]:
+                    failed.append(f"{arch} rank {sv['rank']} SEQ_SHARD: {sv['sp']['b6_prefill']} B.6 launches per"
+                                  f" prefill, cache leaves {sv['sp']['cache_bad']}")
+                launches["flash_attention"] += sv["sp"]["b6_prefill"] + sum(r["sp_train"]["b6_launches"])
         tr0, single = group[0]["train"], ref["train"]
         first = {"loss": abs(tr0["losses"][0] - single["losses"][0]) / abs(single["losses"][0]),
                  "grad_norm": abs(tr0["grad_norm"][0] - single["grad_norm"][0]) / abs(single["grad_norm"][0])}
@@ -3634,6 +3859,24 @@ def families_mesh_report(refs: FamilyRefs, ranks: list, ranks_s: float, parent_g
             failed.append(f"{arch} {grid}: first step against 1x1 {first}, bound {TRAIN_MESH_REL}")
         if any(r["train"]["losses"] != tr0["losses"] for r in group):
             failed.append(f"{arch}: the ranks' losses differ: {[r['train']['losses'] for r in group]}")
+        seq = None
+        if arch in FMESH_SP:
+            sp0 = group[0]["sp_train"]
+            seq = {"max_gap": max(sp_gaps, default=None), "gap_per_step": sp_gaps,
+                   "b6_launches_per_prefill": [r["serve"]["sp"]["b6_prefill"] for r in group],
+                   "loss": sp0["losses"][0], "grad_norm": sp0["grad_norm"][0],
+                   "first_step_rel": {"loss": abs(sp0["losses"][0] - single["losses"][0]) / abs(single["losses"][0]),
+                                      "grad_norm": abs(sp0["grad_norm"][0] - single["grad_norm"][0])
+                                      / abs(single["grad_norm"][0])},
+                   "ranks": [{"rank": r["serve"]["rank"], "prefill_ms": r["serve"]["sp"]["prefill_ms"],
+                              "ms_per_step": r["sp_train"]["ms"], "train_peak_gb": r["sp_train"]["peak_gb"],
+                              "step_comm_share": sum(r["sp_train"]["comm_s"]) / (sum(r["sp_train"]["ms"]) / 1e3)}
+                             for r in group]}
+            if len(sp_gaps) != len(gaps) // (FMESH_NEW + 1) or max(sp_gaps) > SERVE_MESH_TOL:
+                failed.append(f"{arch} {grid} SEQ_SHARD: logits gap {seq['max_gap']} against 1x1, bound {SERVE_MESH_TOL}")
+            if not max(seq["first_step_rel"].values()) <= TRAIN_MESH_REL:
+                failed.append(f"{arch} {grid} SEQ_SHARD: step against 1x1 {seq['first_step_rel']},"
+                              f" bound {TRAIN_MESH_REL}")
         rows.append({
             "arch": arch, "grid": grid, "layers": f"{cfg.n_layers} of {configs.get_config(arch).n_layers}",
             "encoder_layers": cfg.encoder.n_layers if cfg.encoder is not None else None,
@@ -3660,6 +3903,7 @@ def families_mesh_report(refs: FamilyRefs, ranks: list, ranks_s: float, parent_g
                        "train_peak_gb": r["train"]["peak_gb"]} for r in group],
             "single": {"serve_s": ref["serve_s"], "ms_per_step": single["ms"], "peak_gb": single["peak_gb"],
                        "card": ref["card"]},
+            "seq_shard": seq,
         })
     emit({"phase": "families_mesh", "gpu": nvidia_smi(), "groups": rows, "single_wall_s": refs.wall_s,
           "single_card_margin_gb": min(r["card"]["total_gb"] - r["card"]["bound_gb"] for r in results.values()),
@@ -3670,16 +3914,25 @@ def families_mesh_report(refs: FamilyRefs, ranks: list, ranks_s: float, parent_g
     return launches
 
 
-def mesh_ranks(mesh, serve_groups: list, seed: int, refs: dict | None) -> tuple[list, list]:
-    """One rank of ``mesh_serving_phase``: ``serve_mesh``'s groups, then
+def mesh_ranks(mesh, train_runs: dict | None, serve_groups: list, seed: int,
+               refs: dict | None) -> tuple[dict | None, list, list]:
+    """One rank of ``mesh_phase``: ``train_mesh``'s runs (none where
+    ``train_runs`` is None), ``serve_mesh``'s groups, then
     ``families_mesh``'s (none where ``refs`` is None)."""
-    return serve_mesh_ranks(mesh, serve_groups), [] if refs is None else families_mesh_ranks(mesh, seed, refs)
+    train = None if train_runs is None else train_mesh_ranks(mesh, train_runs)
+    return train, serve_mesh_ranks(mesh, serve_groups), [] if refs is None else families_mesh_ranks(mesh, seed, refs)
 
 
-def mesh_serving_phase(seed, phases=MESH_PHASES, refs: FamilyRefs | None = None,
-                       device="cuda:0") -> dict[str, dict[str, int]]:
-    """The mesh phases of ``phases``, their groups in one spawn of 4 gloo
-    ranks on the one card (``mesh_ranks``), which start and warm up once.
+def mesh_phase(seed, phases=MESH_PHASES, refs: FamilyRefs | None = None, device="cuda:0",
+               train_extra=()) -> dict[str, dict[str, int]]:
+    """The mesh phases of ``phases``, their runs and groups in one spawn of
+    4 gloo ranks on the one card (``mesh_ranks``), which start and warm up
+    once.
+
+    ``train_mesh``: training over a 2x2 mesh, with and without sequence
+    parallelism, beside 1x1 (``train_mesh_plan`` before the spawn,
+    ``train_mesh_ranks`` in it, ``train_mesh_report`` after; ``train_extra``:
+    more driver arguments, ``--device cpu`` for a rehearsal).
 
     ``serve_mesh``: prefill and decode over a mesh (``SERVE_MESH``): for
     each dense decoder, ``SERVE_MESH_B`` prompts of ``SERVE_MESH_S`` tokens
@@ -3715,52 +3968,83 @@ def mesh_serving_phase(seed, phases=MESH_PHASES, refs: FamilyRefs | None = None,
 
     Each phase's line carries the seconds of the whole spawn and is printed
     before a failed check raises.  Returns each phase's launches."""
+    import tempfile
+
     from repro_torch.launch import mesh as meshlib
 
-    serve_refs = serve_mesh_refs(seed, device) if "serve_mesh" in phases else None
-    refs = (refs or FamilyRefs(seed, device)) if "families_mesh" in phases else None
-    parent_gb = _parent_gb(device)
-    groups = serve_mesh_groups(seed, serve_refs) if serve_refs else []
-    family_refs = refs.get() if refs else None
-    t = time.perf_counter()
-    ranks = meshlib.run_ranks(mesh_ranks, MESH_SERVING_RANKS, backend="gloo", devices=[device] * MESH_SERVING_RANKS,
-                              args=(groups, seed, family_refs), timeout_s=TRAIN_MESH_TIMEOUT_S, env=FMESH_ENV)
-    wall = time.perf_counter() - t
-    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        plan = train_mesh_plan(seed, tmp, train_extra, device) if "train_mesh" in phases else None
+        serve_refs = serve_mesh_refs(seed, device) if "serve_mesh" in phases else None
+        refs = (refs or FamilyRefs(seed, device)) if "families_mesh" in phases else None
+        parent_gb = _parent_gb(device)
+        groups = serve_mesh_groups(seed, serve_refs) if serve_refs else []
+        family_refs = refs.get() if refs else None
+        t = time.perf_counter()
+        ranks = meshlib.run_ranks(mesh_ranks, MESH_SERVING_RANKS, backend="gloo",
+                                  devices=[device] * MESH_SERVING_RANKS,
+                                  args=(plan and plan["ranks"], groups, seed, family_refs),
+                                  timeout_s=TRAIN_MESH_TIMEOUT_S, env=FMESH_ENV)
+        wall = time.perf_counter() - t
+        out = {}
+        if plan:
+            out["train_mesh"] = train_mesh_report(plan, [r[0] for r in ranks], wall)
     if serve_refs:
-        out["serve_mesh"] = serve_mesh_report(serve_refs, [r[0] for r in ranks], wall)
+        out["serve_mesh"] = serve_mesh_report(serve_refs, [r[1] for r in ranks], wall)
     if refs:
-        out["families_mesh"] = families_mesh_report(refs, [r[1] for r in ranks], wall, parent_gb, device)
+        out["families_mesh"] = families_mesh_report(refs, [r[2] for r in ranks], wall, parent_gb, device)
     return out
 
 
+# one process running ``module.main(argv + ['--out-dir', D])`` for each argv
+# of a list, one after the other
+DRYRUN_CHAIN = ("import importlib, json, sys\n"
+                "main = importlib.import_module(sys.argv[1]).main\n"
+                "for argv in json.loads(sys.argv[2]):\n"
+                "    main(argv + ['--out-dir', sys.argv[3]])\n")
+
+
 class DryRuns:
-    """The dry runs' subprocesses (``DRYRUN_CALLS``), all started at once,
-    each writing its cells into one directory and its output to files
-    there; a thread per process notes when it exited.  They trace on the
-    host and allocate nothing on the card (the build ranks of
-    ``dryrun_mate`` excepted, which launch B.3), so ``main`` starts them
-    right after the kernel build, while the lake is drawn on the host and
-    nothing is timed, and ``wait``s for them before the kernel phase, the
-    first that times anything: no time is taken while they share the host
-    or the card.  ``dryrun_phase`` reads what they wrote.  ``stop`` kills
-    what still runs."""
+    """The dry runs' subprocesses (``DRYRUN_CALLS``), each writing its
+    cells into one directory and its output to files there; a thread per
+    process notes when it exited.  ``main`` starts the tracing ones here,
+    before the kernel build: they trace on fake tensors, need no kernel
+    and allocate nothing on the card, and run at a lower priority (nice
+    ``DRYRUN_NICE``), so they take the cores that nvcc, then the lake's
+    draw, the families' 1x1 runs and ``dryrun_mate`` leave idle.
+    ``dryrun_mate``, whose sharded build's ranks launch B.3 on the card,
+    starts after the build (``start_built``) at the normal priority.
+    ``main`` ``wait``s for them all before the kernel phase, the first that
+    times anything: no time is taken while they share the host or the
+    card.  ``dryrun_phase`` reads what they wrote.  ``stop`` kills what
+    still runs."""
 
     def __init__(self):
         import tempfile
-        import threading
 
-        root = os.path.dirname(os.path.abspath(__file__))
-        env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+        self.root = os.path.dirname(os.path.abspath(__file__))
+        self.env = dict(os.environ, PYTHONPATH=os.path.join(self.root, "src"))
         self.out_dir = tempfile.mkdtemp(prefix="dryrun_")
         self.t0 = time.perf_counter()
-        self.procs, self.ended, self.waited_s = [], [None] * len(DRYRUN_CALLS), 0.0
-        for i, (module, argv, _) in enumerate(DRYRUN_CALLS):
+        self.procs, self.ended, self.waited_s = [None] * len(DRYRUN_CALLS), [None] * len(DRYRUN_CALLS), 0.0
+        self._start(built=False)
+
+    def start_built(self) -> None:
+        """Start the entry points that launch kernels (after the build)."""
+        self._start(built=True)
+
+    def _start(self, built: bool) -> None:
+        import threading
+
+        for i, (module, argvs, _) in enumerate(DRYRUN_CALLS):
+            if module.endswith("dryrun_mate") != built:
+                continue
+            cmd = [sys.executable, "-c", DRYRUN_CHAIN, module, json.dumps(argvs), self.out_dir]
             with open(os.path.join(self.out_dir, f"{i}.out"), "w") as out, \
                     open(os.path.join(self.out_dir, f"{i}.err"), "w") as err:
-                p = subprocess.Popen([sys.executable, "-m", module, *argv, "--out-dir", self.out_dir], cwd=root,
-                                     env=env, stdout=out, stderr=err, text=True)
-            self.procs.append(p)
+                p = subprocess.Popen(cmd, cwd=self.root, env=self.env, stdout=out, stderr=err, text=True)
+            if not built:
+                os.setpriority(os.PRIO_PROCESS, p.pid, DRYRUN_NICE)
+            self.procs[i] = p
             threading.Thread(target=self._wait, args=(i, p), daemon=True).start()
 
     def wait(self) -> float:
@@ -3768,7 +4052,7 @@ class DryRuns:
         ``DRYRUN_TIMEOUT_S`` after the start; returns the seconds waited
         in all."""
         t = time.perf_counter()
-        for p in self.procs:
+        for p in filter(None, self.procs):
             try:
                 p.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - self.t0)))
             except subprocess.TimeoutExpired:
@@ -3788,7 +4072,7 @@ class DryRuns:
     def stop(self) -> None:
         import shutil
 
-        for p in self.procs:
+        for p in filter(None, self.procs):
             if p.poll() is None:
                 p.kill()
             p.wait()
@@ -3796,15 +4080,16 @@ class DryRuns:
 
 
 def dryrun_phase(runs_started: DryRuns) -> dict[str, int]:
-    """The dry runs' entry points as users run them, in subprocesses on
-    this card's torch, all started together after the kernel build and
-    waited for before the kernel phase (``DryRuns``): ``python -m
-    repro_torch.launch.dryrun`` over
-    qwen1.5-0.5b's four shapes at 16x16, qwen3-32b's train_4k at both
-    production meshes, train_4k and decode_32k of the six other families
-    (deepseek-v3's train_4k at 2x16x16 too, mamba2's long_500k), and
-    ``python -m
-    repro_torch.launch.dryrun_mate`` with its sharded build on 4 gloo ranks
+    """The dry runs' entry points as users run them (each ``main`` with a
+    user's argv), in subprocesses on this card's torch, started around
+    the kernel build and waited for before the kernel phase
+    (``DryRuns``): ``repro_torch.launch.dryrun`` over
+    qwen1.5-0.5b's four shapes at 16x16 (then its prefill_32k and
+    train_4k under sequence parallelism and its train_4k under the 'dots'
+    and 'none' remat policies, in the same process), qwen3-32b's train_4k
+    at both production meshes, train_4k and decode_32k of the six other
+    families (deepseek-v3's train_4k at 2x16x16 too, mamba2's long_500k),
+    and ``repro_torch.launch.dryrun_mate`` with its sharded build on 4 gloo ranks
     on the card.  Each cell is rank 0's program traced on fake CUDA tensors
     at the production mesh: planned figures for an H100 cluster, not
     timings.  Held: every expected cell's status, no kernel launched in a cell
@@ -3818,11 +4103,11 @@ def dryrun_phase(runs_started: DryRuns) -> dict[str, int]:
     cells, runs, failed = [], [], []
     launches = {name: 0 for name in counters()}
     wait_s = dry.wait()  # main waited before the kernel phase: nothing more here
-    for i, ((module, argv, expect), p) in enumerate(zip(DRYRUN_CALLS, dry.procs)):
+    for i, ((module, argvs, expect), p) in enumerate(zip(DRYRUN_CALLS, dry.procs)):
         build = [ln for ln in dry.output(i, "out").splitlines() if ln.startswith("[build]")]
-        runs.append({"module": module, "argv": argv, "exit": p.returncode, "ended_s": dry.ended[i], "build": build})
+        runs.append({"module": module, "argvs": argvs, "exit": p.returncode, "ended_s": dry.ended[i], "build": build})
         if p.returncode:
-            failed.append(f"{module} {argv}: exit {p.returncode}: {dry.output(i, 'err')[-2000:]}")
+            failed.append(f"{module} {argvs}: exit {p.returncode}: {dry.output(i, 'err')[-2000:]}")
             continue
         if module.endswith("dryrun_mate"):
             if not (build and build[0].endswith("identical_to_single_host=True")):
@@ -4165,31 +4450,32 @@ def main() -> int:
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
     from repro_torch.kernels import _build
 
-    nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True, text=True,
-                          check=True).stdout
-    release = re.search(r"release ([\d.]+)", nvcc)
-    t0 = time.perf_counter()
-    build_s = _build.build_all()
-    emit({"phase": "environment", "gpu": nvidia_smi(), "torch": torch.__version__,
-          "torch_cuda": torch.version.cuda, "nvcc_release": release and release.group(1),
-          "build_s": build_s, "build_wall_s": time.perf_counter() - t0})
-    for name, log in _build.build_log.items():
-        emit({"phase": "ptxas", "library": name,
-              "report": [ln.strip() for ln in log.splitlines()
-                         if "entry function" in ln or "registers" in ln or "spill" in ln],
-              "sass_wgmma": sass_count(_build._lib_path(name), "HGMMA")})
-
-    # host-side traces and the families' 1x1 runs: beside the lake's draw,
-    # waited for before the kernel phase
+    # host-side traces beside the build and the lake's draw, the families'
+    # 1x1 runs beside the lake's draw; all waited for before the kernel phase
     dry = DryRuns() if only is None or "dryrun" in only else None
-    refs = FamilyRefs(args.seed) if only is None else None
     try:
+        nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True, text=True,
+                              check=True).stdout
+        release = re.search(r"release ([\d.]+)", nvcc)
+        t0 = time.perf_counter()
+        build_s = _build.build_all()
+        emit({"phase": "environment", "gpu": nvidia_smi(), "torch": torch.__version__,
+              "torch_cuda": torch.version.cuda, "nvcc_release": release and release.group(1),
+              "build_s": build_s, "build_wall_s": time.perf_counter() - t0})
+        for name, log in _build.build_log.items():
+            emit({"phase": "ptxas", "library": name,
+                  "report": [ln.strip() for ln in log.splitlines()
+                             if "entry function" in ln or "registers" in ln or "spill" in ln],
+                  "sass_wgmma": sass_count(_build._lib_path(name), "HGMMA")})
+        if dry is not None:
+            dry.start_built()
+        refs = FamilyRefs(args.seed) if only is None else None
         if only:
             mesh = tuple(n for n in MESH_PHASES if n in only)  # the mesh phases asked for share one spawn
             for name in dict.fromkeys(mesh if n in mesh else n for n in only):
                 t = time.perf_counter()
                 if name == mesh:
-                    mesh_serving_phase(args.seed, mesh)
+                    mesh_phase(args.seed, mesh)
                 else:
                     dryrun_phase(dry) if name == "dryrun" else ONLY_PHASES[name](args.seed)
                 emit({"phase": "only", "ran": "+".join(mesh) if name == mesh else name,
@@ -4208,10 +4494,10 @@ def _phases(args, dry: DryRuns, refs: FamilyRefs) -> int:
     t0 = time.perf_counter()
     corpus = synthetic.make_corpus(synthetic.SyntheticSpec(n_tables=args.n_tables, seed=args.seed))
     lake_cells = [[list(r) for r in t.cells] for t in corpus.tables]  # before any planting
-    truth = []  # ground-truth queries, each planted into the lake
+    truth = []  # ground-truth queries, each planted into the lake; its arenas rebuilt once, after the last
     for i in range(N_TRUTH):
         query, q_cols, expected, corpus = synthetic.make_query_with_ground_truth(
-            corpus, n_rows=30, seed=args.seed + 1 + i
+            corpus, n_rows=30, seed=args.seed + 1 + i, rebuild=i == N_TRUTH - 1
         )
         truth.append((query, q_cols, expected))
     mixed = synthetic.make_mixed_queries(corpus, GROUP, 20, seed=args.seed + 100)
@@ -4254,10 +4540,9 @@ def _phases(args, dry: DryRuns, refs: FamilyRefs) -> int:
     run("serve", serve_phase, args.seed)
     run("families", families_phase, args.seed)
     run("train", train_phase, args.seed)
-    run("train_mesh", train_mesh_phase, args.seed)
     run("pipeline", pipeline_phase, args.seed)
     t = time.perf_counter()
-    by_path.update(mesh_serving_phase(args.seed, MESH_PHASES, refs))
+    by_path.update(mesh_phase(args.seed, MESH_PHASES, refs))
     walls["+".join(MESH_PHASES)] = time.perf_counter() - t
     run("dryrun", dryrun_phase, dry)
     run("driver", driver_phase, args, lake_cells)
@@ -4280,7 +4565,7 @@ def _phases(args, dry: DryRuns, refs: FamilyRefs) -> int:
 
 # the phases ``--only`` runs alone: each needs the kernel build and nothing
 # else (the mesh phases and the dry runs are run by ``main`` itself)
-ONLY_PHASES = {"train_mesh": train_mesh_phase, "pipeline": pipeline_phase, "serve_mesh": None,
+ONLY_PHASES = {"train": train_phase, "train_mesh": None, "pipeline": pipeline_phase, "serve_mesh": None,
                "families_mesh": None, "dryrun": None}
 
 

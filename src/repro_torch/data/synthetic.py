@@ -112,13 +112,18 @@ def make_query_with_ground_truth(
     key_width: int = 2,
     n_joinable_tables: int = 12,
     seed: int = 1,
+    rebuild: bool = True,
 ) -> tuple[Table, list[int], dict[int, int]]:
     """Build a query table and inject its composite keys into corpus tables.
 
-    Returns (query_table, q_cols, expected ≥joinability per injected table).
-    Injection REPLACES the first ``key_width`` cells of random rows of chosen
-    tables with the query's key values (in a random column order, to exercise
-    the mapping argmax of Eq. 2).
+    Returns (query_table, q_cols, expected ≥joinability per injected table,
+    the corpus rebuilt over the changed tables).  Injection REPLACES the
+    first ``key_width`` cells of random rows of chosen tables with the
+    query's key values (in a random column order, to exercise the mapping
+    argmax of Eq. 2).  ``rebuild=False`` returns ``corpus`` itself, its
+    arenas stale: a caller planting several queries rebuilds once, after
+    the last (the tables chosen depend on their shapes only, so the result
+    is the same).
     """
     rng = np.random.default_rng(seed)
     q_cols = list(range(key_width))
@@ -143,7 +148,7 @@ def make_query_with_ground_truth(
                 table.cells[int(r)][int(c)] = key[j]
         expected[table.table_id] = n_inject
     # corpus arenas must be rebuilt after cell surgery
-    rebuilt = Corpus(corpus.tables, max_len=corpus.max_len)
+    rebuilt = Corpus(corpus.tables, max_len=corpus.max_len) if rebuild else corpus
     return query, q_cols, expected, rebuilt
 
 

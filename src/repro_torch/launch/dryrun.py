@@ -49,15 +49,16 @@ What a cell records:
   * ``kernel_launches``: the launches the kernel wrappers counted during the
     trace, 0 in every record, since the trace raises on any.
 
-The variant's ``moe_impl`` and ``moe_group`` are set on ``models.moe``
-for the trace (``MOE_IMPL``, ``MOE_GROUP_SIZE``), as the reference sets
-them, and whisper's frames and the VLM's patches are zero-filled inputs of
-rank 0's rows, as the reference's ``_extra_input_sds``.
+The variant's ``moe_impl``, ``moe_group``, ``seq_shard`` and
+``remat_policy`` are set on the modules for the trace
+(``models.moe.MOE_IMPL`` / ``MOE_GROUP_SIZE``, ``models.layers.SEQ_SHARD``,
+``models.transformer.REMAT_POLICY``), as the reference sets them, and
+whisper's frames and the VLM's patches are zero-filled inputs of rank 0's
+rows, as the reference's ``_extra_input_sds``.
 
 A cell that cannot run records ``error``: each variant field the port does
-not honour, named with its item where it has one (``seq_shard=True``:
-A.10.13; ``state_dtype=int8`` over a mesh: A.10.15; ``remat_policy``
-other than 'full': A.10.16).
+not honour, named with its item where it has one (``state_dtype=int8``
+over a mesh: A.10.15).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch a[,a2...]]
         [--shape s[,s2...]] [--multi-pod | --both-meshes]
@@ -122,13 +123,10 @@ class Variant:
 def check_variant(shape, variant: Variant, mesh) -> None:
     """Raise for a cell the port cannot trace: each variant field it does
     not honour."""
-    if variant.seq_shard:
-        raise NotImplementedError("seq_shard=True: sequence parallelism over the model axis is ROADMAP A.10.13")
     if shape.kind == "train" and variant.state_dtype == "int8" and mesh.size > 1:
         raise NotImplementedError("state_dtype=int8 quantises whole leaves: over a mesh it is ROADMAP A.10.15")
-    if variant.remat_policy != "full":
-        raise NotImplementedError(f"remat_policy={variant.remat_policy!r}: the port's remat is the whole"
-                                  " block ('full'); the reference's 'dots' / 'none' are ROADMAP A.10.16")
+    if variant.remat_policy not in ("full", "dots", "none"):
+        raise ValueError(f"remat_policy={variant.remat_policy!r}: 'full', 'dots' or 'none'")
     if variant.flash_threshold != Variant.flash_threshold:
         raise NotImplementedError("flash_threshold: the port runs kernel B.6 at every length")
     if variant.moe_impl not in ("einsum", "scatter"):
@@ -244,26 +242,30 @@ def program(cfg, shape, variant: Variant, mesh, place, dev):
     """(fn, its arguments) of a cell's program on this rank of ``mesh``:
     zero-filled arguments (fake ones under ``FakeTensorMode``; real ones
     run the same program, as the tests do on gloo ranks).  ``fn`` runs
-    under the variant's MoE rules (``moe_rules``)."""
+    under the variant's module switches (``module_flags``)."""
     fn, args = _program(cfg, shape, variant, mesh, place, dev)
 
     def run(*a):
-        with moe_rules(variant):
+        with module_flags(variant):
             return fn(*a)
 
     return run, args
 
 
 @contextlib.contextmanager
-def moe_rules(variant: Variant):
-    """While active, ``models.moe`` dispatches by the variant's rule and
-    group size (the reference's ``MOE_IMPL`` / ``MOE_GROUP_SIZE``)."""
-    saved = moe.MOE_IMPL, moe.MOE_GROUP_SIZE
+def module_flags(variant: Variant):
+    """While active, the models run by the variant's module switches:
+    ``models.moe``'s dispatch rule and group size, ``models.layers``'
+    sequence parallelism and ``models.transformer``'s remat policy (the
+    reference's ``MOE_IMPL`` / ``MOE_GROUP_SIZE``, ``SEQ_SHARD``,
+    ``REMAT_POLICY``)."""
+    saved = moe.MOE_IMPL, moe.MOE_GROUP_SIZE, layers.SEQ_SHARD, transformer.REMAT_POLICY
     moe.MOE_IMPL, moe.MOE_GROUP_SIZE = variant.moe_impl, variant.moe_group
+    layers.SEQ_SHARD, transformer.REMAT_POLICY = variant.seq_shard, variant.remat_policy
     try:
         yield
     finally:
-        moe.MOE_IMPL, moe.MOE_GROUP_SIZE = saved
+        moe.MOE_IMPL, moe.MOE_GROUP_SIZE, layers.SEQ_SHARD, transformer.REMAT_POLICY = saved
 
 
 def _program(cfg, shape, variant: Variant, mesh, place, dev):

@@ -101,6 +101,19 @@ def state_placement(place: dict) -> dict:
     return {"params": place, "opt": {"step": (), "m": place, "v": place}}
 
 
+def train_config(args) -> step_lib.TrainConfig:
+    """The step's settings for these arguments: AdamW at ``--lr`` with the
+    reference driver's warmup over ``--steps``, the loss head chunked at
+    up to 1024 positions."""
+    return step_lib.TrainConfig(
+        adamw=opt.AdamWConfig(
+            lr=args.lr, warmup_steps=min(20, args.steps // 10 + 1),
+            total_steps=args.steps, state_dtype=args.state_dtype,
+        ),
+        ce_chunk=min(1024, args.seq_len),
+    )
+
+
 def train(args, mesh=None, log=print) -> dict:
     """The reference's loop, on one process (``mesh`` None) or on this rank
     of a ``GridMesh``.  ``log`` gets each ``[train]`` line.  Returns this
@@ -110,13 +123,7 @@ def train(args, mesh=None, log=print) -> dict:
     moment."""
     cfg = _config(args)
     dev = resolve_device(args.device) if mesh is None else mesh.device
-    tcfg = step_lib.TrainConfig(
-        adamw=opt.AdamWConfig(
-            lr=args.lr, warmup_steps=min(20, args.steps // 10 + 1),
-            total_steps=args.steps, state_dtype=args.state_dtype,
-        ),
-        ce_chunk=min(1024, args.seq_len),
-    )
+    tcfg = train_config(args)
     params = params_lib.materialize(transformer.model_specs(cfg), args.seed, device=dev)
     rows = slice(0, args.global_batch)
     place = None
@@ -180,7 +187,9 @@ def train(args, mesh=None, log=print) -> dict:
             if preempted:
                 log("[train] preemption save complete; exiting")
                 return _finish(report, dev, mesh)
-    if mgr:
+    # the reference writes the last step again even where the loop just
+    # saved it; the same state, so once here
+    if mgr and mgr.latest_step() != args.steps:
         mgr.save(args.steps, {"params": params, "opt": opt_state}, **placed)
     log(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     return _finish(report, dev, mesh)

@@ -40,6 +40,24 @@ passes through ``copy_to`` too, so its gradient is summed over the model
 ranks.  ``constrain_batch`` / ``constrain_seq`` check a local activation
 against the placement the reference's constraint would give it.
 
+Sequence parallelism (``SEQ_SHARD``, the reference's flag; Megatron's
+scheme): where the model axis M > 1 divides S, the residual stream
+between the sublayers of a full-sequence forward is each model rank's
+S/M positions (``seq_parallel``; the blocks set ``seq_context``).  Each
+sublayer's input then enters through ``region_in`` — every position
+gathered (``sharding.seq_gather``: all-gather forward, reduce-scatter
+backward) in place of ``copy_to`` — and leaves through ``region_out``: a
+split sublayer's partial sums reduce-scattered to this rank's positions
+(``sharding.seq_scatter``) in place of ``reduce_from``, a whole one's
+output cut to them.  The norms run on the rank's positions, and so does a
+whole MLP (it is per position).  A weight the model axis does not split
+then holds a part of its gradient on each model rank (from its positions
+or its heads), summed over 'model' by ``sharding.sync_grads``; inside a
+split region such a weight is therefore used as it is
+(``region_weight``), not through ``copy_to``.  Cross-attention's memory
+(the encoder's output) stays whole on every rank and enters through
+``copy_to``.  Decode never shards the sequence.
+
 Serving over a mesh (``transformer.prefill`` / ``decode_step``): the cache
 is placed by ``launch.mesh.cache_pspec_for`` — its KV heads over 'model'
 where they divide it, else its slots over the slot axes (the model axis,
@@ -63,6 +81,7 @@ and sums nothing over it.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -98,9 +117,6 @@ def enable_activation_sharding(mesh, model_axis: str = "model", vocab_size: int 
     whether the vocabulary is split (it is when the model axis divides it,
     ``validate_divisibility``'s rule)."""
     global _ACT_MESH, _ACT_BATCH_AXES, _ACT_MODEL_AXIS, _ACT_BATCH_SIZE, _ACT_MODEL_SIZE, _ACT_VOCAB
-    if SEQ_SHARD and model_axis in mesh.axis_names and mesh.shape[model_axis] > 1:
-        raise NotImplementedError("SEQ_SHARD (sequence parallelism over the model axis) is not ported:"
-                                  " ROADMAP A.10.13")
     _ACT_MESH = mesh
     _ACT_BATCH_AXES = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
     _ACT_MODEL_AXIS = model_axis if model_axis in mesh.axis_names else None
@@ -116,8 +132,10 @@ def disable_activation_sharding():
 
 
 SEQ_SHARD = False  # Megatron-style sequence parallelism for the residual
-# stream (the reference's flag): not ported; set with a model axis > 1,
-# ``enable_activation_sharding`` raises.
+# stream (the reference's flag): [B, S, D] between the sublayers holds this
+# rank's S/M positions where the model axis divides S (``seq_parallel``).
+
+_SEQ = False  # True while a sublayer runs on a sequence shard (``seq_context``)
 
 
 def model_parallel():
@@ -133,6 +151,63 @@ def vocab_parallel():
     return None
 
 
+def seq_parallel(seq_len: int) -> bool:
+    """True when ``SEQ_SHARD`` splits a residual stream of ``seq_len``
+    positions over the model axis here: a model axis > 1 that divides it
+    (the reference's ``constrain_seq`` rule; else the stream stays whole,
+    as its fallback to ``constrain_batch``)."""
+    return SEQ_SHARD and _ACT_MODEL_SIZE > 1 and seq_len % _ACT_MODEL_SIZE == 0
+
+
+@contextlib.contextmanager
+def seq_context(on: bool):
+    """Run the sublayers inside on this rank's sequence shard (``on``):
+    each region's entry gathers the positions (``sharding.seq_gather``) and
+    its exit scatters them (``seq_scatter``), or keeps this rank's where
+    the sublayer runs whole (``own_positions``).  Set per block, so that a
+    block's recompute under remat runs as its forward did."""
+    global _SEQ
+    saved, _SEQ = _SEQ, on
+    try:
+        yield
+    finally:
+        _SEQ = saved
+
+
+def own_positions(t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This rank's S/M positions of ``t`` along ``dim`` (its index over
+    the model axis)."""
+    n = t.shape[dim] // _ACT_MODEL_SIZE
+    return t.narrow(dim, _ACT_MESH.axis_index(_ACT_MODEL_AXIS) * n, n)
+
+
+def region_in(x: torch.Tensor, split: bool) -> torch.Tensor:
+    """The input of a sublayer over the model axis: under sequence
+    parallelism every position, gathered; else, where the sublayer is
+    ``split`` over the ranks, the region's entry (``copy_to``)."""
+    if _SEQ:
+        return sharding.seq_gather(x, _ACT_MESH, _ACT_MODEL_AXIS, 1)
+    return sharding.copy_to(x, _ACT_MESH) if split else x
+
+
+def region_out(y: torch.Tensor, split: bool) -> torch.Tensor:
+    """The output of a sublayer over the model axis: a ``split`` one's
+    partial sums summed (``reduce_from``; under sequence parallelism
+    ``seq_scatter``, keeping this rank's positions); a whole one's as it
+    is (under sequence parallelism: this rank's positions)."""
+    if _SEQ:
+        return sharding.seq_scatter(y, _ACT_MESH, _ACT_MODEL_AXIS, 1) if split else own_positions(y)
+    return sharding.reduce_from(y, _ACT_MESH) if split else y
+
+
+def region_weight(w: torch.Tensor) -> torch.Tensor:
+    """A weight the model axis does not split, used inside a split
+    region: its gradient is each rank's part, summed over 'model' here
+    (``copy_to``), or under sequence parallelism with the sequence-sharded
+    leaves' in ``sharding.sync_grads``."""
+    return w if _SEQ else sharding.copy_to(w, _ACT_MESH)
+
+
 def batch_sum(t: torch.Tensor) -> torch.Tensor:
     """``t`` summed over the batch axes (no gradient): a count or metric
     over the global batch.  Itself without a mesh."""
@@ -142,10 +217,18 @@ def batch_sum(t: torch.Tensor) -> torch.Tensor:
 
 
 def constrain_seq(x: torch.Tensor, global_shape: tuple | None = None):
-    """[B, S, D]: the reference shards S over 'model' when ``SEQ_SHARD``
-    (not ported: ``enable_activation_sharding`` refuses it), else this is
+    """[B, S, D]: under ``SEQ_SHARD``, where the model axis divides S,
+    check that ``x`` is this rank's [B/D, S/M, D] shard of
+    ``global_shape`` (B whole where D does not divide it); else this is
     ``constrain_batch(x, 0, global_shape=...)``."""
-    return constrain_batch(x, 0, global_shape=global_shape)
+    if _ACT_MESH is None or global_shape is None or len(global_shape) != 3 or not seq_parallel(global_shape[1]):
+        return constrain_batch(x, 0, global_shape=global_shape)
+    b, s, d = global_shape
+    want = (b // _ACT_BATCH_SIZE if b % _ACT_BATCH_SIZE == 0 else b, s // _ACT_MODEL_SIZE, d)
+    if tuple(x.shape) != want:
+        raise ValueError(f"activation {tuple(x.shape)} is not this rank's sequence shard {want} of"
+                         f" {tuple(global_shape)}")
+    return x
 
 
 def constrain_batch(x: torch.Tensor, batch_dim: int = 0, heads_dim: int | None = None,
@@ -315,11 +398,12 @@ def attention_fwd(
     mesh = model_parallel()
     tp = mesh is not None and p["wq"].shape[-2] < cfg.n_heads  # heads split over 'model'
     kv_whole = p["wk"].shape[-2] == cfg.n_kv_heads
-    if tp:  # column-parallel Q/K/V: the region's entry, its replicated weights
-        x = sharding.copy_to(x, mesh)
-        kv_x = None if kv_x is None else sharding.copy_to(kv_x, mesh)
+    x = region_in(x, tp)  # column-parallel Q/K/V: the region's entry
+    if kv_x is not None and (tp or _SEQ):  # the memory, whole on every rank: its gradient a part on each
+        kv_x = sharding.copy_to(kv_x, mesh)
+    if tp:  # the replicated weights of the region
         whole = ("q_norm", "k_norm") + (("wk", "wv", "bk", "bv") if kv_whole else ())
-        p = {n: sharding.copy_to(w, mesh) if n in whole else w for n, w in p.items()}
+        p = {n: region_weight(w) if n in whole else w for n, w in p.items()}
     q, k, v = _project_qkv(p, cfg, x, kv_x)
     if kv_x is None:  # self-attention → RoPE
         q = rope(q, positions, cfg.rope_theta)
@@ -335,8 +419,7 @@ def attention_fwd(
     out = flash_kernel.flash_attention(q, k, v, causal=causal, window=window)
     constrain_batch(out, 0, 2, global_shape=(out.shape[0] * _ACT_BATCH_SIZE, out.shape[1], cfg.n_heads,
                                              out.shape[3]))
-    y = _out_proj(out, p["wo"])
-    return sharding.reduce_from(y, mesh) if tp else y  # row-parallel wo
+    return region_out(_out_proj(out, p["wo"]), tp)  # row-parallel wo
 
 
 def _cache_write(buf: torch.Tensor, slot: torch.Tensor, val: torch.Tensor) -> None:
@@ -537,16 +620,17 @@ def mlp_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, *, d_ff: int | None = No
             reduce: bool = True) -> torch.Tensor:
     """Under a model axis whose ranks split the hidden width (``wo``'s
     rows fewer than ``d_ff``, default ``cfg.d_ff``): column-parallel in,
-    row-parallel out.  ``reduce=False`` hands back the row-parallel partial
-    sum of a split MLP, its input taken as the region's already (the MoE
-    layer sums it with its experts' in one all-reduce)."""
-    mesh = model_parallel()
+    row-parallel out (``region_in`` / ``region_out``).  ``reduce=False``
+    hands back the row-parallel partial sum of a split MLP, its input taken
+    as the region's already (the MoE layer sums it with its experts' in one
+    all-reduce).  A whole MLP runs on the positions it is given: this
+    rank's under sequence parallelism."""
     tp = mlp_split(p, d_ff or cfg.d_ff)
     if tp and reduce:
-        x = sharding.copy_to(x, mesh)
+        x = region_in(x, True)
     if cfg.glu:
         h = _act(cfg, x @ p["wi_gate"].to(x.dtype)) * (x @ p["wi_up"].to(x.dtype))
     else:
         h = _act(cfg, x @ p["wi"].to(x.dtype))
     y = h @ p["wo"].to(x.dtype)
-    return sharding.reduce_from(y, mesh) if tp and reduce else y
+    return region_out(y, True) if tp and reduce else y

@@ -91,17 +91,17 @@ def mla_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor)
     on every model rank (their weights replicated, entered through
     ``copy_to`` so their gradients sum over the ranks), the per-head
     decompression and B.6 run on this rank's heads, and the row-parallel
-    ``wo`` ends in the model all-reduce."""
-    mesh = layers.model_parallel()
+    ``wo`` ends in the model all-reduce (under sequence parallelism: the
+    positions gathered in, reduce-scattered out, ``layers.region_in`` /
+    ``region_out``)."""
     tp = _split(p, cfg)
+    x = layers.region_in(x, tp)
     if tp:
-        x = sharding.copy_to(x, mesh)
-        p = {n: sharding.copy_to(w, mesh) if n in _WHOLE else w for n, w in p.items()}
+        p = {n: layers.region_weight(w) if n in _WHOLE else w for n, w in p.items()}
     q, ckv, kr = _latents(p, cfg, x, positions)
     k, v = _keys(p, cfg, ckv, kr)
     out = flash_kernel.flash_attention(q, k, v, causal=True)
-    y = layers._out_proj(out, p["wo"])
-    return sharding.reduce_from(y, mesh) if tp else y
+    return layers.region_out(layers._out_proj(out, p["wo"]), tp)
 
 
 def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,

@@ -36,7 +36,13 @@ experts) or their per-expert counts ('scatter': an exclusive prefix), so
 capacities, positions and drops are the unsplit run's, and the experts of
 such a group run as the reference's placement of the buffer splits them
 over the data ranks (``_experts_over``).  The load-balancing loss is the
-global batch's.
+global batch's.  Under sequence parallelism (``layers.SEQ_SHARD``) the
+layer's input is gathered over 'model' first (``layers.region_in``), so
+the router sees every position and the groups, capacities and drops are
+those of the run without it; the split partials are reduce-scattered
+back to this rank's positions, a whole layer's output cut to them, and a
+router the model axis does not split takes the aux loss's gradient from
+this rank's positions only (``_aux_loss``'s ``own``).
 """
 
 from __future__ import annotations
@@ -97,15 +103,25 @@ def _router(p: dict, cfg: ModelConfig, x: torch.Tensor):
     return probs, top_p, top_e
 
 
-def _aux_loss(cfg: ModelConfig, probs: torch.Tensor, top_e: torch.Tensor) -> torch.Tensor:
+def _aux_loss(cfg: ModelConfig, probs: torch.Tensor, top_e: torch.Tensor, own: tuple | None = None) -> torch.Tensor:
     """Switch-style load balancing: E · Σ_e mean prob_e · routed share_e.
 
     Over the batch axes of a mesh both means are the global batch's: the
     sums are all-reduced (the probabilities' with the gradient passed
-    through, so each rank's backward gives its rows' share)."""
+    through, so each rank's backward gives its rows' share).  ``own``
+    (B, S): a router the model axis does not split, run on every position
+    under sequence parallelism — its probabilities' sum is each model
+    rank's positions' all-reduced over 'model' too, so that its gradient,
+    like the layer output's, is this rank's positions' part."""
     e = cfg.moe.n_routed
     counts = _counts(top_e, e).float()
-    if layers._ACT_BATCH_SIZE == 1:
+    if own is not None:
+        mesh, axes = layers._ACT_MESH, layers._ACT_BATCH_AXES + (layers._ACT_MODEL_AXIS,)
+        rows = probs.numel() // e * layers._ACT_BATCH_SIZE
+        mine = layers.own_positions(probs.reshape(*own, e)).reshape(-1, e)
+        me = sharding.reduce_from(mine.sum(dim=0), mesh, axes) / rows
+        ce = layers.batch_sum(counts) / (top_e.numel() * layers._ACT_BATCH_SIZE)
+    elif layers._ACT_BATCH_SIZE == 1:
         me = probs.reshape(-1, e).mean(dim=0)
         ce = counts / top_e.numel()
     else:
@@ -114,6 +130,12 @@ def _aux_loss(cfg: ModelConfig, probs: torch.Tensor, top_e: torch.Tensor) -> tor
         me = sharding.reduce_from(probs.reshape(-1, e).sum(dim=0), mesh, axes) / rows
         ce = layers.batch_sum(counts) / (top_e.numel() * layers._ACT_BATCH_SIZE)
     return (me * ce).sum() * e * cfg.moe.aux_loss_weight
+
+
+def _own(p: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple | None:
+    """x's (B, S) when ``_aux_loss`` takes this rank's positions' share: a
+    router the model axis does not split, under sequence parallelism."""
+    return tuple(x.shape[:2]) if layers._SEQ and _ep(p, cfg) is None else None
 
 
 def _counts(top_e: torch.Tensor, n_experts: int) -> torch.Tensor:
@@ -179,13 +201,14 @@ def route_einsum(p: dict, cfg: ModelConfig, x: torch.Tensor) -> dict:
         pos = _slot_major(top_e, e)
         grp = torch.arange(g, device=x.device)[:, None].expand(g, gsz)
         return {"top_e": top_e, "top_p": top_p, "pos": pos, "keep": pos < capacity, "grp": grp, "groups": g,
-                "capacity": capacity, "spans": False, "aux": _aux_loss(cfg, probs, top_e)}
+                "capacity": capacity, "spans": False, "aux": _aux_loss(cfg, probs, top_e, _own(p, cfg, x))}
     probs, top_p, top_e = _router(p, cfg, x.reshape(1, n, d))
     every = sharding.all_gather(top_e[0], layers._ACT_MESH, layers._ACT_BATCH_AXES, 0)  # [total, k]
     pos = _slot_major(every.reshape(total // gsz, gsz, k), e).reshape(total, k)[me * n : (me + 1) * n]
     grp = torch.arange(me * n, (me + 1) * n, device=x.device)[None] // gsz
     return {"top_e": top_e, "top_p": top_p, "pos": pos[None], "keep": pos[None] < capacity, "grp": grp,
-            "groups": total // gsz, "capacity": capacity, "spans": True, "aux": _aux_loss(cfg, probs, top_e)}
+            "groups": total // gsz, "capacity": capacity, "spans": True,
+            "aux": _aux_loss(cfg, probs, top_e, _own(p, cfg, x))}
 
 
 def route_scatter(p: dict, cfg: ModelConfig, x: torch.Tensor) -> dict:
@@ -206,7 +229,7 @@ def route_scatter(p: dict, cfg: ModelConfig, x: torch.Tensor) -> dict:
         pos = pos + sharding.exclusive_prefix(counts, layers._ACT_MESH, layers._ACT_BATCH_AXES)[top_e]
     return {"top_e": top_e, "top_p": top_p, "pos": pos, "keep": pos < capacity,
             "grp": torch.zeros(1, n, dtype=torch.int64, device=x.device), "groups": 1,
-            "capacity": capacity, "spans": n_ranks > 1, "aux": _aux_loss(cfg, probs, top_e)}
+            "capacity": capacity, "spans": n_ranks > 1, "aux": _aux_loss(cfg, probs, top_e, _own(p, cfg, x))}
 
 
 def _experts(p: dict, xe: torch.Tensor) -> torch.Tensor:
@@ -294,17 +317,21 @@ def _moe(p: dict, cfg: ModelConfig, x: torch.Tensor, route) -> tuple[torch.Tenso
     ep = _ep(p, cfg) is not None
     fs = cfg.moe.d_ff_shared or cfg.moe.d_ff_expert * cfg.moe.n_shared
     shared_tp = bool(cfg.moe.n_shared) and layers.mlp_split(p["shared"], fs)
-    xc = sharding.copy_to(x, mesh) if ep or shared_tp else x
-    r = route(p, cfg, xc if ep else x)
+    xc = layers.region_in(x, ep or shared_tp)
+    xr = xc if ep or layers._SEQ else x  # the router's rows: every position under SEQ_SHARD
+    r = route(p, cfg, xr)
     top_p = sharding.copy_to(r["top_p"], mesh) if ep else r["top_p"]
-    ys = [(_dispatch_combine(p, cfg, xc if ep else x, r, top_p), ep)]  # (output, a partial sum over 'model')
-    if cfg.moe.n_shared:
-        ys.append((layers.mlp_fwd(p["shared"], cfg, xc if shared_tp else x, d_ff=fs, reduce=False), shared_tp))
-    partial = [t for t, split in ys if split]
-    y = sharding.reduce_from(sum(partial[1:], partial[0]), mesh) if partial else None
-    for t, split in ys:
-        if not split:
-            y = t if y is None else y + t
+    routed = _dispatch_combine(p, cfg, xr, r, top_p)
+    partial = [routed] if ep else []  # partial sums over 'model'
+    y = None if ep else layers.region_out(routed, False)  # whole experts: this rank's positions
+    if cfg.moe.n_shared and shared_tp:
+        partial.append(layers.mlp_fwd(p["shared"], cfg, xc, d_ff=fs, reduce=False))
+    elif cfg.moe.n_shared:  # whole, per position: on this rank's positions
+        shared = layers.mlp_fwd(p["shared"], cfg, x, d_ff=fs)
+        y = shared if y is None else y + shared
+    if partial:
+        summed = layers.region_out(sum(partial[1:], partial[0]), True)
+        y = summed if y is None else summed + y
     return y, r["aux"]
 
 

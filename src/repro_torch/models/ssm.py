@@ -41,6 +41,12 @@ evenly over ``conv_dim = d_in + 2·ng·ds``:
   too (``sharding.sum_over``);
 * ``wo`` is row-parallel: the partial sums end in ``sharding.reduce_from``.
 
+Under sequence parallelism (``layers.SEQ_SHARD``) the input is every
+position, gathered over 'model' (``layers.region_in``), the conv and the
+chunked scan run on the whole sequence, ``wo``'s partial sums are
+reduce-scattered back to this rank's positions and ``wbc`` is used as it
+is, its gradient summed by ``sharding.sync_grads``.
+
 The cache keeps the reference's placement (``launch.mesh.cache_pspec_for``):
 ``h`` splits with the rank's heads; ``conv`` splits conv_dim evenly, as
 ``conv_w`` does, so a rank's shard holds pre-conv inputs that other ranks'
@@ -258,13 +264,14 @@ def ssm_fwd(p: dict, cfg: ModelConfig, u: torch.Tensor, state: bool = True):
     or None without ``state``).  Over a model axis (module docstring): this
     rank's heads of 'h' and its slice of 'conv' as ``conv_w`` splits it."""
     s, d_in, nh = _dims(cfg)
-    b, slen, _ = u.shape
     dt_ = u.dtype
     ng = s.n_groups * s.d_state
     mesh = _split(p, cfg)
     wbc = p["wbc"]
-    if mesh is not None:  # the region's entry; wbc's output feeds every rank's heads
-        u, wbc = sharding.copy_to(u, mesh), sharding.copy_to(wbc, mesh)
+    u = layers.region_in(u, mesh is not None)  # the region's entry (every position under SEQ_SHARD)
+    b, slen, _ = u.shape
+    if mesh is not None:  # wbc's output feeds every rank's heads
+        wbc = layers.region_weight(wbc)
     z = u @ p["wz"].to(dt_)
     x = u @ p["wx"].to(dt_)
     if mesh is None:
@@ -290,9 +297,7 @@ def ssm_fwd(p: dict, cfg: ModelConfig, u: torch.Tensor, state: bool = True):
 
     # gated RMSNorm, then the output projection (row-parallel under a split)
     y = _gated_norm(y, z, p["norm"], cfg, mesh).to(dt_)
-    out = y @ p["wo"].to(dt_)
-    if mesh is not None:
-        out = sharding.reduce_from(out, mesh, layers._ACT_MODEL_AXIS)
+    out = layers.region_out(y @ p["wo"].to(dt_), mesh is not None)
     if not state:
         return out, None
 

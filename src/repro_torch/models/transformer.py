@@ -15,15 +15,25 @@ place by ``decode_step`` (the reference returns new ones).
 
 Training (``train/step.py``) calls ``forward_hidden`` / ``mtp_hidden``
 with grad enabled on the stacked leaves.  With ``remat`` (the reference's
-default) each block runs under ``torch.utils.checkpoint`` — the
-reference's ``jax.checkpoint`` of its scan body — so only the blocks'
-inputs are kept for the backward, and each block's forward, its B.6
-launches included, runs again there.  The blocks' weights are ``unbind``
+default) each block runs under the reference's ``REMAT_POLICY``: 'full'
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
+scan body) keeps only the blocks' inputs for the backward and runs each
+block's forward again there, its B.6 launches included; 'dots' (a
+selective checkpoint, jax's ``dots_with_no_batch_dims_saveable``) keeps
+the outputs of its 2-D matrix products too and recomputes the rest (B.6,
+``bmm``, norms, elementwise ops, collectives); 'none' keeps whatever
+autograd saves.  The blocks' weights are ``unbind``
 views of the stacked leaves, so the backward stacks each leaf's gradient
 once.  Over a mesh (``layers.enable_activation_sharding``) the embedding
 and the head run vocab-parallel when the model axis splits the vocabulary
 (``_embed``, ``_logits``; the training loss uses ``train.sharding``'s
-vocab-parallel CE on ``_head``); the layers do the rest.
+vocab-parallel CE on ``_head``); the layers do the rest.  Under
+``layers.SEQ_SHARD`` (where the model axis divides S) the embedding ends
+in a reduce-scatter to this rank's positions (or looks up only those),
+the blocks and the final norm run on them, and the head gathers them
+back (the training loss: ``step.chunked_ce``); ``prefill`` gathers the
+K/V and latents it caches and takes the last position's hidden state
+from the last model rank.
 
 Serving over a mesh (the same switch): ``prefill`` and ``decode_step`` run
 one rank's part of the reference's GSPMD serving program.  ``params`` are
@@ -50,11 +60,12 @@ divide (every data rank runs all of it).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.models import layers, mla, moe, ssm
 from repro_torch.models.config import ModelConfig
@@ -264,12 +275,16 @@ def _unstack(tree, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
-def _embed(params, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+def _embed(params, tokens: torch.Tensor, dtype=torch.bfloat16, *, seq: bool = False) -> torch.Tensor:
     """Embedding rows of ``tokens`` in ``dtype``; vocab-parallel when the
-    table's rows are split over the model axis (``layers.vocab_parallel``)."""
+    table's rows are split over the model axis (``layers.vocab_parallel``).
+    ``seq``: this rank's positions of ``tokens`` [B, S] only (sequence
+    parallelism: the vocab-parallel sum becomes a reduce-scatter)."""
     table = params["embed"].to(dtype)
     mesh = layers.vocab_parallel()
-    return table[tokens] if mesh is None else sharding.vocab_parallel_embed(table, tokens, mesh)
+    if mesh is None:
+        return table[layers.own_positions(tokens) if seq else tokens]
+    return sharding.vocab_parallel_embed(table, tokens, mesh, seq=seq)
 
 
 def _head(params, cfg: ModelConfig) -> torch.Tensor:
@@ -278,15 +293,20 @@ def _head(params, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params, cfg: ModelConfig, x: torch.Tensor, seq: bool = False) -> torch.Tensor:
     """f32 logits over the whole vocabulary; vocab-parallel, each rank's
-    columns are gathered over the model axis."""
+    columns are gathered over the model axis.  ``seq``: ``x`` [B, S/M, D]
+    is this rank's positions (sequence parallelism), gathered first."""
     head = _head(params, cfg)
     mesh = layers.vocab_parallel()
+    if seq:  # split vocabulary: each rank's gradient of the positions is a part; whole: the same on each
+        gather = sharding.gather_from if mesh is None else sharding.seq_gather
+        x = gather(x, layers.model_parallel(), "model", 1)
+    elif mesh is not None:
+        x = sharding.copy_to(x, mesh)
     if mesh is None:
         return (x @ head.to(x.dtype)).float()
-    local = (sharding.copy_to(x, mesh) @ head.to(x.dtype)).float()
-    return sharding.gather_from(local, mesh, "model", -1)
+    return sharding.gather_from((x @ head.to(x.dtype)).float(), mesh, "model", -1)
 
 
 def _encode(params, cfg: ModelConfig, frames, patches, dtype=torch.bfloat16):
@@ -320,17 +340,62 @@ def _blocks(params, cfg: ModelConfig):
 # forward (scoring)
 # ---------------------------------------------------------------------------
 
-def _block_fwd(lp, cfg: ModelConfig, plan: GroupPlan, x, positions, enc_out, enc_positions):
-    """One stacked block's sublayers. Returns (x, the MoE aux loss summed
+def _block_fwd(lp, cfg: ModelConfig, plan: GroupPlan, x, positions, enc_out, enc_positions, seq=False):
+    """One stacked block's sublayers, on this rank's sequence shard under
+    ``seq`` (sequence parallelism). Returns (x, the MoE aux loss summed
     over them, or None)."""
     aux = None
-    for i, (mixer, ffn) in enumerate(plan.sublayers):
-        window = cfg.sliding_window if mixer == "attn" else 0
-        x, a = _layer_fwd(lp[f"s{i}"], cfg, x, positions, mixer, ffn, window=window,
-                          enc_out=enc_out, enc_positions=enc_positions)
-        if a is not None:
-            aux = a if aux is None else aux + a
+    shape = (x.shape[0] * layers._ACT_BATCH_SIZE, positions.shape[0], x.shape[-1])
+    with layers.seq_context(seq):
+        layers.constrain_seq(x, shape)
+        for i, (mixer, ffn) in enumerate(plan.sublayers):
+            window = cfg.sliding_window if mixer == "attn" else 0
+            x, a = _layer_fwd(lp[f"s{i}"], cfg, x, positions, mixer, ffn, window=window,
+                              enc_out=enc_out, enc_positions=enc_positions)
+            layers.constrain_seq(x, shape)
+            if a is not None:
+                aux = a if aux is None else aux + a
     return x, aux
+
+
+REMAT_POLICY = "full"  # the reference's switch: 'full' (checkpoint the block) | 'dots' (save the
+# outputs of its matrix products with no batch dims, recompute the rest) | 'none' (no remat)
+
+# the products 'dots' saves: ``x @ W`` of a [B, S, D] activation lowers to these
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(_ctx, op, *_args, **_kwargs):
+    """jax's ``dots_with_no_batch_dims_saveable`` in torch's selective
+    checkpoint: must-save the 2-D products, recompute everything else —
+    ``bmm`` and batched einsums (attention scores, the MoE experts), B.6's
+    op, norms, elementwise ops and the collectives."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` under the block's remat policy (``REMAT_POLICY``)."""
+    if REMAT_POLICY == "none":
+        return fn(*args)
+    if REMAT_POLICY == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
+    if REMAT_POLICY != "full":
+        raise ValueError(f"REMAT_POLICY {REMAT_POLICY!r}: 'full', 'dots' or 'none'")
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+# the top-level leaves that never meet the decoder's sequence shards: the
+# encoder side, whole on every model rank
+SEQ_FREE = ("encoder", "enc_final_norm", "enc_pos", "vision_norm")
+
+
+def seq_keys(params: dict, seq_len: int) -> tuple:
+    """The top-level keys of ``params`` whose leaves act on the sequence
+    shards of a ``seq_len`` stream (``sharding.sync_grads``'s
+    ``seq_keys``): every one but ``SEQ_FREE`` under sequence parallelism,
+    none without it."""
+    return tuple(k for k in params if k not in SEQ_FREE) if layers.seq_parallel(seq_len) else ()
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -341,17 +406,20 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     tokens: int[B, S] -> (hidden bf16[B, S, D] after the final norm, aux
     f32 — the MoE load-balancing loss summed over layers).  ``remat``:
-    with grad enabled, each block under ``torch.utils.checkpoint`` (module
-    docstring); without grad it changes nothing.
+    with grad enabled, each block under ``REMAT_POLICY`` (module
+    docstring); without grad it changes nothing.  Under sequence
+    parallelism (``layers.seq_parallel(S)``) the hidden states are this
+    rank's [B, S/M, D] positions.
     """
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _embed(params, tokens)
+    seq = layers.seq_parallel(tokens.shape[1])
+    x = _embed(params, tokens, seq=True) if seq else _embed(params, tokens)
     aux = torch.zeros((), device=x.device)
     enc_out, enc_positions = _encode(params, cfg, frames, patches)
     remat = remat and torch.is_grad_enabled()
     for plan, _li, lp in _blocks(params, cfg):
-        args = (lp, cfg, plan, x, positions, enc_out, enc_positions)
-        x, a = checkpoint(_block_fwd, *args, use_reentrant=False) if remat else _block_fwd(*args)
+        args = (lp, cfg, plan, x, positions, enc_out, enc_positions, seq)
+        x, a = _remat(_block_fwd, *args) if remat else _block_fwd(*args)
         if a is not None:
             aux = aux + a
     return layers.norm_fwd(params["final_norm"], cfg, x), aux
@@ -363,19 +431,23 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. tokens: int[B, S] -> (logits f32[B, S, V], aux)."""
     x, aux = forward_hidden(params, cfg, tokens, frames=frames, patches=patches, remat=remat)
-    return _logits(params, cfg, x), aux
+    return _logits(params, cfg, x, seq=layers.seq_parallel(tokens.shape[1])), aux
 
 
 def mtp_hidden(params, cfg: ModelConfig, tokens: torch.Tensor, hidden: torch.Tensor):
     """DeepSeek MTP module hidden states: predict token t+2 from
-    [h_t ; emb(token_{t+1})].  None without an MTP module."""
+    [h_t ; emb(token_{t+1})].  None without an MTP module.  Under sequence
+    parallelism ``hidden`` and the result are this rank's positions."""
     if not cfg.mtp_depth:
         return None
     p = params["mtp"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    nxt = _embed(params, torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)).to(hidden.dtype)
+    seq = layers.seq_parallel(tokens.shape[1])
+    nxt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    nxt = (_embed(params, nxt, seq=True) if seq else _embed(params, nxt)).to(hidden.dtype)
     h = torch.cat([hidden, nxt], dim=-1) @ p["proj"].to(hidden.dtype)
-    h, _ = _layer_fwd(p["layer"], cfg, h, positions, "mla" if cfg.mla else "attn", "mlp")
+    with layers.seq_context(seq):
+        h, _ = _layer_fwd(p["layer"], cfg, h, positions, "mla" if cfg.mla else "attn", "mlp")
     return layers.norm_fwd(p["norm"], cfg, h)
 
 
@@ -519,15 +591,28 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor, cache: dict
     return _logits(params, cfg, x[:, 0]), cache
 
 
-def _prefill_attn(spec, cfg, hh, positions, c, li, slot_axes=((), ())) -> None:
+def _seq_whole(t: torch.Tensor, seq: bool) -> torch.Tensor:
+    """``t`` [B, S/M, ...] of this rank's positions gathered whole over the
+    model axis under ``seq`` (no gradient: prefill)."""
+    return sharding.all_gather(t, layers._ACT_MESH, layers._ACT_MODEL_AXIS, 1) if seq else t
+
+
+def _prefill_attn(spec, cfg, hh, positions, c, li, slot_axes=((), ()), seq=False) -> None:
     """Write one attention layer's prompt K/V into its cache slice ``li``:
     the slots this rank holds (all of them unless ``slot_axes`` — those of
     'k' / 'v', those of 'slot_pos' — split them).  A sliding-window layer
     whose ring of ``window`` slots is shorter than the prompt keeps the last
-    ``window`` positions, each at slot ``pos % window``."""
-    s = hh.shape[1]
+    ``window`` positions, each at slot ``pos % window``.  ``seq``: ``hh``
+    holds this rank's positions; their K/V, narrower than ``hh`` under
+    GQA, are gathered over the model axis where ``wk`` / ``wv`` are whole,
+    and ``hh`` itself where they are this rank's KV heads (each rank
+    projects its heads at every position)."""
+    if seq and spec["mixer"]["wk"].shape[-2] < cfg.n_kv_heads:
+        hh, seq = _seq_whole(hh, True), False
     k, v = layers._project_kv(spec["mixer"], cfg, hh)
-    k = layers.rope(k, positions, cfg.rope_theta)
+    k = layers.rope(k, layers.own_positions(positions, 0) if seq else positions, cfg.rope_theta)
+    k, v = _seq_whole(k, seq), _seq_whole(v, seq)
+    s = k.shape[1]
     mesh = layers._ACT_MESH
     slots = c["k"].shape[2] * (mesh.axis_size(slot_axes[0]) if slot_axes[0] else 1)
     held = torch.arange(s, device=hh.device)  # the position at each global slot
@@ -560,7 +645,11 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int, 
     heads, or every KV head when ``wk`` / ``wv`` are whole, and it keeps
     its slots), MLA layers their latents,
     cross-attention layers the memory's K/V; SSM layers keep the final
-    state of the chunked scan.
+    state of the chunked scan.  Under sequence parallelism
+    (``layers.seq_parallel(S)``) the residual stream is this rank's
+    positions: the K/V and latents projected from them are gathered over
+    the model axis before the cache takes its slots, and the last
+    position's hidden state comes from the last model rank.
     """
     b, s = tokens.shape
     if cfg.sliding_window == 0 and s > max_seq:
@@ -569,9 +658,20 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int, 
     params = _serve_params(params, cfg, mesh)
     dev = tokens.device
     positions = torch.arange(s, device=dev)
-    x = _embed(params, tokens)
+    seq = layers.seq_parallel(s)
+    x = _embed(params, tokens, seq=True) if seq else _embed(params, tokens)
     cache = init_cache(cfg, b * layers._ACT_BATCH_SIZE, max_seq, enc_len=_enc_len(cfg), device=dev)
     enc_out, enc_positions = _encode(params, cfg, frames, patches)
+    with layers.seq_context(seq):
+        x = _prefill_blocks(params, cfg, x, positions, cache, enc_out, enc_positions, seq)
+    x = layers.norm_fwd(params["final_norm"], cfg, x)
+    return _logits(params, cfg, _seq_whole(x[:, -1:], seq)[:, -1]), cache
+
+
+def _prefill_blocks(params, cfg, x, positions, cache, enc_out, enc_positions, seq):
+    """``prefill``'s layer loop: the residual stream after every block, each
+    layer's cache slice written."""
+    s = positions.shape[0]
     for plan, li, lp in _blocks(params, cfg):
         for i, (mixer, ffn) in enumerate(plan.sublayers):
             spec, c = lp[f"s{i}"], cache[plan.name][f"s{i}"]
@@ -583,9 +683,11 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int, 
                 continue
             hh = layers.norm_fwd(spec["mixer_norm"], cfg, x)
             if mixer == "attn":
-                _prefill_attn(spec, cfg, hh, positions, c, li, _slot_axes(cache, plan.name, f"s{i}", mixer))
+                _prefill_attn(spec, cfg, hh, positions, c, li, _slot_axes(cache, plan.name, f"s{i}", mixer), seq)
             elif mixer == "mla":  # the prompt's latents at the slots this rank holds
-                ckv, kr = mla.kv_latents(spec["mixer"], cfg, hh, positions)
+                ckv, kr = mla.kv_latents(spec["mixer"], cfg, hh, layers.own_positions(positions, 0) if seq
+                                         else positions)
+                ckv, kr = _seq_whole(ckv, seq), _seq_whole(kr, seq)
                 held = _held(c["ckv"][li], _slot_axes(cache, plan.name, f"s{i}", mixer)[0])
                 ckv, kr = ckv[:, held], kr[:, held]  # fewer than the slots past the prompt's end
                 c["ckv"][li, :, : ckv.shape[1]] = ckv
@@ -598,8 +700,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int, 
             window = cfg.sliding_window if mixer == "attn" else 0
             x, _ = _layer_fwd(spec, cfg, x, positions, mixer, ffn, window=window,
                               enc_out=enc_out, enc_positions=enc_positions)
-    x = layers.norm_fwd(params["final_norm"], cfg, x)
-    return _logits(params, cfg, x[:, -1]), cache
+            layers.constrain_seq(x, (x.shape[0] * layers._ACT_BATCH_SIZE, s, x.shape[-1]))
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -23,8 +23,14 @@ does that work here, by placement (``models.params`` tuples):
   and the cross-entropy with the vocabulary split over the model axis (a
   max and two sum all-reduces for the log-sum-exp, the gold logit from the
   rank that owns it);
+* ``seq_gather`` (all-gather forward, reduce-scatter backward) and
+  ``seq_scatter`` (reduce-scatter forward, all-gather backward): the
+  edges of a tensor-parallel region under sequence parallelism
+  (``models.layers.SEQ_SHARD``), where the residual stream between them
+  holds this rank's S/M positions;
 * ``sync_grads`` sums the gradient of a leaf over the batch axes it is
-  replicated on, and ``global_norm`` counts each distinct shard once;
+  replicated on (and over 'model' for the leaves that act on the sequence
+  shards), and ``global_norm`` counts each distinct shard once;
 * for expert parallelism (``models.moe``): ``exclusive_prefix`` (per-expert
   counts of the ranks before this one over the batch axes) and
   ``reduce_scatter`` (sum, then this rank's slice; backward an
@@ -41,7 +47,9 @@ the reference's HLO parser: a gather's whole output, a reduce's tensor, a
 point-to-point message) — under real and dry meshes alike.  ``send`` and
 ``recv`` count as 'collective-permute'.  FSDP's backward is an all-reduce
 and a slice here, so it counts as 'all-reduce' (the reference's HLO has a
-reduce-scatter there).
+reduce-scatter there); the sequence's reduce-scatter (``psum_scatter``)
+runs the same way but counts as 'reduce-scatter', with its input's bytes,
+as the reference's HLO parser counts one.
 
 A dry mesh (``launch.mesh.dry_grid_mesh``, backend 'dry') joins no world:
 on it each collective takes fake tensors only (``FakeTensorMode``; a real
@@ -123,6 +131,11 @@ def all_reduce(t: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM) -> torch.Tenso
     if mesh.axis_size(axes) == 1:
         return t.detach().clone()
     record_kind("all-reduce", _nbytes(t))
+    return _reduce(t, mesh, axes, op)
+
+
+def _reduce(t: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``all_reduce``'s work, uncounted."""
     if dry(mesh, t):
         return t.detach().new_empty(t.shape)
     t0 = time.perf_counter()
@@ -132,6 +145,22 @@ def all_reduce(t: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM) -> torch.Tenso
     out = w.to(t.device)
     _count(t0, w)
     return out
+
+
+def psum_scatter(t: torch.Tensor, mesh, axes, dim: int, kind: str = "reduce-scatter") -> torch.Tensor:
+    """``t`` summed over the ranks of ``axes``, this rank's slice of
+    ``dim`` kept: the wire runs an all-reduce and a slice, counted as one
+    collective of ``kind`` with ``t``'s bytes (a 'reduce-scatter' by the
+    reference's HLO rule; FSDP's backward keeps 'all-reduce')."""
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return t.detach().clone()
+    record_kind(kind, _nbytes(t))
+    if dry(mesh, t):
+        shape = list(t.shape)
+        shape[dim] //= n
+        return t.detach().new_empty(shape)
+    return _chunk(_reduce(t, mesh, axes), dim, n, mesh.axis_index(axes)).contiguous()
 
 
 def all_gather(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
@@ -259,8 +288,8 @@ def _batch_entry(entry, mesh) -> bool:
 
 class _FsdpGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, local, mesh, dims):
-        ctx.mesh, ctx.dims = mesh, dims
+    def forward(ctx, local, mesh, dims, kind):
+        ctx.mesh, ctx.dims, ctx.kind = mesh, dims, kind
         out = local
         for dim, axes in dims:
             out = all_gather(out, mesh, axes, dim)
@@ -268,10 +297,9 @@ class _FsdpGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        mesh = ctx.mesh
         for dim, axes in reversed(ctx.dims):  # reduce-scatter: the sum, then this rank's slice
-            grad = _chunk(all_reduce(grad, mesh, axes), dim, mesh.axis_size(axes), mesh.axis_index(axes))
-        return grad.contiguous(), None, None
+            grad = psum_scatter(grad, ctx.mesh, axes, dim, ctx.kind)
+        return grad, None, None, None
 
 
 def fsdp_gather(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
@@ -280,7 +308,7 @@ def fsdp_gather(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     those ranks and sliced back to this rank's shard."""
     dims = tuple((d, _entry_axes(e)) for d, e in enumerate(spec)
                  if _batch_entry(e, mesh) and mesh.axis_size(e) > 1)
-    return _FsdpGather.apply(local, mesh, dims) if dims else local
+    return _FsdpGather.apply(local, mesh, dims, "all-reduce") if dims else local
 
 
 def gather_tree(tree, specs, mesh):
@@ -289,20 +317,20 @@ def gather_tree(tree, specs, mesh):
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes, dim):
+    def forward(ctx, x, mesh, axes, dim, kind):
         ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
-        return _chunk(all_reduce(x, mesh, axes), dim, mesh.axis_size(axes), mesh.axis_index(axes)).contiguous()
+        return psum_scatter(x, mesh, axes, dim, kind)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_gather(grad, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+        return all_gather(grad, ctx.mesh, ctx.axes, ctx.dim), None, None, None, None
 
 
 def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     """``x`` summed over the ranks of ``axes``, this rank's slice of
     ``dim`` kept (an all-reduce and a slice, counted as 'all-reduce', as
     FSDP's backward); the gradient is all-gathered."""
-    return _ReduceScatter.apply(x, mesh, axes, dim) if mesh.axis_size(axes) > 1 else x
+    return _ReduceScatter.apply(x, mesh, axes, dim, "all-reduce") if mesh.axis_size(axes) > 1 else x
 
 
 def exclusive_prefix(counts: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -353,7 +381,7 @@ def gather_reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor
     backward sums them and keeps this rank's slice (a reduce-scatter, as
     FSDP's backward; counted as 'all-reduce')."""
     axes = _entry_axes(axes)
-    return _FsdpGather.apply(x, mesh, ((dim, axes),)) if mesh.axis_size(axes) > 1 else x
+    return _FsdpGather.apply(x, mesh, ((dim, axes),), "all-reduce") if mesh.axis_size(axes) > 1 else x
 
 
 def copy_to(x: torch.Tensor, mesh, axes="model") -> torch.Tensor:
@@ -386,18 +414,41 @@ def gather_from(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     return _Gather.apply(x, mesh, axes, dim)
 
 
+# -- the sequence over the model axis (Megatron's sequence parallelism) ---------
+
+
+def seq_gather(x: torch.Tensor, mesh, axes="model", dim: int = 1) -> torch.Tensor:
+    """The entry of a tensor-parallel region under sequence parallelism:
+    the ranks' positions concatenated along ``dim`` (an all-gather); each
+    rank's gradient of the whole is a part, so the backward sums them and
+    keeps this rank's positions (a 'reduce-scatter')."""
+    axes = _entry_axes(axes)
+    return _FsdpGather.apply(x, mesh, ((dim, axes),), "reduce-scatter") if mesh.axis_size(axes) > 1 else x
+
+
+def seq_scatter(x: torch.Tensor, mesh, axes="model", dim: int = 1) -> torch.Tensor:
+    """The exit of a tensor-parallel region under sequence parallelism:
+    the partial sums summed, this rank's positions along ``dim`` kept (a
+    'reduce-scatter'); the gradient is all-gathered."""
+    return _ReduceScatter.apply(x, mesh, axes, dim, "reduce-scatter") if mesh.axis_size(axes) > 1 else x
+
+
 # -- the vocabulary over the model axis -----------------------------------------
 
 
-def vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor, mesh, axes="model") -> torch.Tensor:
+def vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor, mesh, axes="model",
+                         seq: bool = False) -> torch.Tensor:
     """Rows ``tokens`` of an embedding whose vocabulary is split over
     ``axes`` (``table`` this rank's [V/M, D] rows): each rank looks up the
-    tokens it owns, zeros elsewhere, and the partial rows are summed."""
+    tokens it owns, zeros elsewhere, and the partial rows are summed — with
+    ``seq`` (sequence parallelism) in a reduce-scatter that keeps this
+    rank's positions of ``tokens`` [B, S]."""
     v = table.shape[0]
     local = tokens - mesh.axis_index(axes) * v
     mine = (local >= 0) & (local < v)
     rows = table[local.clamp(0, v - 1)]
-    return reduce_from(torch.where(mine[..., None], rows, torch.zeros_like(rows)), mesh, axes)
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return seq_scatter(rows, mesh, axes, 1) if seq else reduce_from(rows, mesh, axes)
 
 
 class _VocabParallelCE(torch.autograd.Function):
@@ -434,22 +485,32 @@ def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, z_loss: float,
 # -- gradients -------------------------------------------------------------------
 
 
-def sync_grads(params, specs, mesh) -> None:
+def sync_grads(params, specs, mesh, seq_keys=()) -> None:
     """Sum, in place, each leaf's ``.grad`` over the batch axes its
     placement does not shard it on (the axes its FSDP gather does shard it
     on were summed by that gather's backward).  A leaf without a gradient
-    gets zeros first, as under ``jax.grad``."""
+    gets zeros first, as under ``jax.grad``.
+
+    ``seq_keys``: under sequence parallelism, the top-level keys of
+    ``params`` whose leaves act on the sequence shards.  Such a leaf that
+    the model axis does not split holds on each model rank the part of its
+    gradient from that rank's positions (a norm applied to them, a
+    sublayer's output kept for them) or heads, so it is summed over
+    'model' too, in the same all-reduce (Megatron's sequence-parallel
+    gradient all-reduce)."""
     batch = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
 
-    def go(p, spec):
+    def go(p, spec, seq):
         if p.grad is None:
             p.grad = torch.zeros_like(p)
         used = {a for e in spec for a in _entry_axes(e)}
-        rest = tuple(a for a in batch if a not in used)
+        over = batch + (("model",) if seq and "model" in mesh.axis_names else ())
+        rest = tuple(a for a in over if a not in used)
         if mesh.axis_size(rest) > 1:
             p.grad.copy_(all_reduce(p.grad, mesh, rest))
 
-    zip_map(go, params, specs)
+    for k in params:
+        zip_map(lambda p, spec, seq=k in seq_keys: go(p, spec, seq), params[k], specs[k])
 
 
 def global_norm(grads, specs, mesh) -> torch.Tensor:

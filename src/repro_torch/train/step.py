@@ -63,20 +63,38 @@ def _chunk_ce(h, head, labels, z_loss: float):
 
 
 def chunked_ce(hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-               chunk: int, z_loss: float) -> torch.Tensor:
+               chunk: int, z_loss: float, seq: bool = False) -> torch.Tensor:
     """Mean CE of hidden [B, S, D] @ head [D, V] against labels [B, S],
     without a whole [B, S, V] logits tensor.
 
     Over a mesh: the mean is over the GLOBAL batch's valid positions (the
     count summed over the batch axes), so that the ranks' losses sum to the
     1×1 loss; with the vocabulary split over the model axis, ``head`` is
-    this rank's [D, V/M] columns and each chunk's CE is vocab-parallel."""
+    this rank's [D, V/M] columns and each chunk's CE is vocab-parallel.
+    ``seq``: ``hidden`` is this rank's [B, S/M, D] positions (sequence
+    parallelism); a split vocabulary gathers them first, a whole one takes
+    the CE of this rank's positions and sums it over the model axis (the
+    gradient passed through), so every model rank holds the same loss."""
+    mesh = layers.vocab_parallel()
+    whole = None  # the model axis a whole vocabulary's per-position sums are summed over
+    if seq and mesh is not None:
+        hidden = sharding.seq_gather(hidden, mesh)
+    elif seq:
+        whole, labels = layers.model_parallel(), layers.own_positions(labels)
+    elif mesh is not None:
+        hidden = sharding.copy_to(hidden, mesh)
+    tot, cnt = _ce_sums(hidden, head, labels, chunk, z_loss)
+    if whole is not None:
+        tot, cnt = sharding.reduce_from(tot, whole), sharding.all_reduce(cnt, whole, "model")
+    return tot / torch.clamp(layers.batch_sum(cnt), min=1)
+
+
+def _ce_sums(hidden, head, labels, chunk: int, z_loss: float):
+    """(the CE + z-loss summed over the valid positions, their count) of
+    ``hidden`` [B, S, D], chunk by chunk over S."""
     b, s, d = hidden.shape
-    if layers.vocab_parallel() is not None:
-        hidden = sharding.copy_to(hidden, layers.vocab_parallel())
     if chunk <= 0 or s <= chunk:
-        tot, cnt = _chunk_ce(hidden, head, labels, z_loss)
-        return tot / torch.clamp(layers.batch_sum(cnt), min=1)
+        return _chunk_ce(hidden, head, labels, z_loss)
     pad = (-s) % chunk
     if pad:
         hidden = F.pad(hidden, (0, 0, 0, pad))
@@ -87,7 +105,7 @@ def chunked_ce(hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
         args = (hidden[:, c0 : c0 + chunk], head, labels[:, c0 : c0 + chunk], z_loss)
         t, n = checkpoint(_chunk_ce, *args, use_reentrant=False) if remat else _chunk_ce(*args)
         tot, cnt = tot + t, cnt + n
-    return tot / torch.clamp(layers.batch_sum(cnt), min=1)
+    return tot, cnt
 
 
 def loss_fn(params, cfg: ModelConfig, tcfg: TrainConfig, batch: dict):
@@ -97,13 +115,14 @@ def loss_fn(params, cfg: ModelConfig, tcfg: TrainConfig, batch: dict):
     kw = {k: batch[k] for k in ("frames", "patches") if k in batch}
     hidden, aux = transformer.forward_hidden(params, cfg, tokens, remat=tcfg.remat, **kw)
     head = transformer._head(params, cfg).to(hidden.dtype)
-    loss = chunked_ce(hidden, head, labels, tcfg.ce_chunk, tcfg.z_loss)
+    seq = layers.seq_parallel(tokens.shape[1])
+    loss = chunked_ce(hidden, head, labels, tcfg.ce_chunk, tcfg.z_loss, seq)
     metrics = {"ce": loss, "aux": aux}
     if cfg.mtp_depth:
         mtp_h = transformer.mtp_hidden(params, cfg, tokens, hidden)
         # MTP predicts token t+2: labels shifted one extra step
         mtp_labels = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)], dim=1)
-        mtp_loss = chunked_ce(mtp_h, head, mtp_labels, tcfg.ce_chunk, tcfg.z_loss)
+        mtp_loss = chunked_ce(mtp_h, head, mtp_labels, tcfg.ce_chunk, tcfg.z_loss, seq)
         loss = loss + tcfg.mtp_weight * mtp_loss
         metrics["mtp"] = mtp_loss
     loss = loss + aux
@@ -130,7 +149,7 @@ def make_grad_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, placement=Non
             # a leaf the loss never reached gets a zero gradient, as under jax.grad
             grads = opt.tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, params)
             return grads, opt.global_norm(grads), metrics
-        sharding.sync_grads(params, placement, mesh)
+        sharding.sync_grads(params, placement, mesh, transformer.seq_keys(params, batch["tokens"].shape[1]))
         grads = opt.tree_map(lambda p: p.grad, params)
         norm = sharding.global_norm(grads, placement, mesh)
         # each rank's CE / MTP is its rows' share of the global mean; aux is global already

@@ -7,7 +7,11 @@ cache's slots split) and mamba2 (its SSM heads split, the conv exchanged
 over 'model'), ``launch.dryrun``'s program at 2×2 (data, model) is traced
 on the dry mesh under ``FakeTensorMode`` and run on 4 real gloo CPU ranks
 (``torch_serve_worker.program_kinds``): rank 0's per-kind counts and
-bytes are equal.  A real tensor given to a dry mesh
+bytes are equal.  So they are under the module switches: qwen1.5-0.5b's
+train step and prefill and mamba2's train step with ``seq_shard=True``
+(the sequence's all-gathers and reduce-scatters), and qwen1.5-0.5b's
+train step under ``remat_policy`` 'dots' (each collective of a block run
+again in its recompute, none saved) and 'none'.  A real tensor given to a dry mesh
 raises, and a fake tensor reaches no ``_build.load``: each kernel gives it
 its shape rule and counts no launch.
 """
@@ -28,6 +32,11 @@ from repro_torch.train import sharding
 GRID = {"data": 2, "model": 2}
 RUNS = [(arch, kind, 4, 32) for arch in ("qwen1.5-0.5b", "qwen3-32b", "mamba2-1.3b")
         for kind in ("train", "prefill", "decode")]
+RUNS += [("qwen1.5-0.5b", "train", 4, 32, {"seq_shard": True}), ("qwen1.5-0.5b", "prefill", 4, 32, {"seq_shard": True}),
+         ("mamba2-1.3b", "train", 4, 32, {"seq_shard": True}),
+         ("qwen1.5-0.5b", "train", 4, 32, {"remat_policy": "dots"}),
+         ("qwen1.5-0.5b", "train", 4, 32, {"remat_policy": "none"})]
+IDS = [f"{r[0]}-{r[1]}" + "".join(f"-{k}={v}" for k, v in (r[4:] or [{}])[0].items()) for r in RUNS]
 
 
 @pytest.fixture(scope="module")
@@ -37,16 +46,20 @@ def real_rank0():
                              timeout_s=240.0)[0]
 
 
-@pytest.mark.parametrize("run", range(len(RUNS)), ids=[f"{a}-{k}" for a, k, _, _ in RUNS])
+@pytest.mark.parametrize("run", range(len(RUNS)), ids=IDS)
 def test_dry_counts_equal_the_real_ranks(run, real_rank0):
-    arch, kind, batch, seq = RUNS[run]
+    arch, kind, batch, seq, *sets = RUNS[run]
     cfg = configs.reduce_config(configs.get_config(arch))
     mesh = meshlib.dry_grid_mesh(GRID, device="cpu")
-    hc = dryrun.trace_program(cfg, ShapeSpec(kind, seq, batch, kind), dryrun.Variant(), mesh)["hlo_cost"]
+    variant = dryrun.Variant(**sets[0] if sets else {})
+    hc = dryrun.trace_program(cfg, ShapeSpec(kind, seq, batch, kind), variant, mesh)["hlo_cost"]
     dry = {k: {"count": int(hc["collective_counts"][k]), "bytes": int(hc["collective_bytes"][k])}
            for k in hlo_cost.COLL_KINDS}
-    assert dry == real_rank0[run], (arch, kind, dry, real_rank0[run])
-    assert dry["all-gather"]["count"] > 0 and dry["all-reduce"]["count"] > 0
+    assert dry == real_rank0[run], (arch, kind, sets, dry, real_rank0[run])
+    assert dry["all-gather"]["count"] > 0
+    # under sequence parallelism a prefill's region exits are reduce-scatters, its all-reduces none
+    assert dry["all-reduce"]["count"] > 0 or (variant.seq_shard and kind == "prefill")
+    assert (dry["reduce-scatter"]["count"] > 0) == variant.seq_shard
 
 
 def test_a_real_tensor_on_a_dry_mesh_raises():

@@ -14,8 +14,10 @@ reference's.
   its arguments the parameter shards, the cache shards ('h', 'conv',
   'pos' by the reference's ``cache_pspec_for``, each leaf's bytes over
   the product of its axes' sizes) and the token rows;
+* the sequence-parallel cell (``--variant sp --set seq_shard=true``) is
+  ``ok``, its region edges reduce-scatters;
 * a cell the port cannot trace is an ``error`` record that names its
-  ROADMAP item (``seq_shard=True``: A.10.13);
+  ROADMAP item (``state_dtype=int8`` over a mesh: A.10.15);
 * ``python -m repro_torch.launch.dryrun`` writes a train cell here, on a
   CPU-only host without ``nvcc``.
 """
@@ -96,13 +98,15 @@ def test_param_bytes_per_device_equal_the_reference(arch, multi_pod, reference_p
 
 @pytest.fixture(scope="module")
 def cells(tmp_path_factory):
-    """A traced decode cell, an SSM cell and a seq_shard cell, written
-    by ``main`` into one directory."""
+    """A traced decode cell, an SSM cell, a seq_shard cell and an int8
+    train cell, written by ``main`` into one directory."""
     out = tmp_path_factory.mktemp("dryrun_torch")
     dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "decode_32k", "--out-dir", str(out)])
     dryrun.main(["--arch", "mamba2-1.3b", "--shape", "decode_32k", "--out-dir", str(out)])
     dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "prefill_32k", "--variant", "sp", "--set",
                  "seq_shard=true", "--out-dir", str(out)])
+    dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "train_4k", "--variant", "int8", "--set",
+                 "state_dtype=int8", "--out-dir", str(out)])
     return out
 
 
@@ -176,8 +180,16 @@ def test_ssm_decode_cell_holds_its_cache_shards(cells):
     assert rec["memory_analysis"]["argument_size_in_bytes"] == rec["param_bytes_per_device"] + cache + token
 
 
+def test_the_seq_shard_cell_is_ok(cells):
+    rec = _read(cells, "qwen1.5-0.5b__prefill_32k__16x16__sp.json")
+    assert "error" not in rec, rec.get("error")
+    assert rec["kernel_launches"] == 0 and rec["variant"]["seq_shard"] is True
+    coll = rec["collectives"]
+    assert coll["reduce-scatter"]["count"] > 0 and coll["all-gather"]["count"] > 0
+
+
 @pytest.mark.parametrize("name,item", [
-    ("qwen1.5-0.5b__prefill_32k__16x16__sp.json", "A.10.13"),
+    ("qwen1.5-0.5b__train_4k__16x16__int8.json", "A.10.15"),
 ])
 def test_cells_the_port_cannot_trace_name_their_item(cells, name, item):
     rec = _read(cells, name)

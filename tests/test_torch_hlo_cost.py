@@ -21,6 +21,13 @@ the one group's capacity rows split over the data ranks where they
 divide, as the reference's placement of the expert buffer splits them),
 and for the SSM and hybrid families: mamba2 (its heads split over
 'model') and jamba (SSM, attention, MLP and MoE sublayers).
+
+The module switches: qwen1.5-0.5b's train step under the reference's
+sequence parallelism (``seq_shard=True``) and under each of its remat
+policies ('dots', 'none') holds against the reference's lowering of the
+same ``Variant`` at the train bound, and dropping the remat ('none')
+saves the port the reference's share of the 'full' step's FLOPs, within
+5% of that ratio.
 """
 
 import dataclasses
@@ -44,6 +51,7 @@ FAMILIES = ("qwen2-moe-a2.7b", "deepseek-v3-671b", "whisper-base", "llama-3.2-vi
             "jamba-v0.1-52b")
 SHAPES = {"train": (8, 64), "prefill": (8, 64), "decode": (8, 64)}
 BOUNDS = {"train": 0.15, "prefill": 0.05, "decode": 0.05}
+VARIANTS = {"sp": {"seq_shard": True}, "dots": {"remat_policy": "dots"}, "none": {"remat_policy": "none"}}
 
 REFERENCE = textwrap.dedent(
     """
@@ -56,7 +64,7 @@ REFERENCE = textwrap.dedent(
     from repro.configs.shapes import ShapeSpec
     from repro.launch import dryrun, mesh as meshlib
 
-    archs, shapes = sys.argv[1].split(","), json.loads(sys.argv[2])
+    archs, shapes, variants = sys.argv[1].split(","), json.loads(sys.argv[2]), json.loads(sys.argv[3])
     get = configs.get_config
     configs.get_config = lambda a: configs.reduce_config(get(a))
     meshlib.make_production_mesh = lambda multi_pod=False: meshlib.make_mesh((2, 2), ("data", "model"))
@@ -67,6 +75,9 @@ REFERENCE = textwrap.dedent(
         for kind in shapes:
             rec = dryrun.lower_cell(arch, kind, False, dryrun.Variant())
             out.setdefault(arch, {})[kind] = rec["hlo_cost"]["flops"]
+    for name, sets in variants.items():  # the first arch's train step under each variant
+        rec = dryrun.lower_cell(archs[0], "train", False, dryrun.Variant(name=name, **sets))
+        out.setdefault("variants", {})[name] = rec["hlo_cost"]["flops"]
     print("REF " + json.dumps(out))
     """
 )
@@ -109,22 +120,27 @@ def test_collectives_are_counted_by_kind():
 
 @pytest.fixture(scope="module")
 def reference_flops():
-    res = subprocess.run([sys.executable, "-c", REFERENCE, ",".join((ARCH,) + FAMILIES), json.dumps(SHAPES)],
-                         capture_output=True, text=True, cwd=ROOT, timeout=600)
+    res = subprocess.run([sys.executable, "-c", REFERENCE, ",".join((ARCH,) + FAMILIES), json.dumps(SHAPES),
+                          json.dumps(VARIANTS)], capture_output=True, text=True, cwd=ROOT, timeout=600)
     line = next((x for x in res.stdout.splitlines() if x.startswith("REF ")), None)
     assert line is not None, res.stderr[-3000:]
     return json.loads(line[4:])
 
 
-def _flops_gap(arch: str, kind: str, reference_flops) -> tuple[float, float, float]:
-    variant = dryrun.Variant()  # the reference's lower_cell sets its mla_absorb on the config, as the port's
+def _port_flops(arch: str, kind: str, variant) -> float:
+    # the reference's lower_cell sets its mla_absorb on the config, as the port's
     cfg = dataclasses.replace(configs.reduce_config(configs.get_config(arch)), mla_absorb=variant.mla_absorb)
     b, s = SHAPES[kind]
     mesh = meshlib.dry_grid_mesh({"data": 2, "model": 2}, device="cpu")
-    got = dryrun.trace_program(cfg, ShapeSpec(kind, s, b, kind), variant, mesh)["hlo_cost"]["flops"]
-    want = reference_flops[arch][kind]
+    return dryrun.trace_program(cfg, ShapeSpec(kind, s, b, kind), variant, mesh)["hlo_cost"]["flops"]
+
+
+def _flops_gap(arch: str, kind: str, reference_flops, variant=None) -> tuple[float, float, float]:
+    got = _port_flops(arch, kind, variant or dryrun.Variant())
+    want = reference_flops["variants"][variant.name] if variant else reference_flops[arch][kind]
     gap = abs(got - want) / want
-    print(f"{arch} {kind}: port {got:.0f} reference {want:.0f} gap {gap:.4f}")
+    print(f"{arch} {kind} {variant.name if variant else 'baseline'}: port {got:.0f} reference {want:.0f}"
+          f" gap {gap:.4f}")
     return got, want, gap
 
 
@@ -139,3 +155,22 @@ def test_flops_per_device_match_the_reference(kind, reference_flops):
 def test_families_flops_per_device_match_the_reference(arch, kind, reference_flops):
     got, want, gap = _flops_gap(arch, kind, reference_flops)
     assert gap <= BOUNDS[kind], (arch, kind, got, want, gap)
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_module_switch_train_flops_match_the_reference(name, reference_flops):
+    """The train step under ``seq_shard=True``, ``remat_policy='dots'`` and
+    ``'none'``."""
+    got, want, gap = _flops_gap(ARCH, "train", reference_flops, dryrun.Variant(name=name, **VARIANTS[name]))
+    assert gap <= BOUNDS["train"], (name, got, want, gap)
+
+
+def test_no_remat_saves_the_reference_share(reference_flops):
+    """'none' / 'full' train FLOPs: the port's ratio within 5% of the
+    reference's (the recompute each drops)."""
+    full = _port_flops(ARCH, "train", dryrun.Variant())
+    none = _port_flops(ARCH, "train", dryrun.Variant(name="none", remat_policy="none"))
+    want = reference_flops["variants"]["none"] / reference_flops[ARCH]["train"]
+    got = none / full
+    assert abs(got - want) <= 0.05 * want, (got, want)
+    assert got < 1.0

@@ -144,12 +144,29 @@ def test_production_mesh_needs_its_world():
         meshlib.make_production_mesh(multi_pod=True)
 
 
-def test_seq_shard_with_a_model_axis_raises(monkeypatch):
+def test_seq_shard_is_honoured_at_2x2(monkeypatch):
+    """Under ``SEQ_SHARD`` a 2x2 rank's residual stream [B, S, D] = [8,
+    16, 64] is its [4, 8, 64] shard (``constrain_seq`` checks it); S = 15
+    does not divide the model axis and falls back to the batch shard, as
+    does a mesh without a model axis; off, the stream is whole."""
     monkeypatch.setattr(layers, "SEQ_SHARD", True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10.13"):
-        layers.enable_activation_sharding(_mesh("2x2"))
-    layers.enable_activation_sharding(_mesh("4x1"))  # no model axis to shard over
-    layers.disable_activation_sharding()
+    layers.enable_activation_sharding(_mesh("2x2"))
+    try:
+        assert layers.seq_parallel(16) and not layers.seq_parallel(15)
+        assert layers.constrain_seq(torch.zeros(4, 8, 64), (8, 16, 64)) is not None
+        with pytest.raises(ValueError, match="sequence shard"):
+            layers.constrain_seq(torch.zeros(4, 16, 64), (8, 16, 64))
+        layers.constrain_seq(torch.zeros(4, 15, 64), (8, 15, 64))
+        with pytest.raises(ValueError, match="not this rank's shard"):
+            layers.constrain_seq(torch.zeros(4, 7, 64), (8, 15, 64))
+        monkeypatch.setattr(layers, "SEQ_SHARD", False)
+        assert not layers.seq_parallel(16)
+        layers.constrain_seq(torch.zeros(4, 16, 64), (8, 16, 64))
+        monkeypatch.setattr(layers, "SEQ_SHARD", True)
+        layers.enable_activation_sharding(_mesh("4x1"))  # no model axis to shard over
+        assert not layers.seq_parallel(16)
+    finally:
+        layers.disable_activation_sharding()
 
 
 def test_constrain_batch_checks_the_local_shard():

@@ -470,3 +470,29 @@ def test_flash_mask_mutation_plants_one_change(tmp_path):
     assert (copy / "chip_smoke.py").read_text() == (tool.ROOT / "chip_smoke.py").read_text()
     assert (copy / "tools" / "flash_mask_mutation.py").exists()
     assert not (copy / "build").exists()  # the copy builds its own kernels
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_planting_rebuilds_the_lake_once(seed):
+    """The smoke plants its ground-truth queries with ``rebuild=False``
+    and rebuilds the arenas after the last: the queries, their expected
+    joinabilities, the arenas and the mixed queries drawn after are those
+    of a rebuild after every planting."""
+    from repro_torch.data import synthetic
+
+    def draw(rebuild_each: bool):
+        corpus = synthetic.make_corpus(synthetic.SyntheticSpec(n_tables=300, seed=seed))
+        planted = []
+        for i in range(chip_smoke.N_TRUTH):
+            last = i == chip_smoke.N_TRUTH - 1
+            query, cols, expected, corpus = synthetic.make_query_with_ground_truth(
+                corpus, n_rows=30, seed=seed + 1 + i, rebuild=rebuild_each or last)
+            planted.append((query.cells, cols, expected))
+        mixed = synthetic.make_mixed_queries(corpus, chip_smoke.GROUP, 20, seed=seed + 100)
+        return corpus, planted, [q.cells for q, _ in mixed]
+
+    (each, planted_each, mixed_each), (once, planted_once, mixed_once) = draw(True), draw(False)
+    assert planted_once == planted_each and mixed_once == mixed_each
+    assert once.unique_values == each.unique_values
+    assert np.array_equal(once.cell_value_ids, each.cell_value_ids)
+    assert np.array_equal(once.unique_enc, each.unique_enc)

@@ -5,6 +5,8 @@ train step on the CPU, beside the reference's.
   from the checkpoint and runs the 2 steps left (the reference's
   ``tests/test_system.py::test_train_driver_end_to_end``);
 * both drivers print the same ``[train]`` lines, numbers masked;
+* a step is written once, where the reference's loop and its final save
+  both write the last one;
 * a run that a SIGTERM marks preempted saves and exits after the step;
 * the port resumes from a checkpoint the reference's driver wrote, and its
   next step's loss is the reference's own resumed step's (bf16, within
@@ -60,6 +62,22 @@ def test_train_lines_equal_the_reference(tmp_path):
     got = _lines(train.main, [*argv[:2], "4", *argv[3:], "--ckpt-dir", str(tmp_path / "port"),
                               "--device", "cpu"])
     assert got == want and got[0] == "[train] resumed from step <n>"
+
+
+def test_each_step_is_saved_once(tmp_path, monkeypatch):
+    """A run whose last step falls on ``--ckpt-every`` writes that step once
+    (the reference writes it again after its loop: the same state)."""
+    saved, save = [], manager.CheckpointManager.save
+
+    def counted(self, step, *args, **kwargs):
+        saved.append(step)
+        return save(self, step, *args, **kwargs)
+
+    monkeypatch.setattr(manager.CheckpointManager, "save", counted)
+    train.main(SMOKE + ["--steps", "8", "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+    assert saved == [4, 8]
+    train.main(SMOKE + ["--steps", "10", "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+    assert saved == [4, 8, 10]
 
 
 def test_preempted_run_saves_and_exits(tmp_path, monkeypatch, capsys):

@@ -104,10 +104,10 @@ def serve_many(mesh, runs: list) -> list:
 
 
 def program_kinds(mesh, runs: list) -> list:
-    """For each ``(arch, kind, batch, seq)`` of ``runs``: ``launch.dryrun``'s
-    program of the reduced config on this rank, run on real zero-filled
-    CPU tensors, and the collectives it issued by kind
-    (``sharding.KINDS``)."""
+    """For each ``(arch, kind, batch, seq[, variant fields])`` of ``runs``:
+    ``launch.dryrun``'s program of the reduced config on this rank under
+    that ``Variant``, run on real zero-filled CPU tensors, and the
+    collectives it issued by kind (``sharding.KINDS``)."""
     from repro_torch import configs
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.launch import dryrun
@@ -116,11 +116,11 @@ def program_kinds(mesh, runs: list) -> list:
 
     torch.set_num_threads(1)
     out = []
-    for arch, kind, batch, seq in runs:
+    for arch, kind, batch, seq, *sets in runs:
         cfg = configs.reduce_config(configs.get_config(arch))
         layers.enable_activation_sharding(mesh, vocab_size=cfg.vocab_size)
         try:
-            fn, args = dryrun.program(cfg, ShapeSpec(kind, seq, batch, kind), dryrun.Variant(), mesh,
+            fn, args = dryrun.program(cfg, ShapeSpec(kind, seq, batch, kind), dryrun.Variant(**sets[0] if sets else {}), mesh,
                                       dryrun.placement(cfg, mesh), "cpu")
             sharding.reset_kinds()
             fn(*args)

@@ -275,3 +275,69 @@ def moe_layer(mesh, runs: list) -> list:
         moe.MOE_IMPL = saved
         layers.disable_activation_sharding()
     return out
+
+
+def seq_grads(mesh, arch: str, ref_tree: dict, tokens: np.ndarray, labels: np.ndarray, extra: dict,
+              fault: bool = False) -> dict | None:
+    """One float32 gradient step (``make_grad_step``, no update) of
+    ``arch``'s reduced config under ``layers.SEQ_SHARD`` on this rank of
+    ``mesh``, on the reference's weights (``ref_tree``, numpy) and rows
+    (``extra``: whisper's frames of the global batch).  ``fault`` plants
+    one: ``sharding.sync_grads`` without the model-axis sum of the leaves
+    that act on the sequence shards.  Rank 0 returns the loss, the
+    gradient norm, every gradient gathered whole (numpy, by key path) and
+    the collectives by kind."""
+    from repro_torch import configs
+    from repro_torch.ckpt.manager import leaves_with_paths
+    from repro_torch.launch import mesh as meshlib, train
+    from repro_torch.models import layers, params as params_lib
+    from repro_torch.train import sharding, step as step_lib
+
+    torch.set_num_threads(1)
+    float32()
+    cfg = configs.reduce_config(configs.get_config(arch))
+    saved = layers.SEQ_SHARD, sharding.sync_grads
+    layers.SEQ_SHARD = True
+    if fault:
+        sharding.sync_grads = lambda params, specs, m, seq_keys=(): saved[1](params, specs, m)
+    layers.enable_activation_sharding(mesh, vocab_size=cfg.vocab_size)
+    try:
+        place = train.placement(cfg, mesh)
+        params = sharding.local_tree(params_lib.from_reference(ref_tree, "cpu"), place, mesh)
+        ba = meshlib.batch_axes(mesh)
+        share = tokens.shape[0] // mesh.axis_size(ba)
+        rows = slice(mesh.axis_index(ba) * share, (mesh.axis_index(ba) + 1) * share)
+        batch = {"tokens": torch.from_numpy(tokens[rows]).long(), "labels": torch.from_numpy(labels[rows]).long(),
+                 **{k: torch.from_numpy(v[rows]) for k, v in extra.items()}}
+        sharding.reset_kinds()
+        _grads, norm, metrics = step_lib.make_grad_step(cfg, step_lib.TrainConfig(), mesh, place)(params, batch)
+        kinds = sharding.kinds_snapshot()
+        grads = {path: sharding.gather_to_root(p.grad, spec, mesh)
+                 for (path, p), (_, spec) in zip(leaves_with_paths(params), leaves_with_paths(place))}
+    finally:
+        layers.SEQ_SHARD, sharding.sync_grads = saved
+        layers.disable_activation_sharding()
+    if mesh.rank:
+        return None
+    return {"loss": float(metrics["loss"]), "grad_norm": float(norm), "kinds": kinds,
+            "grads": {k: v.numpy() for k, v in grads.items()}}
+
+
+def seq_runs(mesh, runs: list) -> list:
+    """For each run of ``runs``: ``('train', *args)`` is ``seq_grads(mesh,
+    *args)``, ``('serve', *args)`` is ``torch_serve_worker.serve(mesh,
+    *args)`` under ``layers.SEQ_SHARD`` (one spawn)."""
+    import torch_serve_worker
+    from repro_torch.models import layers
+
+    out = []
+    for kind, *args in runs:
+        if kind == "train":
+            out.append(seq_grads(mesh, *args))
+            continue
+        saved, layers.SEQ_SHARD = layers.SEQ_SHARD, True
+        try:
+            out.append(torch_serve_worker.serve(mesh, *args))
+        finally:
+            layers.SEQ_SHARD = saved
+    return out
