@@ -150,20 +150,28 @@ Phases, each printing one JSON line:
 11b. train_mesh — ``launch.train``'s ``--mesh 2x2`` run (its rank body,
    ``_rank``) at qwen1.5-0.5b's published widths, cut to 6 of its 24
    layers (``--layers``, as ``families`` cuts jamba and deepseek-v3)
-   (``TRAIN_MESH``: 4 gloo ranks on the one card, FSDP over 'data', tensor
-   parallel over 'model', [8, 512] batches, 4 steps, a checkpoint every
-   2), then in the same ranks the same run under sequence parallelism
-   (``layers.SEQ_SHARD``), beside
-   ``--mesh 1x1``, all from one step-0 checkpoint of the driver's draw
-   with its attention projections rescaled, then ``--mesh 1x1`` resumed
-   from the mesh run's step-2 checkpoint: parameters and moments on the
-   card on every rank, 2 B.6 launches per rank, layer and step at [4, 512,
-   8, 64] in both mesh runs, the first step's loss and gradient norm of
-   both within 2e-2 of 1x1's, the sequence-parallel losses and the resumed
-   losses within 2e-2 of the mesh run's; ms per step, tokens/s, peak GB
-   and the collectives' share per rank and run; its ranks are those of
-   11d and 11e (one spawn, below; ``launch.train.run``'s own spawn for
-   ``--mesh`` is driven by the CPU tests only);
+   (``TRAIN_MESH``: 4 gloo ranks on the one card, FSDP over 'data' with
+   each block's weights gathered inside the block, tensor parallel over
+   'model', [8, 512] batches, 4 steps, a checkpoint every 2), then in the
+   same ranks the same run under sequence parallelism
+   (``layers.SEQ_SHARD``), beside ``--mesh 1x1`` (in a process of its
+   own beside the lake's draw), all from one step-0 checkpoint of the
+   driver's draw with its attention projections rescaled, then ``--mesh
+   1x1`` resumed from the mesh run's step-2 checkpoint; with int8 moments
+   (replicated, each updated whole), 2 steps at 1x1 from a step-0
+   checkpoint of the same draw (beside the lake's draw too) and, in the
+   same ranks, 2x2 resumed from its step-1 checkpoint for the last step:
+   parameters and moments on the card on every rank, 2 B.6 launches per
+   rank, layer and step at [4, 512, 8, 64] in the three mesh runs, the
+   first step's loss and gradient norm of each within 2e-2 of 1x1's same
+   step, the sequence-parallel losses and the resumed losses within 2e-2
+   of the mesh run's, the int8 moments after the last step within 2e-2 of
+   1x1's (their gap in quantisation steps printed); ms per step, tokens/s,
+   peak GB, the
+   most gathered weights alive at once, the collectives by kind and their
+   share per rank and run; its ranks are those of 11d and 11e (one spawn,
+   below; ``launch.train.run``'s own spawn for ``--mesh`` is driven by
+   the CPU tests only);
 11c. pipeline — ``train.pipeline.pipeline_loss_fn`` at full-width
    qwen1.5-0.5b over 2 gloo ranks (one stage of 12 layers each), [8, 512]
    in 4 microbatches, ``loss.backward()`` on both: the loss within 1e-2 of
@@ -210,8 +218,8 @@ Phases, each printing one JSON line:
    once, and the timeline gives the three phases' seconds together;
 11f. dryrun — ``repro_torch.launch.dryrun``'s ``main`` (qwen1.5-0.5b's four
    shapes at 16x16, its prefill_32k and train_4k with ``seq_shard=true``
-   and its train_4k with ``remat_policy`` 'dots' and 'none', qwen3-32b's
-   train_4k at both meshes; train_4k and
+   and its train_4k with ``remat_policy`` 'dots' and 'none' and with
+   ``state_dtype=int8``, qwen3-32b's train_4k at both meshes; train_4k and
    decode_32k of qwen2-moe, whisper, llama-3.2-vision, deepseek-v3, mamba2
    and jamba at 16x16, deepseek-v3's train_4k at 2x16x16 and mamba2's
    long_500k) and ``repro_torch.launch.dryrun_mate``'s (filter_1g, broadcast, the sharded
@@ -222,7 +230,8 @@ Phases, each printing one JSON line:
    on fake CUDA tensors at the production mesh, no kernel launched, the
    build byte-identical; per cell the planned FLOPs per device, argument /
    temp GB and collective MB by kind (plans for an H100 cluster, not
-   timings);
+   timings), the train_4k cells' temp GB beside those of the whole-tree
+   gather;
 12. driver — ``repro_torch.launch.discovery.main`` in this process at the
    same lake (its tables reused from phase 1's draw, copied before any
    planting) with ``DRIVER_ARGV``: 4 mixed queries of 20 rows, FDs, the
@@ -448,6 +457,20 @@ TRAIN_MESH, TRAIN_MESH_SEQ, TRAIN_MESH_BATCH, TRAIN_MESH_STEPS, TRAIN_MESH_CKPT 
 TRAIN_MESH_LAYERS = 6
 TRAIN_MESH_REL = 2e-2
 TRAIN_MESH_TIMEOUT_S = 600.0
+# int8 moments over the mesh (``--state-dtype int8``: replicated, each
+# updated whole from the gathered gradient): a 1x1 run of
+# TRAIN_MESH_INT8_STEPS from a step-0 checkpoint of the same conditioned
+# draw with int8 moments, saving after every step; the 2x2 run resumes its
+# step-1 checkpoint and takes the last step, saving it
+TRAIN_MESH_INT8_STEPS = 2
+# printed beside what the run measures: each rank's peak GB in the plain
+# 2x2 run and the dry train_4k cells' temp GB as this script measured them
+# on an H100 when every leaf was gathered once a step ('whole_tree'), and
+# the range predicted for one block at a time (PERF.md §6)
+TRAIN_MESH_PEAK_GB = {"whole_tree": 2.795, "predicted": (2.62, 2.72)}
+DRY_TEMP_GB = {"qwen3-32b__train_4k__16x16": {"whole_tree": 61.61, "predicted": (53.6, 57.6)},
+               "qwen3-32b__train_4k__2x16x16": {"whole_tree": 33.56, "predicted": (25.6, 29.6)},
+               "qwen1.5-0.5b__train_4k__16x16": {"whole_tree": 6.01, "predicted": (5.9, 6.0)}}
 # GPipe (phase 11c): 2 stages x 1 data rank, [8, 512], 4 microbatches; the
 # loss within PIPE_TOL (absolute, bf16) of the un-pipelined chunked CE
 PIPE_STAGES, PIPE_SEQ, PIPE_BATCH, PIPE_MICRO, PIPE_TOL = 2, 512, 8, 4, 1e-2
@@ -508,7 +531,8 @@ FMESH_SP = ("jamba-v0.1-52b",)
 # each cell they write ('error:<item>': an error record naming it); mamba2's and
 # jamba's cells trace in processes of their own, beside the others; the
 # module switches' cells (sequence parallelism, the remat policies) in the
-# process that ends first
+# first process, the int8 train cell after deepseek-v3's decode (the two
+# processes that ended first in earlier runs)
 DRYRUN_CALLS = (
     ("repro_torch.launch.dryrun", [
         ["--arch", "qwen1.5-0.5b"],
@@ -535,8 +559,10 @@ DRYRUN_CALLS = (
      {"deepseek-v3-671b__train_4k__16x16": "ok"}),
     ("repro_torch.launch.dryrun", [["--arch", "deepseek-v3-671b", "--shape", "train_4k", "--multi-pod"]],
      {"deepseek-v3-671b__train_4k__2x16x16": "ok"}),
-    ("repro_torch.launch.dryrun", [["--arch", "deepseek-v3-671b", "--shape", "decode_32k"]],
-     {"deepseek-v3-671b__decode_32k__16x16": "ok"}),
+    ("repro_torch.launch.dryrun", [["--arch", "deepseek-v3-671b", "--shape", "decode_32k"],
+                                   ["--arch", "qwen1.5-0.5b", "--shape", "train_4k", "--variant", "int8", "--set",
+                                    "state_dtype=int8"]],
+     {"deepseek-v3-671b__decode_32k__16x16": "ok", "qwen1.5-0.5b__train_4k__16x16__int8": "ok"}),
     ("repro_torch.launch.dryrun_mate", [["--shape", "filter_1g", "--impl", "broadcast", "--build-shards", "4"]],
      {"mate-filter__filter_1g-broadcast__16x16": "ok", "mate-filter__filter_1g-broadcast__2x16x16": "ok"}),
 )
@@ -2989,13 +3015,16 @@ def _rank_timing(report: dict, tokens_per_step: int) -> dict:
             "peak_gb": report["peak_gb"]}
 
 
-def train_mesh_plan(seed, tmp: str, extra=(), device="cuda:0") -> dict:
-    """The parent's part of ``train_mesh`` before the shared spawn: the
-    step-0 checkpoint every run resumes (the driver's draw from ``seed``
-    with its attention projections rescaled, ``conditioned``), linked into
-    a directory per run, and the ``--mesh 1x1`` run (in the path's launch
-    window).  Returns the plan: the arguments of each run, their
-    directories, the 1x1 report."""
+def train_mesh_plan(_mesh, seed, tmp: str, extra=(), device="cuda:0") -> dict:
+    """``train_mesh``'s part before the shared spawn, in a process of its
+    own (``TrainMeshPlan``): the step-0 checkpoints every run resumes (the
+    driver's draw from ``seed`` with its attention projections rescaled,
+    ``conditioned``; one with float32 moments, one with int8), linked into
+    a directory per run, and the ``--mesh 1x1`` runs (in the path's launch
+    window): the plain one, and the int8 one saving after each step, whose
+    step-1 checkpoint the 2x2 int8 run resumes.
+    Returns the plan: the arguments of each run, their directories, the 1x1
+    reports, the launches counted."""
     import shutil
 
     from repro_torch.ckpt.manager import CheckpointManager
@@ -3006,26 +3035,68 @@ def train_mesh_plan(seed, tmp: str, extra=(), device="cuda:0") -> dict:
     argv = ["--arch", SERVE_ARCH, "--seq-len", str(TRAIN_MESH_SEQ), "--global-batch", str(TRAIN_MESH_BATCH),
             "--steps", str(TRAIN_MESH_STEPS), "--ckpt-every", str(TRAIN_MESH_CKPT), "--log-every", "1",
             "--seed", str(seed), "--layers", str(TRAIN_MESH_LAYERS), *extra]
+    int8_argv = [*argv, "--state-dtype", "int8", "--ckpt-every", "1", "--steps", str(TRAIN_MESH_INT8_STEPS)]
     cfg = train_launch._config(train_launch.parse_args(argv))
-    dirs = {name: os.path.join(tmp, name) for name in ("start", "mesh", "sp", "1x1", "resumed")}
+    dirs = {name: os.path.join(tmp, name) for name in ("start", "mesh", "sp", "1x1", "resumed", "start_int8",
+                                                        "int8", "int8_1x1")}
     specs = transformer.model_specs(cfg)
     weights = params_lib.materialize(specs, seed, device=torch.device(device))
     conditioned(specs, weights)
-    state = {"params": weights, "opt": opt.init_state(weights, opt.AdamWConfig())}
-    CheckpointManager(dirs["start"]).save(0, state)
-    del state, weights
+    for name, dtype in (("start", "f32"), ("start_int8", "int8")):
+        state = {"params": weights, "opt": opt.init_state(weights, opt.AdamWConfig(state_dtype=dtype))}
+        CheckpointManager(dirs[name]).save(0, state)
+        del state
+    del weights
     for name in ("mesh", "sp", "1x1"):  # the runs write their own checkpoints beside a link to step 0
         shutil.copytree(dirs["start"], dirs[name], copy_function=os.link)
+    shutil.copytree(dirs["start_int8"], dirs["int8_1x1"], copy_function=os.link)
     # the 1x1 and sequence-parallel runs save no checkpoint before their last step
     last_only = ["--ckpt-every", str(TRAIN_MESH_STEPS + 1)]
-    total, t = collections.Counter(), time.perf_counter()
-    with path_window(total), contextlib.redirect_stdout(io.StringIO()) as buf:
-        (single,) = train_launch.run(argv + ["--mesh", "1x1", "--ckpt-dir", dirs["1x1"], *last_only])
+    total, runs = collections.Counter(), {}
+    for name, run_argv in (("1x1", argv + ["--mesh", "1x1", "--ckpt-dir", dirs["1x1"], *last_only]),
+                           ("int8_1x1", int8_argv + ["--mesh", "1x1", "--ckpt-dir", dirs["int8_1x1"]])):
+        t = time.perf_counter()
+        with path_window(total), contextlib.redirect_stdout(io.StringIO()) as buf:
+            (single,) = train_launch.run(run_argv)
+        runs[name] = {"report": single, "wall_s": time.perf_counter() - t, "lines": buf.getvalue().splitlines()}
+    os.makedirs(dirs["int8"])  # the 2x2 int8 run resumes the 1x1 int8 run's step 1
+    shutil.copytree(os.path.join(dirs["int8_1x1"], "step_000001"), os.path.join(dirs["int8"], "step_000001"),
+                    copy_function=os.link)
     mesh_argv = argv + ["--mesh", TRAIN_MESH]
-    return {"argv": argv, "cfg": cfg, "dirs": dirs, "total": total, "device": device,
-            "1x1": {"report": single, "wall_s": time.perf_counter() - t, "lines": buf.getvalue().splitlines()},
+    return {"argv": argv, "int8_argv": int8_argv, "cfg": cfg, "dirs": dirs, "total": total, "device": device,
+            **runs,
             "ranks": {"mesh": vars(train_launch.parse_args(mesh_argv + ["--ckpt-dir", dirs["mesh"]])),
-                      "sp": vars(train_launch.parse_args(mesh_argv + ["--ckpt-dir", dirs["sp"], *last_only]))}}
+                      "sp": vars(train_launch.parse_args(mesh_argv + ["--ckpt-dir", dirs["sp"], *last_only])),
+                      "int8": vars(train_launch.parse_args(int8_argv + ["--mesh", TRAIN_MESH,
+                                                                        "--ckpt-dir", dirs["int8"]]))}}
+
+
+class TrainMeshPlan:
+    """``train_mesh_plan`` in a process of its own (``SideRun``), its
+    checkpoints in a temporary directory of this process; with
+    ``families``, after the families' 1x1 runs in the same process
+    (``main``, beside the lake's draw: the card cannot hold both at once,
+    and the plan's first training step then finds torch and the card
+    warm), which ``run`` (the ``SideRun``, its call 0) hands to
+    ``families_mesh``.  ``get`` returns the plan; ``cleanup`` removes the
+    directory."""
+
+    def __init__(self, seed, device="cuda:0", extra=(), families=False):
+        import tempfile
+
+        self.tmp = tempfile.mkdtemp(prefix="train_mesh_")
+        calls = [(families_mesh_single, (seed,))] if families else []
+        self.index = len(calls)
+        calls.append((train_mesh_plan, (seed, self.tmp, tuple(extra), device)))
+        self.run = SideRun(calls, device)
+
+    def get(self) -> dict:
+        return self.run.get(self.index)
+
+    def cleanup(self) -> None:
+        import shutil
+
+        shutil.rmtree(self.tmp, ignore_errors=True)
 
 
 def train_mesh_ranks(mesh, runs: dict) -> dict:
@@ -3034,8 +3105,10 @@ def train_mesh_ranks(mesh, runs: dict) -> dict:
     of the ``--mesh TRAIN_MESH`` run on its ``GridMesh`` over this world,
     then, in the same rank, the same run under ``layers.SEQ_SHARD``
     (``runs['sp']``: its own copy of the step-0 checkpoint; a module switch
-    set in the parent would not reach ``run``'s spawned ranks).  Returns
-    the first's report with the second's as 'sp'."""
+    set in the parent would not reach ``run``'s spawned ranks), then the
+    int8 run (``runs['int8']``: the last step from the 1x1 int8 run's
+    step-1 checkpoint, saved).  Returns the first's report with the others' as 'sp' and
+    'int8'."""
     from repro_torch.launch import mesh as meshlib, train as train_launch
 
     d, m = (int(x) for x in TRAIN_MESH.split("x"))
@@ -3047,6 +3120,9 @@ def train_mesh_ranks(mesh, runs: dict) -> dict:
         t = time.perf_counter()
         report["sp"] = train_launch._rank(grid, runs["sp"])
         report["sp"]["wall_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    report["int8"] = train_launch._rank(grid, runs["int8"])
+    report["int8"]["wall_s"] = time.perf_counter() - t
     gc.collect()
     torch.cuda.empty_cache()
     return report
@@ -3074,9 +3150,23 @@ def train_mesh_report(plan: dict, ranks: list, spawn_wall: float) -> dict[str, i
     first step's loss and gradient norm of both within ``TRAIN_MESH_REL``
     of 1x1's; the sequence-parallel run's losses within ``TRAIN_MESH_REL``
     of the mesh run's; the resumed losses within ``TRAIN_MESH_REL`` of the
-    mesh run's.  Printed, not held: ms per step, tokens/s, peak GB and the
-    collectives' share, per rank and run.  The line is printed before a
-    failed check raises."""
+    mesh run's.  With int8 moments (replicated, each updated whole):
+    ``TRAIN_MESH_INT8_STEPS`` steps at 1x1 from the int8 step-0
+    checkpoint, saving after each, and 2x2 resumed from its step-1
+    checkpoint for the last step, saved (the moments rank 0 writes once);
+    held: B.6 as above, the resumed run's first step's loss and gradient
+    norm within ``TRAIN_MESH_REL`` of the 1x1 run's same step, and the
+    dequantised m and v of the two last checkpoints (one update from the
+    same moments) within ``TRAIN_MESH_REL`` of each other (‖Δ‖ / ‖m‖,
+    ``int8_moment_gap``; printed: the largest gap in quantisation steps
+    and the share over one step — in bf16 the two gradients differ by
+    more than the moments' rounding, so single values move by a few
+    steps; given the same gradient the update is bit-identical,
+    ``tests/test_torch_int8_mesh.py``).  Printed, not held: ms per step,
+    tokens/s, peak GB (beside ``TRAIN_MESH_PEAK_GB``), the most
+    bytes of FSDP-gathered weights alive at once, the collectives by kind
+    of a step and their share of it, per rank and run.  The line is
+    printed before a failed check raises."""
     import shutil
 
     from repro_torch import configs
@@ -3090,21 +3180,21 @@ def train_mesh_report(plan: dict, ranks: list, spawn_wall: float) -> dict[str, i
     with path_window(total), contextlib.redirect_stdout(io.StringIO()) as buf:
         (resumed,) = train_launch.run(plan["argv"] + ["--mesh", "1x1", "--ckpt-dir", dirs["resumed"],
                                                        "--ckpt-every", str(TRAIN_MESH_STEPS + 1)])
-    runs = {"1x1": plan["1x1"], "resumed": {"report": resumed, "wall_s": time.perf_counter() - t,
-                                            "lines": buf.getvalue().splitlines()}}
+    runs = {"1x1": plan["1x1"], "int8_1x1": plan["int8_1x1"],
+            "resumed": {"report": resumed, "wall_s": time.perf_counter() - t, "lines": buf.getvalue().splitlines()}}
     single = runs["1x1"]["report"]
     d, m = (int(x) for x in TRAIN_MESH.split("x"))
     want_b6 = 2 * cfg.n_layers
     local = [TRAIN_MESH_BATCH // d, TRAIN_MESH_SEQ, cfg.n_heads // m, cfg.head_dim]
     failed = []
     for r in ranks:
-        for name, run in (("mesh", r), ("sp", r["sp"])):
+        for name, run in (("mesh", r), ("sp", r["sp"]), ("int8", r["int8"])):
             if run["devices"] != [device]:
                 failed.append(f"rank {r['rank']} {name}: parameters and moments on {run['devices']}, not {device}")
             if any(n != want_b6 for n in run["b6_launches"]):
                 failed.append(f"rank {r['rank']} {name}: B.6 launches per step {run['b6_launches']},"
                               f" expected {want_b6}")
-            if run["attention_shapes"] != {str(local): want_b6 * TRAIN_MESH_STEPS}:
+            if run["attention_shapes"] != {str(local): want_b6 * len(run["losses"])}:
                 failed.append(f"rank {r['rank']} {name}: B.6 calls {run['attention_shapes']}, expected {local}")
     full, sp = ranks[0], ranks[0]["sp"]
     rel = lambda a, b: abs(a - b) / abs(b)
@@ -3124,9 +3214,23 @@ def train_mesh_report(plan: dict, ranks: list, spawn_wall: float) -> dict[str, i
     if runs["resumed"]["lines"][0] != f"[train] resumed from step {TRAIN_MESH_CKPT}" or len(resume_rel) != len(
             tail) or not max(resume_rel) <= TRAIN_MESH_REL:
         failed.append(f"resumed losses {resumed['losses']} against {tail}: {runs['resumed']['lines'][:1]}")
+    int8, int8_1x1 = ranks[0]["int8"], runs["int8_1x1"]["report"]
+    int8_first = {"loss": rel(int8["losses"][0], int8_1x1["losses"][-1]),
+                  "grad_norm": rel(int8["grad_norm"][0], int8_1x1["grad_norm"][-1])}
+    int8_gap = int8_moment_gap(dirs["int8"], dirs["int8_1x1"], TRAIN_MESH_INT8_STEPS, device)
+    if int8["lines"][:1] != ["[train] resumed from step 1"] or len(int8["losses"]) != 1 or not (
+            max(int8_first.values()) <= TRAIN_MESH_REL):
+        failed.append(f"{TRAIN_MESH} int8 resumed at step 1 against 1x1: {int8_first}, {int8['lines'][:1]}")
+    if not all(g["leaves"] and g["rel"] <= TRAIN_MESH_REL for g in int8_gap.values()):
+        failed.append(f"{TRAIN_MESH} int8 moments after the last step against 1x1's: {int8_gap}")
     tokens = TRAIN_MESH_BATCH * TRAIN_MESH_SEQ
     launches = {name: int(total[name]) for name in counters()}
-    launches["flash_attention"] += sum(r["b6_total"] + r["sp"]["b6_total"] for r in ranks)
+    launches["flash_attention"] += sum(r["b6_total"] + r["sp"]["b6_total"] + r["int8"]["b6_total"] for r in ranks)
+
+    def per_rank(run: dict, rank: int) -> dict:
+        return {"rank": rank, **_rank_timing(run, tokens), "gathered_peak_gb": run["gathered_peak_bytes"] / 1e9,
+                "kinds": {k: v for k, v in run["kinds"].items() if v["count"]}, "wall_s": run["wall_s"]}
+
     emit({"phase": "train_mesh", "gpu": nvidia_smi(), "arch": cfg.name, "mesh": TRAIN_MESH,
           "layers": f"{cfg.n_layers} of {configs.get_config(SERVE_ARCH).n_layers}",
           "argv": plan["argv"] + ["--mesh", TRAIN_MESH, "--ckpt-dir", "<tmp: the conditioned step 0>"],
@@ -3136,18 +3240,51 @@ def train_mesh_report(plan: dict, ranks: list, spawn_wall: float) -> dict[str, i
           "b6_shape": local,
           "seq_shard": {"losses": sp["losses"], "grad_norm": sp["grad_norm"], "first_step_rel": first_sp,
                         "losses_rel_to_mesh": sp_rel,
-                        "ranks": [{"rank": r["rank"], **_rank_timing(r["sp"], tokens),
-                                   "wall_s": r["sp"]["wall_s"]} for r in ranks]},
-          "ranks": [{"rank": r["rank"], "coords": r["coords"], "devices": r["devices"],
-                     **_rank_timing(r, tokens), "wall_s": r["wall_s"]} for r in ranks],
+                        "ranks": [per_rank(r["sp"], r["rank"]) for r in ranks]},
+          "int8": {"losses": int8["losses"], "grad_norm": int8["grad_norm"], "losses_1x1": int8_1x1["losses"],
+                   "grad_norm_1x1": int8_1x1["grad_norm"], "resumed_step_rel": int8_first,
+                   "moments_gap_quant_steps": int8_gap, "ranks": [per_rank(r["int8"], r["rank"]) for r in ranks]},
+          "ranks": [{"coords": r["coords"], "devices": r["devices"], **per_rank(r, r["rank"])} for r in ranks],
+          "peak_gb_known": TRAIN_MESH_PEAK_GB,
           "timing_1x1": _rank_timing(single, tokens),
           "wall_s": {**{k: v["wall_s"] for k, v in runs.items()}, "spawn": spawn_wall},
-          "lines": {"mesh": full["lines"], "seq_shard": sp["lines"], **{k: v["lines"] for k, v in runs.items()}},
+          "lines": {"mesh": full["lines"], "seq_shard": sp["lines"], "int8": int8["lines"],
+                    **{k: v["lines"] for k, v in runs.items()}},
           "launches": launches, "failed": failed})
     if failed:
         raise AssertionError(f"train_mesh: {failed}")
     check_counts(launches, ("flash_attention",), "train_mesh path")
     return launches
+
+
+def int8_moment_gap(a_dir: str, b_dir: str, step: int, device) -> dict:
+    """The int8 moments of two checkpoints' step ``step`` (``launch.train``
+    with ``--state-dtype int8``), dequantised on ``device``: per moment
+    ('m', 'v') the leaves compared, ‖a − b‖ / ‖b‖ over all of them
+    ('rel'), the largest gap in quantisation steps (each value's
+    |difference| over the larger of its block's two scales) and the share
+    of values more than one step apart."""
+    def files(d: str) -> dict:
+        path = os.path.join(d, f"step_{step:06d}")
+        with open(os.path.join(path, "manifest.json")) as f:
+            return {e["path"]: os.path.join(path, e["file"]) for e in json.load(f)["leaves"]}
+
+    a, b = files(a_dir), files(b_dir)
+    out = {}
+    for name in ("m", "v"):
+        worst, n, over, values, diff2, ref2 = 0.0, 0, 0, 0, 0.0, 0.0
+        for key in sorted(k for k in a if k.startswith(f"['opt']['{name}']") and k.endswith("['q']")):
+            base = key[: -len("['q']")]
+            load = lambda fs, part: torch.from_numpy(np.load(fs[base + part])).to(device)
+            qa, sa, qb, sb = load(a, "['q']"), load(a, "['scale']"), load(b, "['q']"), load(b, "['scale']")
+            da, db = qa.float() * sa, qb.float() * sb
+            steps = (da - db).abs() / torch.maximum(sa, sb).clamp(min=1e-30)
+            worst, n = max(worst, float(steps.max())), n + 1
+            over, values = over + int((steps > 1 + 1e-5).sum()), values + steps.numel()
+            diff2, ref2 = diff2 + float((da - db).double().square().sum()), ref2 + float(db.double().square().sum())
+        out[name] = {"leaves": n, "rel": math.sqrt(diff2 / ref2) if ref2 else 0.0, "max_steps": worst,
+                     "share_over_one_step": over / max(values, 1)}
+    return out
 
 
 def pipeline_rank(mesh, seed, device_check: str) -> dict:
@@ -3769,36 +3906,56 @@ def families_mesh_ranks(mesh, seed: int, refs: dict) -> list[dict]:
     return reports
 
 
-class FamilyRefs:
-    """The 1x1 runs of ``families_mesh`` (``families_mesh_single``) in a
-    process of their own, spawned from a thread: ``main`` starts them right
-    after the kernel build, beside the lake's draw (they need the card and
-    one host core, and nothing is timed there), and waits for them with
-    the dry runs, before the kernel phase.  ``get`` returns their results
-    (waiting if need be); ``wall_s`` is their seconds from the start."""
+def _side_calls(mesh, calls: list) -> list:
+    """Each ``fn(mesh, *args)`` of ``calls`` in turn: [(its result, its
+    end in seconds from the first's start)]."""
+    t0, out = time.perf_counter(), []
+    for fn, args in calls:
+        out.append((fn(mesh, *args), time.perf_counter() - t0))
+    return out
 
-    def __init__(self, seed: int, device: str = "cuda:0"):
+
+class SideRun:
+    """The calls ``(fn, args)`` of ``calls``, each ``fn(mesh, *args)`` in
+    turn, in one process of their own (one gloo rank on ``device``),
+    spawned from a thread: ``main`` starts it right after the kernel
+    build, beside the lake's draw (it needs the card and one host core,
+    and nothing is timed there), and waits for it with the dry runs,
+    before the kernel phase.  ``get(i)`` returns call i's result (waiting
+    if need be); ``seconds(i)`` its end, in seconds from the first call's
+    start."""
+
+    def __init__(self, calls: list, device: str = "cuda:0"):
         import threading
 
-        self.t0, self.result, self.error, self.wall_s = time.perf_counter(), None, None, None
-        self.thread = threading.Thread(target=self._run, args=(seed, device), daemon=True)
+        self.result, self.error = None, None
+        self.thread = threading.Thread(target=self._run, args=(calls, device), daemon=True)
         self.thread.start()
 
-    def _run(self, seed: int, device: str) -> None:
+    def _run(self, calls: list, device: str) -> None:
         from repro_torch.launch import mesh as meshlib
 
         try:
-            (self.result,) = meshlib.run_ranks(families_mesh_single, 1, backend="gloo", devices=[device],
-                                               args=(seed,), timeout_s=TRAIN_MESH_TIMEOUT_S, env=FMESH_ENV)
+            (self.result,) = meshlib.run_ranks(_side_calls, 1, backend="gloo", devices=[device], args=(calls,),
+                                               timeout_s=TRAIN_MESH_TIMEOUT_S, env=FMESH_ENV)
         except Exception as e:  # handed to the caller of get
             self.error = e
-        self.wall_s = time.perf_counter() - self.t0
 
-    def get(self) -> dict:
+    def get(self, i: int = 0):
         self.thread.join()
         if self.error is not None:
             raise self.error
-        return self.result
+        return self.result[i][0]
+
+    def seconds(self, i: int = 0) -> float:
+        self.get(i)
+        return self.result[i][1]
+
+
+def family_refs(seed: int, device: str = "cuda:0") -> SideRun:
+    """The 1x1 runs of ``families_mesh`` (``families_mesh_single``) in a
+    ``SideRun``."""
+    return SideRun([(families_mesh_single, (seed,))], device)
 
 
 def _parent_gb(device) -> float:
@@ -3809,7 +3966,7 @@ def _parent_gb(device) -> float:
     return torch.cuda.memory_allocated(torch.device(device)) / 1e9
 
 
-def families_mesh_report(refs: FamilyRefs, ranks: list, ranks_s: float, parent_gb: float,
+def families_mesh_report(refs: SideRun, ranks: list, ranks_s: float, parent_gb: float,
                          device="cuda:0") -> dict[str, int]:
     """The ``families_mesh`` line from every rank's reports
     (``families_mesh_ranks``) against the 1x1 runs of ``refs``; raises
@@ -3905,7 +4062,7 @@ def families_mesh_report(refs: FamilyRefs, ranks: list, ranks_s: float, parent_g
                        "card": ref["card"]},
             "seq_shard": seq,
         })
-    emit({"phase": "families_mesh", "gpu": nvidia_smi(), "groups": rows, "single_wall_s": refs.wall_s,
+    emit({"phase": "families_mesh", "gpu": nvidia_smi(), "groups": rows, "single_wall_s": refs.seconds(),
           "single_card_margin_gb": min(r["card"]["total_gb"] - r["card"]["bound_gb"] for r in results.values()),
           "ranks_wall_s": ranks_s, "parent_allocated_gb": parent_gb, "launches": launches, "failed": failed})
     if failed:
@@ -3923,16 +4080,19 @@ def mesh_ranks(mesh, train_runs: dict | None, serve_groups: list, seed: int,
     return train, serve_mesh_ranks(mesh, serve_groups), [] if refs is None else families_mesh_ranks(mesh, seed, refs)
 
 
-def mesh_phase(seed, phases=MESH_PHASES, refs: FamilyRefs | None = None, device="cuda:0",
-               train_extra=()) -> dict[str, dict[str, int]]:
+def mesh_phase(seed, phases=MESH_PHASES, refs: SideRun | None = None, device="cuda:0",
+               train_extra=(), train_plan: TrainMeshPlan | None = None) -> dict[str, dict[str, int]]:
     """The mesh phases of ``phases``, their runs and groups in one spawn of
     4 gloo ranks on the one card (``mesh_ranks``), which start and warm up
     once.
 
     ``train_mesh``: training over a 2x2 mesh, with and without sequence
-    parallelism, beside 1x1 (``train_mesh_plan`` before the spawn,
-    ``train_mesh_ranks`` in it, ``train_mesh_report`` after; ``train_extra``:
-    more driver arguments, ``--device cpu`` for a rehearsal).
+    parallelism and with int8 moments, beside 1x1 (``train_mesh_plan``
+    before the spawn, in a process of its own: ``train_plan``, started by
+    ``main`` beside the lake's draw, here when none is given;
+    ``train_mesh_ranks`` in the spawn, ``train_mesh_report`` after;
+    ``train_extra``: more driver arguments, ``--device cpu`` for a
+    rehearsal).
 
     ``serve_mesh``: prefill and decode over a mesh (``SERVE_MESH``): for
     each dense decoder, ``SERVE_MESH_B`` prompts of ``SERVE_MESH_S`` tokens
@@ -3968,26 +4128,29 @@ def mesh_phase(seed, phases=MESH_PHASES, refs: FamilyRefs | None = None, device=
 
     Each phase's line carries the seconds of the whole spawn and is printed
     before a failed check raises.  Returns each phase's launches."""
-    import tempfile
-
     from repro_torch.launch import mesh as meshlib
 
-    with tempfile.TemporaryDirectory() as tmp:
-        plan = train_mesh_plan(seed, tmp, train_extra, device) if "train_mesh" in phases else None
+    if "train_mesh" in phases:
+        train_plan = train_plan or TrainMeshPlan(seed, device, train_extra)
+    try:
+        plan = train_plan.get() if "train_mesh" in phases else None
         serve_refs = serve_mesh_refs(seed, device) if "serve_mesh" in phases else None
-        refs = (refs or FamilyRefs(seed, device)) if "families_mesh" in phases else None
+        refs = (refs or family_refs(seed, device)) if "families_mesh" in phases else None
         parent_gb = _parent_gb(device)
         groups = serve_mesh_groups(seed, serve_refs) if serve_refs else []
-        family_refs = refs.get() if refs else None
+        fam = refs.get() if refs else None
         t = time.perf_counter()
         ranks = meshlib.run_ranks(mesh_ranks, MESH_SERVING_RANKS, backend="gloo",
                                   devices=[device] * MESH_SERVING_RANKS,
-                                  args=(plan and plan["ranks"], groups, seed, family_refs),
+                                  args=(plan and plan["ranks"], groups, seed, fam),
                                   timeout_s=TRAIN_MESH_TIMEOUT_S, env=FMESH_ENV)
         wall = time.perf_counter() - t
         out = {}
         if plan:
             out["train_mesh"] = train_mesh_report(plan, [r[0] for r in ranks], wall)
+    finally:
+        if train_plan is not None:
+            train_plan.cleanup()
     if serve_refs:
         out["serve_mesh"] = serve_mesh_report(serve_refs, [r[1] for r in ranks], wall)
     if refs:
@@ -4092,13 +4255,14 @@ def dryrun_phase(runs_started: DryRuns) -> dict[str, int]:
     and ``repro_torch.launch.dryrun_mate`` with its sharded build on 4 gloo ranks
     on the card.  Each cell is rank 0's program traced on fake CUDA tensors
     at the production mesh: planned figures for an H100 cluster, not
-    timings.  Held: every expected cell's status, no kernel launched in a cell
-    (each cell's measured ``kernel_launches`` 0; the trace also raises on
-    any), the build byte-identical and B.3 launched by its ranks.  The
+    timings.  Held: every expected cell's status (qwen1.5-0.5b's int8
+    train_4k cell ``ok``: its moments replicated), no kernel launched in a
+    cell (each cell's measured ``kernel_launches`` 0; the trace also raises
+    on any), the build byte-identical and B.3 launched by its ranks.  The
     path's launches are the build ranks' own, summed over the ranks (the
     build's ``[build] kernel launches`` line).  Printed per cell: FLOPs per device, argument and temp
     GB, collective MB by kind, the trace's seconds; per run its seconds
-    from the start."""
+    from the start; the train_4k cells' temp GB beside ``DRY_TEMP_GB``."""
     dry = runs_started
     cells, runs, failed = [], [], []
     launches = {name: 0 for name in counters()}
@@ -4136,8 +4300,10 @@ def dryrun_phase(runs_started: DryRuns) -> dict[str, int]:
                            param_bytes_per_device=rec.get("param_bytes_per_device"),
                            trace_s=rec["compile_seconds"], trace_device=rec["trace_device"])
             cells.append(row)
+    temp = {row["cell"]: row["temp_gb"] for row in cells if "temp_gb" in row}
     emit({"phase": "dryrun", "gpu": nvidia_smi(), "planned_not_timed": True, "cells": cells, "runs": runs,
           "waited_s": wait_s,
+          "train_4k_temp_gb": {name: {"now": temp.get(name), **known} for name, known in DRY_TEMP_GB.items()},
           "launches": launches, "failed": failed})
     if failed:
         raise AssertionError(f"dryrun: {failed}")
@@ -4451,8 +4617,10 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     # host-side traces beside the build and the lake's draw, the families'
-    # 1x1 runs beside the lake's draw; all waited for before the kernel phase
+    # 1x1 runs and then train_mesh's (one process) beside the lake's draw;
+    # all waited for before the kernel phase
     dry = DryRuns() if only is None or "dryrun" in only else None
+    train_plan = None
     try:
         nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True, text=True,
                               check=True).stdout
@@ -4469,7 +4637,8 @@ def main() -> int:
                   "sass_wgmma": sass_count(_build._lib_path(name), "HGMMA")})
         if dry is not None:
             dry.start_built()
-        refs = FamilyRefs(args.seed) if only is None else None
+        train_plan = TrainMeshPlan(args.seed, families=True) if only is None else None
+        refs = train_plan and train_plan.run
         if only:
             mesh = tuple(n for n in MESH_PHASES if n in only)  # the mesh phases asked for share one spawn
             for name in dict.fromkeys(mesh if n in mesh else n for n in only):
@@ -4481,13 +4650,15 @@ def main() -> int:
                 emit({"phase": "only", "ran": "+".join(mesh) if name == mesh else name,
                       "wall_s": time.perf_counter() - t})
             return 0
-        return _phases(args, dry, refs)
+        return _phases(args, dry, refs, train_plan)
     finally:
         if dry is not None:
             dry.stop()
+        if train_plan is not None:
+            train_plan.cleanup()
 
 
-def _phases(args, dry: DryRuns, refs: FamilyRefs) -> int:
+def _phases(args, dry: DryRuns, refs: SideRun, train_plan: "TrainMeshPlan") -> int:
     """``main``'s phases after the kernel build."""
     from repro_torch.data import synthetic
 
@@ -4507,6 +4678,7 @@ def _phases(args, dry: DryRuns, refs: FamilyRefs) -> int:
 
     dry.wait()  # from here on, nothing timed shares the host or the card with them
     refs.get()
+    train_plan.get()
     rows, lane_prefixes = kernel_phase(args.seed, corpus)
     flash_grad_phase(args.seed)
     from repro_torch.core.session import DiscoveryConfig, MateSession
@@ -4542,7 +4714,7 @@ def _phases(args, dry: DryRuns, refs: FamilyRefs) -> int:
     run("train", train_phase, args.seed)
     run("pipeline", pipeline_phase, args.seed)
     t = time.perf_counter()
-    by_path.update(mesh_phase(args.seed, MESH_PHASES, refs))
+    by_path.update(mesh_phase(args.seed, MESH_PHASES, refs, train_plan=train_plan))
     walls["+".join(MESH_PHASES)] = time.perf_counter() - t
     run("dryrun", dryrun_phase, dry)
     run("driver", driver_phase, args, lake_cells)

@@ -19,8 +19,10 @@ FLOPs, collectives and memory are the same (the kernel wrappers give any
 fake tensor their kernels' shape rules, never a plain version).
 
   * ``train``: one ``train.step.make_train_step`` step — forward and
-    backward with remat, AdamW at the variant's ``state_dtype`` — on rank
-    0's parameter shards and its rows of the global batch;
+    backward with remat, each block's weights gathered inside the block,
+    AdamW at the variant's ``state_dtype`` (int8 moments whole on every
+    rank, as the reference places them) — on rank 0's parameter shards and
+    its rows of the global batch;
   * ``prefill``: ``transformer.prefill`` of rank 0's rows (``max_seq`` =
     ``seq_len`` + 64, the reference's);
   * ``decode``: one ``transformer.decode_step`` on rank 0's shard of a
@@ -40,9 +42,8 @@ What a cell records:
     matrix product and B.6's SDPA formula);
   * ``collectives``: the reference's ``{kind: {count, bytes}}`` with
     ``total_bytes`` / ``total_count``, counted at the port's own collective
-    calls (``train.sharding.KINDS``).  FSDP's backward is an all-reduce and
-    a slice here, so it counts as 'all-reduce' where the reference's HLO
-    has a reduce-scatter (``notes``);
+    calls (``train.sharding.KINDS``): FSDP's backward counts as
+    'reduce-scatter', as in the reference's production HLO;
   * ``param_bytes_per_device``: the reference's formula on the placement
     tables (each leaf's bytes over the product of its axes' sizes), held
     equal to the bytes of the fake shards the cell traced;
@@ -57,8 +58,7 @@ whisper's frames and the VLM's patches are zero-filled inputs of rank 0's
 rows, as the reference's ``_extra_input_sds``.
 
 A cell that cannot run records ``error``: each variant field the port does
-not honour, named with its item where it has one (``state_dtype=int8``
-over a mesh: A.10.15).
+not honour (``check_variant``).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch a[,a2...]]
         [--shape s[,s2...]] [--multi-pod | --both-meshes]
@@ -88,10 +88,6 @@ from repro_torch.train import optimizer as opt, sharding, step as train_step_lib
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "results", "dryrun_torch")
 
-NOTES = ["FSDP's backward is an all-reduce and a slice in the port, counted as 'all-reduce';"
-         " the reference's HLO counts a reduce-scatter there"]
-
-
 @dataclasses.dataclass
 class Variant:
     name: str = "baseline"
@@ -120,11 +116,9 @@ class Variant:
         return v
 
 
-def check_variant(shape, variant: Variant, mesh) -> None:
+def check_variant(variant: Variant) -> None:
     """Raise for a cell the port cannot trace: each variant field it does
     not honour."""
-    if shape.kind == "train" and variant.state_dtype == "int8" and mesh.size > 1:
-        raise NotImplementedError("state_dtype=int8 quantises whole leaves: over a mesh it is ROADMAP A.10.15")
     if variant.remat_policy not in ("full", "dots", "none"):
         raise ValueError(f"remat_policy={variant.remat_policy!r}: 'full', 'dots' or 'none'")
     if variant.flash_threshold != Variant.flash_threshold:
@@ -283,7 +277,7 @@ def _program(cfg, shape, variant: Variant, mesh, place, dev):
     if shape.kind == "train":
         tcfg = train_step_lib.TrainConfig(adamw=opt.AdamWConfig(state_dtype=variant.state_dtype),
                                           remat=variant.remat, ce_chunk=variant.ce_chunk)
-        state = opt.init_state(params, tcfg.adamw)
+        state = opt.init_state(params, tcfg.adamw, mesh, place)
         batch = {"tokens": torch.zeros(rows, s, dtype=torch.long, device=dev),
                  "labels": torch.zeros(rows, s, dtype=torch.long, device=dev), **extra}
         step = train_step_lib.make_train_step(cfg, tcfg, mesh, place)
@@ -393,7 +387,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool, variant: Variant) ->
     if not ok:
         return {"skipped": True, "reason": reason}
     mesh = meshlib.dry_production_mesh(multi_pod=multi_pod, device=trace_device())
-    check_variant(shape, variant, mesh)
+    check_variant(variant)
     got = trace_program(cfg, shape, variant, mesh)
     pbytes = param_bytes_formula(transformer.model_specs(cfg), placement(cfg, mesh, variant.fsdp), mesh)
     if pbytes != got["param_bytes_traced"]:
@@ -421,7 +415,6 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool, variant: Variant) ->
         "seq_len": shape.seq_len,
         "trace_device": str(mesh.device),
         "kernel_launches": got["kernel_launches"],
-        "notes": NOTES,
     }
 
 

@@ -27,9 +27,11 @@ dense decoders, the MoE ones (expert parallelism: E/M experts a rank
 where M divides E, else every expert on each), MLA with MTP
 (deepseek-v3), cross-attention (llama-3.2-vision), the encoder-decoder
 (whisper), the SSM (mamba2: its heads split, ``models.ssm``) and the
-hybrid (jamba: SSM, attention and MoE sublayers).  Int8 moments are
-block-quantised over a whole leaf, so ``--state-dtype int8`` takes 1x1
-only (ROADMAP A.10.15).
+hybrid (jamba: SSM, attention and MoE sublayers).  Each rank gathers
+its FSDP shards one block at a time (``models.transformer``).
+``--state-dtype int8`` takes any mesh: its moments are block-quantised
+over a whole leaf and replicated on every rank, as the reference places
+them (``train.optimizer``); rank 0 writes them once to a checkpoint.
 """
 
 from __future__ import annotations
@@ -86,9 +88,6 @@ def check_mesh(cfg, dp: int, tp: int, args) -> None:
         raise ValueError(f"--mesh {args.mesh}: both axes must be >= 1")
     if args.global_batch % dp:
         raise ValueError(f"--global-batch {args.global_batch} does not split over {dp} data ranks")
-    if dp * tp > 1 and args.state_dtype == "int8":
-        raise ValueError("--state-dtype int8 quantises whole leaves: it takes --mesh 1x1 only"
-                         " (ROADMAP A.10.15)")
 
 
 def placement(cfg, mesh) -> dict:
@@ -96,8 +95,12 @@ def placement(cfg, mesh) -> dict:
     return params_lib.validate_divisibility(transformer.model_specs(cfg), mesh, meshlib.rules_for(mesh))
 
 
-def state_placement(place: dict) -> dict:
-    """Placements of ``{'params', 'opt'}``: the moments as their parameters."""
+def state_placement(place: dict, state_dtype: str = "f32") -> dict:
+    """Placements of ``{'params', 'opt'}``: f32 and bf16 moments as their
+    parameters, int8 moments (``{'q', 'scale'}``) replicated, ``()``."""
+    if state_dtype == "int8":
+        moments = opt.tree_map(lambda _: {"q": (), "scale": ()}, place)
+        return {"params": place, "opt": {"step": (), "m": moments, "v": moments}}
     return {"params": place, "opt": {"step": (), "m": place, "v": place}}
 
 
@@ -119,8 +122,10 @@ def train(args, mesh=None, log=print) -> dict:
     of a ``GridMesh``.  ``log`` gets each ``[train]`` line.  Returns this
     rank's report: losses and gradient norms per step, ms per step (host
     clock, ending in a sync), B.6 launches per step, the seconds spent in
-    collectives, the peak device memory, the devices of every parameter and
-    moment."""
+    collectives, the peak device memory, the most bytes of FSDP-gathered
+    weights alive at once in the steps (``sharding.GATHERED``), the last
+    step's collectives by kind (``sharding.KINDS``), the devices of every
+    parameter and moment."""
     cfg = _config(args)
     dev = resolve_device(args.device) if mesh is None else mesh.device
     tcfg = train_config(args)
@@ -134,8 +139,8 @@ def train(args, mesh=None, log=print) -> dict:
         share = args.global_batch // mesh.axis_size(meshlib.batch_axes(mesh))
         d = mesh.axis_index(meshlib.batch_axes(mesh))
         rows = slice(d * share, (d + 1) * share)
-    opt_state = opt.init_state(params, tcfg.adamw)
-    placed = {} if mesh is None else {"placement": state_placement(place), "mesh": mesh}
+    opt_state = opt.init_state(params, tcfg.adamw, mesh, place)
+    placed = {} if mesh is None else {"placement": state_placement(place, args.state_dtype), "mesh": mesh}
 
     data = TokenPipeline(DataConfig(args.seq_len, args.global_batch, cfg.vocab_size, args.seed))
     extra = {k: v[rows] for k, v in stub_inputs(cfg, args.global_batch, device=dev).items()}
@@ -153,10 +158,12 @@ def train(args, mesh=None, log=print) -> dict:
             log(f"[train] resumed from step {latest}")
 
     train_step = step_lib.make_train_step(cfg, tcfg, mesh, place)
-    report = {"losses": [], "grad_norm": [], "ms": [], "b6_launches": [], "comm_s": [],
+    report = {"losses": [], "grad_norm": [], "ms": [], "b6_launches": [], "comm_s": [], "kinds": None,
+              "gathered_peak_bytes": 0,
               "devices": sorted({str(t.device) for t in opt.leaves({"p": params, "o": opt_state})})}
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    sharding.reset_gathered()
 
     t0 = time.time()
     losses = report["losses"]
@@ -164,8 +171,10 @@ def train(args, mesh=None, log=print) -> dict:
         batch = {k: torch.from_numpy(v[rows]).to(dev, torch.long) for k, v in data.batch(step).items()}
         batch.update(extra)
         launches, comm, t = flash_kernel.flash_attention.launches, sharding.COMM["seconds"], time.perf_counter()
+        sharding.reset_kinds()
         params, opt_state, metrics = train_step(params, opt_state, batch)
         losses.append(float(metrics["loss"]))  # ends in a sync
+        report["kinds"] = sharding.kinds_snapshot()
         report["ms"].append(1e3 * (time.perf_counter() - t))
         report["b6_launches"].append(flash_kernel.flash_attention.launches - launches)
         report["comm_s"].append(sharding.COMM["seconds"] - comm)
@@ -197,6 +206,7 @@ def train(args, mesh=None, log=print) -> dict:
 
 def _finish(report: dict, dev, mesh) -> dict:
     report["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
+    report["gathered_peak_bytes"] = sharding.GATHERED["peak"]
     if mesh is not None:
         layers.disable_activation_sharding()
     return report

@@ -24,8 +24,15 @@ the outputs of its 2-D matrix products too and recomputes the rest (B.6,
 ``bmm``, norms, elementwise ops, collectives); 'none' keeps whatever
 autograd saves.  The blocks' weights are ``unbind``
 views of the stacked leaves, so the backward stacks each leaf's gradient
-once.  Over a mesh (``layers.enable_activation_sharding``) the embedding
-and the head run vocab-parallel when the model axis splits the vocabulary
+once.  Over a mesh the parameters are this rank's shards, and FSDP
+gathers them over the batch axes where they are used (``_Fsdp``): the
+top-level leaves once per step or call, each stacked block's leaves
+inside the function the block's remat policy runs, so the gathered copy
+dies with the block ('full' and 'dots' gather it again for the backward's
+recompute, as the reference's backward scan does; 'none' keeps it for the
+backward) and its gradient is reduce-scattered per block.  Over a mesh
+(``layers.enable_activation_sharding``) the embedding and the head run
+vocab-parallel when the model axis splits the vocabulary
 (``_embed``, ``_logits``; the training loss uses ``train.sharding``'s
 vocab-parallel CE on ``_head``); the layers do the rest.  Under
 ``layers.SEQ_SHARD`` (where the model axis divides S) the embedding ends
@@ -38,9 +45,10 @@ from the last model rank.
 Serving over a mesh (the same switch): ``prefill`` and ``decode_step`` run
 one rank's part of the reference's GSPMD serving program.  ``params`` are
 this rank's shards (``train.sharding.local_tree`` under the training
-placement) and are gathered over the batch axes on each call, as FSDP
-does; ``prefill`` takes this rank's rows of a global batch split over the
-batch axes.  ``init_cache`` gives each leaf this rank's shard under
+placement), gathered over the batch axes on each call as in training,
+one block at a time (a caller may hand over leaves gathered once, which
+are used as they are); ``prefill`` takes this rank's rows of a global
+batch split over the batch axes.  ``init_cache`` gives each leaf this rank's shard under
 ``launch.mesh.cache_pspec_for`` (a ``MeshCache``, which keeps the
 placements), ``prefill`` writes what this rank holds (``_prefill_attn``),
 ``decode_step`` hands each attention, cross-attention and MLA layer the
@@ -309,16 +317,18 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor, seq: bool = False) -> tor
     return sharding.gather_from((x @ head.to(x.dtype)).float(), mesh, "model", -1)
 
 
-def _encode(params, cfg: ModelConfig, frames, patches, dtype=torch.bfloat16):
+def _encode(params, cfg: ModelConfig, frames, patches, dtype=torch.bfloat16, *, fsdp=None):
     """The stub-fronted encoder side: whisper's frames through its encoder
-    stack, or the VLM's patches through ``vision_norm``.  Returns
-    (enc_out, enc_positions), or (None, None) for a decoder-only model."""
+    stack (each block's leaves gathered by ``fsdp`` over a mesh), or the
+    VLM's patches through ``vision_norm``.  Returns (enc_out,
+    enc_positions), or (None, None) for a decoder-only model."""
     if cfg.encoder is not None:
         if frames is None:
             raise ValueError("whisper needs frame embeddings (stub frontend): frames=[B, n_frames, D]")
         e = frames.to(dtype) + params["enc_pos"].to(dtype)[None]
         e_pos = torch.arange(frames.shape[1], device=e.device)
         for lp in _unstack(params["encoder"], cfg.encoder.n_layers):
+            lp = fsdp.block("encoder", lp) if fsdp else lp
             e, _ = _layer_fwd(lp["s0"], cfg, e, e_pos, "enc_attn", "mlp")
         return layers.norm_fwd(params["enc_final_norm"], cfg, e), e_pos
     if cfg.vision is not None:
@@ -337,13 +347,97 @@ def _blocks(params, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
+# FSDP: the shards gathered over the batch axes where they are used
+# ---------------------------------------------------------------------------
+
+class _Fsdp:
+    """Gathers this rank's parameter shards over the batch axes (FSDP,
+    ``sharding.gather_weights``: one all-gather for a call's leaves, one
+    reduce-scatter back) under the placement of ``cfg`` on ``mesh``
+    (``launch.mesh.rules_for``): ``top`` the top-level leaves — embedding,
+    final norm, head, the MTP module, the encoder side's norm and
+    positions — and ``block`` one stacked block's leaves (a plan's, or
+    whisper's encoder's).  A leaf handed over already gathered (its shape
+    is its gathered shape: a caller that gathered once to serve many
+    calls, or a placement without FSDP) is used as it is."""
+
+    def __init__(self, cfg: ModelConfig, mesh):
+        from repro_torch.launch import mesh as meshlib
+        from repro_torch.models import params as params_lib
+
+        self.mesh, self.specs = mesh, model_specs(cfg)
+        self.place = params_lib.validate_divisibility(self.specs, mesh, meshlib.rules_for(mesh))
+        self.batch = meshlib.batch_axes(mesh)
+        self.stacked = {plan.name for plan in group_plans(cfg)} | ({"encoder"} if cfg.encoder else set())
+
+    def _gather(self, tree: dict, specs: dict, place: dict, lead: int) -> dict:
+        """``tree`` with its leaves gathered, in one call: ``specs`` /
+        ``place`` its specs and placements (stacked ones, ``lead`` 1)."""
+        todo = []  # (key path, shard, placement) of each leaf not gathered yet
+        for path, t in _leaves(tree):
+            spec, pl = _at(specs, path), _at(place, path)[lead:]
+            model = [tuple(a for a in sharding._entry_axes(e) if a not in self.batch) for e in pl]
+            gathered = tuple(n // self.mesh.axis_size(axes) for n, axes in zip(spec.shape[lead:], model))
+            if tuple(t.shape) != gathered:
+                todo.append((path, t, pl))
+        got = dict(zip((path for path, _, _ in todo),
+                       sharding.gather_weights([t for _, t, _ in todo], [pl for *_, pl in todo], self.mesh)))
+        return _replaced(tree, got)
+
+    def top(self, params: dict) -> dict:
+        """``params`` with every leaf outside the stacked blocks gathered."""
+        top = self._gather({k: v for k, v in params.items() if k not in self.stacked}, self.specs, self.place, 0)
+        return {k: params[k] if k in self.stacked else top[k] for k in params}
+
+    def block(self, name: str, lp: dict) -> dict:
+        """One block of stack ``name`` (``_unstack``'s views) gathered."""
+        return self._gather(lp, self.specs[name], self.place[name], 1)
+
+
+def _leaves(tree: dict, path: tuple = ()) -> list:
+    """(key path, leaf) of every leaf of a nested dict."""
+    return [x for k, v in tree.items() for x in (_leaves(v, path + (k,)) if isinstance(v, dict)
+                                                   else [(path + (k,), v)])]
+
+
+def _at(tree: dict, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _replaced(tree: dict, new: dict, path: tuple = ()) -> dict:
+    """``tree`` with the leaf at each key path of ``new`` replaced (no
+    closure: a reference cycle would keep gathered weights alive until the
+    collector runs)."""
+    return {k: _replaced(v, new, path + (k,)) if isinstance(v, dict) else new.get(path + (k,), v)
+            for k, v in tree.items()}
+
+
+def _fsdp(cfg: ModelConfig) -> _Fsdp | None:
+    """The gatherer over the activation mesh, None without one."""
+    return None if layers._ACT_MESH is None else _Fsdp(cfg, layers._ACT_MESH)
+
+
+def gather_top(params: dict, cfg: ModelConfig) -> dict:
+    """``params`` with its top-level leaves gathered over the batch axes
+    when the layers run over a mesh (``_Fsdp.top``); the stacked blocks
+    stay shards, gathered one block at a time where they run."""
+    fsdp = _fsdp(cfg)
+    return params if fsdp is None else fsdp.top(params)
+
+
+# ---------------------------------------------------------------------------
 # forward (scoring)
 # ---------------------------------------------------------------------------
 
-def _block_fwd(lp, cfg: ModelConfig, plan: GroupPlan, x, positions, enc_out, enc_positions, seq=False):
+def _block_fwd(lp, cfg: ModelConfig, plan: GroupPlan, x, positions, enc_out, enc_positions, seq=False,
+               fsdp=None):
     """One stacked block's sublayers, on this rank's sequence shard under
-    ``seq`` (sequence parallelism). Returns (x, the MoE aux loss summed
-    over them, or None)."""
+    ``seq`` (sequence parallelism), its leaves gathered first by ``fsdp``
+    over a mesh. Returns (x, the MoE aux loss summed over them, or
+    None)."""
+    lp = fsdp.block(plan.name, lp) if fsdp else lp
     aux = None
     shape = (x.shape[0] * layers._ACT_BATCH_SIZE, positions.shape[0], x.shape[-1])
     with layers.seq_context(seq):
@@ -409,16 +503,19 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     with grad enabled, each block under ``REMAT_POLICY`` (module
     docstring); without grad it changes nothing.  Under sequence
     parallelism (``layers.seq_parallel(S)``) the hidden states are this
-    rank's [B, S/M, D] positions.
+    rank's [B, S/M, D] positions.  Over a mesh ``params`` are this rank's
+    shards (or its top-level leaves gathered already, ``gather_top``).
     """
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     seq = layers.seq_parallel(tokens.shape[1])
+    fsdp = _fsdp(cfg)
+    params = params if fsdp is None else fsdp.top(params)
     x = _embed(params, tokens, seq=True) if seq else _embed(params, tokens)
     aux = torch.zeros((), device=x.device)
-    enc_out, enc_positions = _encode(params, cfg, frames, patches)
+    enc_out, enc_positions = _encode(params, cfg, frames, patches, fsdp=fsdp)
     remat = remat and torch.is_grad_enabled()
     for plan, _li, lp in _blocks(params, cfg):
-        args = (lp, cfg, plan, x, positions, enc_out, enc_positions, seq)
+        args = (lp, cfg, plan, x, positions, enc_out, enc_positions, seq, fsdp)
         x, a = _remat(_block_fwd, *args) if remat else _block_fwd(*args)
         if a is not None:
             aux = aux + a
@@ -430,6 +527,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             patches: torch.Tensor | None = None,
             remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. tokens: int[B, S] -> (logits f32[B, S, V], aux)."""
+    params = gather_top(params, cfg)
     x, aux = forward_hidden(params, cfg, tokens, frames=frames, patches=patches, remat=remat)
     return _logits(params, cfg, x, seq=layers.seq_parallel(tokens.shape[1])), aux
 
@@ -440,6 +538,7 @@ def mtp_hidden(params, cfg: ModelConfig, tokens: torch.Tensor, hidden: torch.Ten
     parallelism ``hidden`` and the result are this rank's positions."""
     if not cfg.mtp_depth:
         return None
+    params = gather_top(params, cfg)
     p = params["mtp"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     seq = layers.seq_parallel(tokens.shape[1])
@@ -487,30 +586,6 @@ def _serve_mesh(cfg: ModelConfig, batch: int | None = None):
         raise ValueError(f"serving {cfg.name} over a mesh needs its batch {batch} split over the"
                          f" {layers._ACT_BATCH_SIZE} batch ranks")
     return mesh
-
-
-def _serve_params(params: dict, cfg: ModelConfig, mesh) -> dict:
-    """This rank's shards with their FSDP dims gathered over the batch axes,
-    as the reference's serving program gathers them on every call.  A leaf
-    handed over gathered already (``sharding.gather_tree`` of the shards,
-    run once by a caller that keeps 1/M of the weights a rank to serve many
-    calls) is used as it is: its shape tells which it is."""
-    if mesh is None:
-        return params
-    from repro_torch.launch import mesh as meshlib
-    from repro_torch.models import params as params_lib
-
-    specs = model_specs(cfg)
-    place = params_lib.validate_divisibility(specs, mesh, meshlib.rules_for(mesh))
-
-    def go(t, spec, pl):
-        if isinstance(t, dict):
-            return {k: go(t[k], spec[k], pl[k]) for k in t}
-        model = [tuple(a for a in sharding._entry_axes(e) if a not in meshlib.batch_axes(mesh)) for e in pl]
-        gathered = tuple(n // mesh.axis_size(axes) for n, axes in zip(spec.shape, model))
-        return t if tuple(t.shape) == gathered else sharding.fsdp_gather(t, pl, mesh)
-
-    return go(params, specs, place)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
@@ -578,10 +653,13 @@ def _held(buf: torch.Tensor, axes: tuple) -> slice:
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor, cache: dict):
     """One decode step: next-token logits f32[B, V] + the cache, updated in
-    place (over a mesh: this rank's rows, every vocabulary entry)."""
-    params = _serve_params(params, cfg, _serve_mesh(cfg))
+    place (over a mesh: this rank's rows, every vocabulary entry; the
+    shards gathered as ``prefill`` gathers them)."""
+    fsdp = _fsdp(cfg) if _serve_mesh(cfg) is not None else None
+    params = params if fsdp is None else fsdp.top(params)
     x = _embed(params, token)[:, None, :]
     for plan, li, lp in _blocks(params, cfg):
+        lp = fsdp.block(plan.name, lp) if fsdp else lp
         lc = _index(cache[plan.name], li)
         for i, (mixer, ffn) in enumerate(plan.sublayers):
             window = cfg.sliding_window if mixer == "attn" else 0
@@ -649,58 +727,70 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int, 
     (``layers.seq_parallel(S)``) the residual stream is this rank's
     positions: the K/V and latents projected from them are gathered over
     the model axis before the cache takes its slots, and the last
-    position's hidden state comes from the last model rank.
+    position's hidden state comes from the last model rank.  Over a mesh
+    the top-level leaves are gathered once and each block's inside the
+    block (``_Fsdp``), as the reference's serving program gathers them.
     """
     b, s = tokens.shape
     if cfg.sliding_window == 0 and s > max_seq:
         raise ValueError(f"prompt length {s} exceeds max_seq {max_seq}")
-    mesh = _serve_mesh(cfg, b * layers._ACT_BATCH_SIZE)
-    params = _serve_params(params, cfg, mesh)
+    fsdp = _fsdp(cfg) if _serve_mesh(cfg, b * layers._ACT_BATCH_SIZE) is not None else None
+    params = params if fsdp is None else fsdp.top(params)
     dev = tokens.device
     positions = torch.arange(s, device=dev)
     seq = layers.seq_parallel(s)
     x = _embed(params, tokens, seq=True) if seq else _embed(params, tokens)
     cache = init_cache(cfg, b * layers._ACT_BATCH_SIZE, max_seq, enc_len=_enc_len(cfg), device=dev)
-    enc_out, enc_positions = _encode(params, cfg, frames, patches)
+    enc_out, enc_positions = _encode(params, cfg, frames, patches, fsdp=fsdp)
     with layers.seq_context(seq):
-        x = _prefill_blocks(params, cfg, x, positions, cache, enc_out, enc_positions, seq)
+        x = _prefill_blocks(params, cfg, x, positions, cache, enc_out, enc_positions, seq, fsdp)
     x = layers.norm_fwd(params["final_norm"], cfg, x)
     return _logits(params, cfg, _seq_whole(x[:, -1:], seq)[:, -1]), cache
 
 
-def _prefill_blocks(params, cfg, x, positions, cache, enc_out, enc_positions, seq):
+def _prefill_blocks(params, cfg, x, positions, cache, enc_out, enc_positions, seq, fsdp=None):
     """``prefill``'s layer loop: the residual stream after every block, each
-    layer's cache slice written."""
-    s = positions.shape[0]
+    layer's cache slice written (each block's leaves gathered first by
+    ``fsdp`` over a mesh)."""
     for plan, li, lp in _blocks(params, cfg):
-        for i, (mixer, ffn) in enumerate(plan.sublayers):
-            spec, c = lp[f"s{i}"], cache[plan.name][f"s{i}"]
-            if mixer == "ssm":  # the layer by hand: ssm_fwd also gives the state
-                y, st = ssm.ssm_fwd(spec["mixer"], cfg, layers.norm_fwd(spec["mixer_norm"], cfg, x))
-                x, _ = _ffn(spec, cfg, x + y, ffn)
-                for name, t in st.items():
-                    c[name][li] = t
-                continue
-            hh = layers.norm_fwd(spec["mixer_norm"], cfg, x)
-            if mixer == "attn":
-                _prefill_attn(spec, cfg, hh, positions, c, li, _slot_axes(cache, plan.name, f"s{i}", mixer), seq)
-            elif mixer == "mla":  # the prompt's latents at the slots this rank holds
-                ckv, kr = mla.kv_latents(spec["mixer"], cfg, hh, layers.own_positions(positions, 0) if seq
-                                         else positions)
-                ckv, kr = _seq_whole(ckv, seq), _seq_whole(kr, seq)
-                held = _held(c["ckv"][li], _slot_axes(cache, plan.name, f"s{i}", mixer)[0])
-                ckv, kr = ckv[:, held], kr[:, held]  # fewer than the slots past the prompt's end
-                c["ckv"][li, :, : ckv.shape[1]] = ckv
-                c["kr"][li, :, : kr.shape[1]] = kr
-                c["pos"][li] = s
-            elif mixer == "cross":  # this rank's KV heads (every one when wk / wv are whole), its T
-                k, v = layers._project_kv(spec["mixer"], cfg, enc_out)
-                held = _held(c["k"][li], _slot_axes(cache, plan.name, f"s{i}", mixer)[0])
-                c["k"][li], c["v"][li] = k[:, held], v[:, held]
-            window = cfg.sliding_window if mixer == "attn" else 0
-            x, _ = _layer_fwd(spec, cfg, x, positions, mixer, ffn, window=window,
-                              enc_out=enc_out, enc_positions=enc_positions)
-            layers.constrain_seq(x, (x.shape[0] * layers._ACT_BATCH_SIZE, s, x.shape[-1]))
+        x = _prefill_block(fsdp.block(plan.name, lp) if fsdp else lp, cfg, plan, li, x, positions, cache,
+                           enc_out, enc_positions, seq)
+    return x
+
+
+def _prefill_block(lp, cfg, plan, li, x, positions, cache, enc_out, enc_positions, seq):
+    """Block ``li`` of ``plan`` in ``prefill``: its sublayers on ``x``, each
+    one's cache slice written (a function of its own, so that a gathered
+    block dies when it returns)."""
+    s = positions.shape[0]
+    for i, (mixer, ffn) in enumerate(plan.sublayers):
+        spec, c = lp[f"s{i}"], cache[plan.name][f"s{i}"]
+        if mixer == "ssm":  # the layer by hand: ssm_fwd also gives the state
+            y, st = ssm.ssm_fwd(spec["mixer"], cfg, layers.norm_fwd(spec["mixer_norm"], cfg, x))
+            x, _ = _ffn(spec, cfg, x + y, ffn)
+            for name, t in st.items():
+                c[name][li] = t
+            continue
+        hh = layers.norm_fwd(spec["mixer_norm"], cfg, x)
+        if mixer == "attn":
+            _prefill_attn(spec, cfg, hh, positions, c, li, _slot_axes(cache, plan.name, f"s{i}", mixer), seq)
+        elif mixer == "mla":  # the prompt's latents at the slots this rank holds
+            ckv, kr = mla.kv_latents(spec["mixer"], cfg, hh, layers.own_positions(positions, 0) if seq
+                                     else positions)
+            ckv, kr = _seq_whole(ckv, seq), _seq_whole(kr, seq)
+            held = _held(c["ckv"][li], _slot_axes(cache, plan.name, f"s{i}", mixer)[0])
+            ckv, kr = ckv[:, held], kr[:, held]  # fewer than the slots past the prompt's end
+            c["ckv"][li, :, : ckv.shape[1]] = ckv
+            c["kr"][li, :, : kr.shape[1]] = kr
+            c["pos"][li] = s
+        elif mixer == "cross":  # this rank's KV heads (every one when wk / wv are whole), its T
+            k, v = layers._project_kv(spec["mixer"], cfg, enc_out)
+            held = _held(c["k"][li], _slot_axes(cache, plan.name, f"s{i}", mixer)[0])
+            c["k"][li], c["v"][li] = k[:, held], v[:, held]
+        window = cfg.sliding_window if mixer == "attn" else 0
+        x, _ = _layer_fwd(spec, cfg, x, positions, mixer, ffn, window=window,
+                          enc_out=enc_out, enc_positions=enc_positions)
+        layers.constrain_seq(x, (x.shape[0] * layers._ACT_BATCH_SIZE, s, x.shape[-1]))
     return x
 
 

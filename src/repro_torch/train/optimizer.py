@@ -14,6 +14,17 @@ float32 tensors on the parameters' device, computed as the reference
 computes them, so a step never waits on the host.  ``adamw_update``
 writes the new parameters and moments into the tensors it is given (the
 reference returns new trees) and returns the same trees.
+
+Over a mesh (``mesh`` and ``placement``: the parameters are this rank's
+shards) f32 and bf16 moments are shards like their parameters and update
+elementwise.  Int8 moments are replicated, as the reference places them:
+their blocks of ``Q_BLOCK`` run over the whole flattened leaf.  Each leaf
+in turn, its gradient shard is all-gathered whole over every axis the
+leaf is split on (in the gradient's dtype, then clipped in float32: the
+same values as clipping first, in half the bytes for a bf16 gradient), m
+and v are updated and requantised whole (the same bytes on every rank),
+and this rank's shard of the update is written to its parameter shard,
+so at most one whole leaf is held in float32.
 """
 
 from __future__ import annotations
@@ -22,6 +33,8 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.train import sharding
 
 Q_BLOCK = 256
 
@@ -66,11 +79,11 @@ def _dequant(d: dict, shape: tuple[int, ...]) -> torch.Tensor:
     return flat[: math.prod(shape)].reshape(shape)
 
 
-def _make_state(p: torch.Tensor, dtype: str):
+def _make_state(shape: tuple[int, ...], device, dtype: str):
     if dtype == "int8":
-        return _quant(torch.zeros(p.shape, dtype=torch.float32, device=p.device))
+        return _quant(torch.zeros(shape, dtype=torch.float32, device=device))
     dt = torch.float32 if dtype == "f32" else torch.bfloat16
-    return torch.zeros(p.shape, dtype=dt, device=p.device)
+    return torch.zeros(shape, dtype=dt, device=device)
 
 
 def _read_state(s, dtype: str, shape: tuple[int, ...]) -> torch.Tensor:
@@ -116,13 +129,28 @@ def _moments(tree, like) -> list:
 
 # -- public API ----------------------------------------------------------------
 
-def init_state(params, cfg: AdamWConfig) -> dict:
-    some = leaves(params)[0]
-    return {
-        "step": torch.zeros((), dtype=torch.int32, device=some.device),
-        "m": tree_map(lambda p: _make_state(p, cfg.state_dtype), params),
-        "v": tree_map(lambda p: _make_state(p, cfg.state_dtype), params),
-    }
+def _replicated(cfg: AdamWConfig, mesh) -> bool:
+    """Whether the moments are whole on every rank of ``mesh`` (int8)."""
+    return cfg.state_dtype == "int8" and mesh is not None and mesh.size > 1
+
+
+def _whole_shape(shape, spec: tuple, mesh) -> tuple[int, ...]:
+    return tuple(n * (mesh.axis_size(e) if e is not None else 1) for n, e in zip(shape, spec))
+
+
+def init_state(params, cfg: AdamWConfig, mesh=None, placement=None) -> dict:
+    """Zero moments of ``params``; over a mesh (``params`` this rank's
+    shards under ``placement``) int8 moments are made whole."""
+    whole = _replicated(cfg, mesh)
+
+    def moments():
+        if whole:
+            return sharding.zip_map(lambda p, spec: _make_state(_whole_shape(p.shape, spec, mesh), p.device,
+                                                                cfg.state_dtype), params, placement)
+        return tree_map(lambda p: _make_state(p.shape, p.device, cfg.state_dtype), params)
+
+    step = torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device)
+    return {"step": step, "m": moments(), "v": moments()}
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -131,12 +159,23 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.linalg.vector_norm(x, dtype=torch.float32).square() for x in leaves(tree)))
 
 
+def _gather_whole(g: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The whole leaf from this rank's shard ``g`` under ``spec``: one
+    all-gather per dim split over the mesh."""
+    for dim, e in enumerate(spec):
+        if e is not None:
+            g = sharding.all_gather(g, mesh, sharding._entry_axes(e), dim)
+    return g
+
+
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig, grad_norm: torch.Tensor | None = None):
+def adamw_update(params, grads, state, cfg: AdamWConfig, grad_norm: torch.Tensor | None = None,
+                 mesh=None, placement=None):
     """One AdamW step, in place.  Returns (params, state, metrics), the
     first two the trees passed in.  ``grad_norm``: the clip's global norm
     when ``grads`` are shards (``train.sharding.global_norm``; default:
-    ``global_norm(grads)``)."""
+    ``global_norm(grads)``).  ``mesh`` and ``placement``: the parameters'
+    mesh and placements, which int8 moments need (module docstring)."""
     state["step"] += 1
     step = state["step"].float()
     gn = global_norm(grads) if grad_norm is None else grad_norm
@@ -144,12 +183,19 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, grad_norm: torch.Tensor
     lr = schedule(cfg, step)
     bc1 = 1 - torch.tensor(cfg.b1, dtype=torch.float32, device=step.device) ** step
     bc2 = 1 - torch.tensor(cfg.b2, dtype=torch.float32, device=step.device) ** step
-    for p, g, m, v in zip(leaves(params), _moments(grads, params), _moments(state["m"], params),
-                          _moments(state["v"], params)):
+    whole = _replicated(cfg, mesh)
+    ps = leaves(params)
+    specs = leaves(placement) if whole else [None] * len(ps)
+    for p, g, m, v, spec in zip(ps, _moments(grads, params), _moments(state["m"], params),
+                                _moments(state["v"], params), specs):
+        if whole:
+            g = _gather_whole(g, spec, mesh)
         g = g.float() * clip
-        mf = cfg.b1 * _read_state(m, cfg.state_dtype, p.shape) + (1 - cfg.b1) * g
-        vf = cfg.b2 * _read_state(v, cfg.state_dtype, p.shape) + (1 - cfg.b2) * g * g
+        mf = cfg.b1 * _read_state(m, cfg.state_dtype, g.shape) + (1 - cfg.b1) * g
+        vf = cfg.b2 * _read_state(v, cfg.state_dtype, g.shape) + (1 - cfg.b2) * g * g
         u = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
+        if whole:
+            u = u[sharding.shard_index(u.shape, spec, mesh)]
         u = u + cfg.weight_decay * p.float()
         p.copy_(p.float() - lr * u)
         _write_state(m, mf, cfg.state_dtype)

@@ -11,7 +11,11 @@ does that work here, by placement (``models.params`` tuples):
   (checkpoints);
 * ``fsdp_gather`` all-gathers the dims a leaf keeps over the batch axes
   ('pod', 'data') before the leaf is used; its backward sums the gradient
-  over those ranks and keeps this rank's slice (a reduce-scatter);
+  over those ranks and keeps this rank's slice (a reduce-scatter).
+  ``gather_weights`` gathers parameters so, several shards in one
+  all-gather (and one reduce-scatter back), their bytes counted in
+  ``GATHERED`` while the gathered copies are alive (``models.transformer``
+  gathers one stacked block's leaves at a time);
 * ``copy_to`` (identity forward, all-reduce backward) and ``reduce_from``
   (all-reduce forward, identity backward): Megatron's two operators at the
   edges of a tensor-parallel region on the model axis; ``sum_over`` (an
@@ -44,12 +48,12 @@ or there is none); over NCCL it runs on the card.
 Every collective is counted by kind in ``KINDS`` — the reference's five
 HLO kinds, each with its calls and the bytes of its result (the rule of
 the reference's HLO parser: a gather's whole output, a reduce's tensor, a
-point-to-point message) — under real and dry meshes alike.  ``send`` and
-``recv`` count as 'collective-permute'.  FSDP's backward is an all-reduce
-and a slice here, so it counts as 'all-reduce' (the reference's HLO has a
-reduce-scatter there); the sequence's reduce-scatter (``psum_scatter``)
-runs the same way but counts as 'reduce-scatter', with its input's bytes,
-as the reference's HLO parser counts one.
+reduce-scatter's input, a point-to-point message) — under real and dry
+meshes alike.  ``send`` and ``recv`` count as 'collective-permute'.  Every
+reduce-scatter (``psum_scatter``: FSDP's backward, the MoE buffers' and
+the sequence's) is one on the wire too (``torch.distributed``'s
+``reduce_scatter_single``, or ``reduce_scatter_tensor`` where the torch
+build has no other), which sends half the bytes of an all-reduce.
 
 A dry mesh (``launch.mesh.dry_grid_mesh``, backend 'dry') joins no world:
 on it each collective takes fake tensors only (``FakeTensorMode``; a real
@@ -61,7 +65,9 @@ at a production mesh in one process.
 
 from __future__ import annotations
 
+import math
 import time
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -71,7 +77,10 @@ from repro_torch.device import is_fake
 # -- collectives (host copies under gloo) --------------------------------------
 
 # this process's collectives so far: host-clock seconds (host copies
-# included; a collective waits for its peers), calls, bytes sent
+# included; a collective waits for its peers), calls, and the bytes this
+# rank sends on a ring of n ranks: 2(n-1)/n of an all-reduce's tensor,
+# (n-1)/n of a reduce-scatter's input, n-1 times an all-gather's shard, a
+# point-to-point message whole
 COMM = {"seconds": 0.0, "calls": 0, "bytes": 0}
 
 # the reference's collective kinds (its HLO parser's)
@@ -112,10 +121,10 @@ def dry(mesh, t: torch.Tensor | None = None) -> bool:
     return True
 
 
-def _count(t0: float, t: torch.Tensor) -> None:
+def _count(t0: float, nbytes: float) -> None:
     COMM["seconds"] += time.perf_counter() - t0
     COMM["calls"] += 1
-    COMM["bytes"] += _nbytes(t)
+    COMM["bytes"] += int(nbytes)
 
 
 def _wire(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -143,24 +152,35 @@ def _reduce(t: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM) -> torch.Tensor:
     w = w.clone() if w.data_ptr() == t.data_ptr() else w
     dist.all_reduce(w, op=op, group=mesh.group(axes))
     out = w.to(t.device)
-    _count(t0, w)
+    n = mesh.axis_size(axes)
+    _count(t0, 2 * (n - 1) * _nbytes(w) / n)
     return out
 
 
-def psum_scatter(t: torch.Tensor, mesh, axes, dim: int, kind: str = "reduce-scatter") -> torch.Tensor:
+def _reduce_scatter_op():
+    """``torch.distributed``'s reduce-scatter of one tensor: the newer
+    name where this torch build has it."""
+    return getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+
+def psum_scatter(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     """``t`` summed over the ranks of ``axes``, this rank's slice of
-    ``dim`` kept: the wire runs an all-reduce and a slice, counted as one
-    collective of ``kind`` with ``t``'s bytes (a 'reduce-scatter' by the
-    reference's HLO rule; FSDP's backward keeps 'all-reduce')."""
+    ``dim`` kept: one reduce-scatter (over gloo on a host copy), counted as
+    a 'reduce-scatter' of ``t``'s bytes (the reference's HLO rule)."""
     n = mesh.axis_size(axes)
     if n == 1:
         return t.detach().clone()
-    record_kind(kind, _nbytes(t))
+    record_kind("reduce-scatter", _nbytes(t))
+    shape = list(t.shape)
+    shape[dim] //= n
     if dry(mesh, t):
-        shape = list(t.shape)
-        shape[dim] //= n
         return t.detach().new_empty(shape)
-    return _chunk(_reduce(t, mesh, axes), dim, n, mesh.axis_index(axes)).contiguous()
+    t0 = time.perf_counter()
+    w = _wire(t, mesh).movedim(dim, 0).contiguous()  # the reduce-scatter splits dim 0, rank by rank
+    out = w.new_empty((w.shape[0] // n, *w.shape[1:]))
+    _reduce_scatter_op()(out, w, group=mesh.group(axes))
+    _count(t0, (n - 1) * _nbytes(w) / n)
+    return out.movedim(0, dim).contiguous().to(t.device)
 
 
 def all_gather(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
@@ -179,7 +199,7 @@ def all_gather(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(w) for _ in range(n)]
     dist.all_gather(parts, w, group=mesh.group(axes))
     out = torch.cat(parts, dim=dim).to(t.device)
-    _count(t0, w)
+    _count(t0, (n - 1) * _nbytes(w))
     return out
 
 
@@ -191,7 +211,7 @@ def send(t: torch.Tensor, mesh, dst: int) -> None:
     t0 = time.perf_counter()
     w = _wire(t, mesh)
     dist.send(w, dst)
-    _count(t0, w)
+    _count(t0, _nbytes(w))
 
 
 def recv(shape, dtype, device, mesh, src: int) -> torch.Tensor:
@@ -208,7 +228,7 @@ def recv(shape, dtype, device, mesh, src: int) -> torch.Tensor:
     dist.recv(w, src)
     record_kind("collective-permute", _nbytes(w))
     out = w.to(device)
-    _count(t0, w)
+    _count(t0, _nbytes(w))
     return out
 
 
@@ -234,15 +254,16 @@ def shard_of(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 def gather_to_root(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor | None:
     """The whole tensor on rank 0 (None on the others), from every rank's
     shard in one gather over the world: a checkpoint's writer needs it
-    whole, the other ranks do not."""
-    if mesh.size == 1:
-        return local.detach()
+    whole, the other ranks do not.  A leaf placed on no axis (every entry
+    None, or ``()``: the int8 moments) is whole on rank 0 already."""
+    if mesh.size == 1 or all(e is None for e in spec):
+        return local.detach() if mesh.rank == 0 else None
     t0 = time.perf_counter()
     w = _wire(local, mesh)
     parts = [torch.empty_like(w) for _ in range(mesh.size)] if mesh.rank == 0 else None
     dist.gather(w, parts, dst=0, group=mesh.group(tuple(mesh.axis_names)))
     record_kind("all-gather", mesh.size * _nbytes(w))
-    _count(t0, w)
+    _count(t0, _nbytes(w))
     if mesh.rank:
         return None
     shape = [n * (mesh.axis_size(e) if e is not None else 1) for n, e in zip(local.shape, spec)]
@@ -288,8 +309,8 @@ def _batch_entry(entry, mesh) -> bool:
 
 class _FsdpGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, local, mesh, dims, kind):
-        ctx.mesh, ctx.dims, ctx.kind = mesh, dims, kind
+    def forward(ctx, local, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
         out = local
         for dim, axes in dims:
             out = all_gather(out, mesh, axes, dim)
@@ -297,40 +318,125 @@ class _FsdpGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        for dim, axes in reversed(ctx.dims):  # reduce-scatter: the sum, then this rank's slice
-            grad = psum_scatter(grad, ctx.mesh, axes, dim, ctx.kind)
-        return grad, None, None, None
+        for dim, axes in reversed(ctx.dims):
+            grad = psum_scatter(grad, ctx.mesh, axes, dim)
+        return grad, None, None
+
+
+def _fsdp_dims(spec: tuple, mesh) -> tuple:
+    """(dim, axes) of each dim ``spec`` splits over batch axes of ``mesh``."""
+    return tuple((d, _entry_axes(e)) for d, e in enumerate(spec) if _batch_entry(e, mesh) and mesh.axis_size(e) > 1)
 
 
 def fsdp_gather(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """``local`` with the dims it keeps over the batch axes gathered whole
     (its dims over 'model' stay this rank's); the gradient is summed over
-    those ranks and sliced back to this rank's shard."""
-    dims = tuple((d, _entry_axes(e)) for d, e in enumerate(spec)
-                 if _batch_entry(e, mesh) and mesh.axis_size(e) > 1)
-    return _FsdpGather.apply(local, mesh, dims, "all-reduce") if dims else local
+    those ranks and sliced back to this rank's shard (a reduce-scatter)."""
+    dims = _fsdp_dims(spec, mesh)
+    return _FsdpGather.apply(local, mesh, dims) if dims else local
+
+
+class _FlatGather(torch.autograd.Function):
+    """Shards that each keep one dim (``dims``) over ``axes``, gathered in
+    one all-gather of the shards laid end to end (FSDP's flat parameter);
+    the backward is one reduce-scatter of their gradients laid out the
+    same way."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, dims, *locals):
+        n = mesh.axis_size(axes)
+        ctx.mesh, ctx.axes, ctx.dims = mesh, axes, dims
+        ctx.moved = [t.movedim(d, 0).shape for t, d in zip(locals, dims)]
+        flat = torch.cat([t.movedim(d, 0).reshape(-1) for t, d in zip(locals, dims)])
+        rows = all_gather(flat, mesh, axes, 0).view(n, -1)  # row i: the shards of the rank at index i
+        outs, off = [], 0
+        for shape, d in zip(ctx.moved, dims):
+            size = math.prod(shape)
+            outs.append(rows[:, off : off + size].reshape(n * shape[0], *shape[1:]).movedim(0, d))
+            off += size
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = ctx.mesh.axis_size(ctx.axes)
+        rows = torch.cat([g.movedim(d, 0).reshape(n, -1) for g, d in zip(grads, ctx.dims)], dim=1)
+        local = psum_scatter(rows, ctx.mesh, ctx.axes, 0)[0]
+        outs, off = [], 0
+        for shape, d in zip(ctx.moved, ctx.dims):
+            size = math.prod(shape)
+            outs.append(local[off : off + size].view(shape).movedim(0, d))
+            off += size
+        return (None, None, None, *outs)
+
+
+# FSDP's gathered weights (``gather_weights``) alive in this process: their
+# bytes now, and the most at any time since ``reset_gathered``
+GATHERED = {"alive": 0, "peak": 0}
+
+
+def reset_gathered() -> None:
+    """Start ``GATHERED['peak']`` again from the bytes alive now."""
+    GATHERED["peak"] = GATHERED["alive"]
+
+
+def _untrack(nbytes: int) -> None:
+    GATHERED["alive"] -= nbytes
+
+
+def _track(out: torch.Tensor) -> torch.Tensor:
+    nbytes = _nbytes(out)
+    GATHERED["alive"] += nbytes
+    GATHERED["peak"] = max(GATHERED["peak"], GATHERED["alive"])
+    weakref.finalize(out, _untrack, nbytes)
+    return out
+
+
+def gather_weights(locals: list, specs: list, mesh) -> list:
+    """``fsdp_gather`` of parameter shards under their placements
+    ``specs`` (each keeps at most one dim over the batch axes, as the
+    placement rules place them): those over the same axes, of one dtype,
+    in one all-gather (``_FlatGather``; the backward one reduce-scatter).
+    Each gathered copy's bytes are counted in ``GATHERED`` until it dies
+    (a ``weakref.finalize``; a copy autograd saves for the backward lives
+    until that backward has run)."""
+    out = list(locals)
+    groups: dict = {}
+    for i, (t, spec) in enumerate(zip(locals, specs)):
+        dims = _fsdp_dims(spec, mesh)
+        if len(dims) > 1:
+            raise ValueError(f"placement {spec} splits {len(dims)} dims over the batch axes; FSDP gathers one")
+        if dims:
+            groups.setdefault((dims[0][1], t.dtype), []).append((i, dims[0][0]))
+    for (axes, _dtype), members in groups.items():
+        gathered = _FlatGather.apply(mesh, axes, tuple(d for _, d in members), *(locals[i] for i, _ in members))
+        for (i, _), g in zip(members, gathered):
+            out[i] = _track(g)
+    return out
 
 
 def gather_tree(tree, specs, mesh):
-    return zip_map(lambda t, s: fsdp_gather(t, s, mesh), tree, specs)
+    """Every leaf of a parameter tree gathered, one leaf at a time
+    (``gather_weights``): for a caller that gathers once and serves many
+    calls; the model's own paths gather one block at a time
+    (``models.transformer``)."""
+    return zip_map(lambda t, s: gather_weights([t], [s], mesh)[0], tree, specs)
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes, dim, kind):
+    def forward(ctx, x, mesh, axes, dim):
         ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
-        return psum_scatter(x, mesh, axes, dim, kind)
+        return psum_scatter(x, mesh, axes, dim)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_gather(grad, ctx.mesh, ctx.axes, ctx.dim), None, None, None, None
+        return all_gather(grad, ctx.mesh, ctx.axes, ctx.dim), None, None, None
 
 
 def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     """``x`` summed over the ranks of ``axes``, this rank's slice of
-    ``dim`` kept (an all-reduce and a slice, counted as 'all-reduce', as
-    FSDP's backward); the gradient is all-gathered."""
-    return _ReduceScatter.apply(x, mesh, axes, dim, "all-reduce") if mesh.axis_size(axes) > 1 else x
+    ``dim`` kept (a reduce-scatter); the gradient is all-gathered."""
+    return _ReduceScatter.apply(x, mesh, axes, dim) if mesh.axis_size(axes) > 1 else x
 
 
 def exclusive_prefix(counts: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -379,9 +485,9 @@ def gather_reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor
     """Shards over ``axes`` concatenated along ``dim`` for work that is split
     over those ranks: each rank's gradient of the whole is a part, so the
     backward sums them and keeps this rank's slice (a reduce-scatter, as
-    FSDP's backward; counted as 'all-reduce')."""
+    FSDP's backward)."""
     axes = _entry_axes(axes)
-    return _FsdpGather.apply(x, mesh, ((dim, axes),), "all-reduce") if mesh.axis_size(axes) > 1 else x
+    return _FsdpGather.apply(x, mesh, ((dim, axes),)) if mesh.axis_size(axes) > 1 else x
 
 
 def copy_to(x: torch.Tensor, mesh, axes="model") -> torch.Tensor:
@@ -423,14 +529,14 @@ def seq_gather(x: torch.Tensor, mesh, axes="model", dim: int = 1) -> torch.Tenso
     rank's gradient of the whole is a part, so the backward sums them and
     keeps this rank's positions (a 'reduce-scatter')."""
     axes = _entry_axes(axes)
-    return _FsdpGather.apply(x, mesh, ((dim, axes),), "reduce-scatter") if mesh.axis_size(axes) > 1 else x
+    return _FsdpGather.apply(x, mesh, ((dim, axes),)) if mesh.axis_size(axes) > 1 else x
 
 
 def seq_scatter(x: torch.Tensor, mesh, axes="model", dim: int = 1) -> torch.Tensor:
     """The exit of a tensor-parallel region under sequence parallelism:
     the partial sums summed, this rank's positions along ``dim`` kept (a
     'reduce-scatter'); the gradient is all-gathered."""
-    return _ReduceScatter.apply(x, mesh, axes, dim, "reduce-scatter") if mesh.axis_size(axes) > 1 else x
+    return _ReduceScatter.apply(x, mesh, axes, dim) if mesh.axis_size(axes) > 1 else x
 
 
 # -- the vocabulary over the model axis -----------------------------------------

@@ -110,8 +110,12 @@ def _ce_sums(hidden, head, labels, chunk: int, z_loss: float):
 
 def loss_fn(params, cfg: ModelConfig, tcfg: TrainConfig, batch: dict):
     """batch: tokens int[B, S], labels int[B, S] (-1: no target), and
-    frames / patches for whisper / the VLM.  Returns (loss, metrics)."""
+    frames / patches for whisper / the VLM.  Returns (loss, metrics).
+    Over a mesh ``params`` are this rank's shards: the top-level leaves
+    are gathered once here (``transformer.gather_top``), each block's
+    inside the block."""
     tokens, labels = batch["tokens"], batch["labels"]
+    params = transformer.gather_top(params, cfg)
     kw = {k: batch[k] for k in ("frames", "patches") if k in batch}
     hidden, aux = transformer.forward_hidden(params, cfg, tokens, remat=tcfg.remat, **kw)
     head = transformer._head(params, cfg).to(hidden.dtype)
@@ -141,8 +145,7 @@ def make_grad_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, placement=Non
         for p in leaves:
             p.grad = None
             p.requires_grad_(True)
-        used = params if mesh is None else sharding.gather_tree(params, placement, mesh)
-        loss, metrics = loss_fn(used, cfg, tcfg, batch)
+        loss, metrics = loss_fn(params, cfg, tcfg, batch)
         loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if mesh is None:
@@ -167,19 +170,26 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, placement=No
     metrics), updating ``params`` and ``opt_state`` in place.
 
     Over a mesh (a ``GridMesh`` with ``layers.enable_activation_sharding``
-    on it) ``params`` and ``opt_state`` are this rank's shards under
-    ``placement`` and ``batch`` its rows: each leaf is gathered over the
-    batch axes before use (``sharding.gather_tree``, FSDP; the backward
-    reduce-scatters its gradient), the layers run tensor parallel on the
-    model axis, the gradients of leaves replicated over a batch axis are
-    summed over it (``sharding.sync_grads``), the clip's norm counts each
-    shard once (``sharding.global_norm``), and AdamW runs elementwise on
-    the shards.  The metrics are the global batch's."""
+    on it) ``params`` are this rank's shards under ``placement`` (the
+    rules of ``launch.mesh.rules_for``) and ``batch`` its rows.  The model
+    gathers the shards over the batch axes where it uses them (FSDP,
+    ``models.transformer``): the top-level leaves once a step, each
+    stacked block's inside the block, again for the backward's recompute
+    under remat, and the backward reduce-scatters each block's gradient.
+    The layers run tensor parallel on the model axis, the gradients of
+    leaves replicated over a batch axis are summed over it
+    (``sharding.sync_grads``), and the clip's norm counts each shard once
+    (``sharding.global_norm``).  AdamW (``optimizer.adamw_update``) runs
+    elementwise on the shards; with int8 moments, which are replicated,
+    it updates each moment whole from the gathered gradient and writes
+    this rank's shard of the parameter.  The metrics are the global
+    batch's."""
     grad_step = make_grad_step(cfg, tcfg, mesh, placement)
 
     def train_step(params, opt_state, batch):
         grads, norm, metrics = grad_step(params, batch)
-        params, opt_state, om = opt.adamw_update(params, grads, opt_state, tcfg.adamw, grad_norm=norm)
+        params, opt_state, om = opt.adamw_update(params, grads, opt_state, tcfg.adamw, grad_norm=norm,
+                                                 mesh=mesh, placement=placement)
         metrics.update(om)
         return params, opt_state, metrics
 

@@ -16,8 +16,11 @@ reference's.
   the product of its axes' sizes) and the token rows;
 * the sequence-parallel cell (``--variant sp --set seq_shard=true``) is
   ``ok``, its region edges reduce-scatters;
-* a cell the port cannot trace is an ``error`` record that names its
-  ROADMAP item (``state_dtype=int8`` over a mesh: A.10.15);
+* the int8 train cell (``--variant int8 --set state_dtype=int8``) is
+  ``ok``: its moments are replicated, as the reference places them, so
+  its arguments are the parameter shards, both moments of every leaf
+  whole (int8 values and one float32 scale per block of 256) and the
+  batch rows, and it carries no note;
 * ``python -m repro_torch.launch.dryrun`` writes a train cell here, on a
   CPU-only host without ``nvcc``.
 """
@@ -29,10 +32,12 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from repro_torch import configs
 from repro_torch.launch import dryrun, mesh as meshlib
+from repro_torch.models import transformer
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -188,12 +193,20 @@ def test_the_seq_shard_cell_is_ok(cells):
     assert coll["reduce-scatter"]["count"] > 0 and coll["all-gather"]["count"] > 0
 
 
-@pytest.mark.parametrize("name,item", [
-    ("qwen1.5-0.5b__train_4k__16x16__int8.json", "A.10.15"),
-])
-def test_cells_the_port_cannot_trace_name_their_item(cells, name, item):
-    rec = _read(cells, name)
-    assert item in rec["error"].splitlines()[-1], rec["error"]
+def _spec_leaves(tree) -> list:
+    return [x for k in sorted(tree) for x in _spec_leaves(tree[k])] if isinstance(tree, dict) else [tree]
+
+
+def test_the_int8_cell_is_ok_and_replicates_its_moments(cells):
+    rec = _read(cells, "qwen1.5-0.5b__train_4k__16x16__int8.json")
+    assert "error" not in rec, rec.get("error")
+    assert rec["kernel_launches"] == 0 and rec["variant"]["state_dtype"] == "int8" and "notes" not in rec
+    cfg = configs.get_config("qwen1.5-0.5b")
+    blocks = sum(-(-int(np.prod(s.shape)) // 256) for s in _spec_leaves(transformer.model_specs(cfg)))
+    moments = 2 * blocks * (256 + 4)  # m and v: int8 values and a float32 scale per block
+    rows = 256 // 16  # the global batch over the 16 data ranks
+    tokens = 2 * rows * 4096 * 8  # tokens and labels, int64
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == rec["param_bytes_per_device"] + moments + tokens + 4
     assert "wall_seconds" in rec
 
 

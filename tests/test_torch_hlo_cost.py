@@ -23,9 +23,10 @@ and for the SSM and hybrid families: mamba2 (its heads split over
 'model') and jamba (SSM, attention, MLP and MoE sublayers).
 
 The module switches: qwen1.5-0.5b's train step under the reference's
-sequence parallelism (``seq_shard=True``) and under each of its remat
-policies ('dots', 'none') holds against the reference's lowering of the
-same ``Variant`` at the train bound, and dropping the remat ('none')
+sequence parallelism (``seq_shard=True``), under each of its remat
+policies ('dots', 'none') and with int8 moments (``state_dtype='int8'``,
+replicated) holds against the reference's lowering of the same
+``Variant`` at the train bound, and dropping the remat ('none')
 saves the port the reference's share of the 'full' step's FLOPs, within
 5% of that ratio.
 """
@@ -51,7 +52,8 @@ FAMILIES = ("qwen2-moe-a2.7b", "deepseek-v3-671b", "whisper-base", "llama-3.2-vi
             "jamba-v0.1-52b")
 SHAPES = {"train": (8, 64), "prefill": (8, 64), "decode": (8, 64)}
 BOUNDS = {"train": 0.15, "prefill": 0.05, "decode": 0.05}
-VARIANTS = {"sp": {"seq_shard": True}, "dots": {"remat_policy": "dots"}, "none": {"remat_policy": "none"}}
+VARIANTS = {"sp": {"seq_shard": True}, "dots": {"remat_policy": "dots"}, "none": {"remat_policy": "none"},
+            "int8": {"state_dtype": "int8"}}
 
 REFERENCE = textwrap.dedent(
     """
@@ -160,7 +162,7 @@ def test_families_flops_per_device_match_the_reference(arch, kind, reference_flo
 @pytest.mark.parametrize("name", list(VARIANTS))
 def test_module_switch_train_flops_match_the_reference(name, reference_flops):
     """The train step under ``seq_shard=True``, ``remat_policy='dots'`` and
-    ``'none'``."""
+    ``'none'``, and ``state_dtype='int8'``."""
     got, want, gap = _flops_gap(ARCH, "train", reference_flops, dryrun.Variant(name=name, **VARIANTS[name]))
     assert gap <= BOUNDS["train"], (name, got, want, gap)
 

@@ -19,12 +19,13 @@ qwen3-32b (qk_norm; 1 KV head, replicated over 'model'), h2o-danube-3-4b
 a non-GLU MLP; 1 KV head): 4 steps at 2×2, 1×2 and 2×1 give the 1×1
 losses and gradient norms within 1e-5 relative (measured at most 4.4e-6,
 danube), every rank reports the same, and every parameter and moment stays
-on the rank's device.  The driver's refusals.  (Resume across meshes and
+on the rank's device.  The driver's refusals, and int8 moments at 2×1.  (Resume across meshes and
 ``main``'s lines: ``test_torch_train_mesh_resume.py``; the other families
 at D×1: ``test_torch_train_mesh_families.py``; the reference's GSPMD step:
 ``test_torch_train_mesh_gspmd.py``.)
 """
 
+import math
 import shutil
 
 import pytest
@@ -101,9 +102,16 @@ def test_every_rank_reports_the_global_run(runs, mesh):
 
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "2x2", "--global-batch", "3"], "does not split over 2 data ranks"),
-    (["--mesh", "2x1", "--state-dtype", "int8"], "int8"),
     (["--mesh", "0x2"], "both axes"),
 ])
 def test_mesh_refusals(argv, match):
     with pytest.raises(ValueError, match=match):
         train.main(["--smoke", "--device", "cpu"] + argv)
+
+
+def test_int8_moments_run_over_a_mesh():
+    """``--state-dtype int8`` at 2×1: the moments replicated on both ranks
+    (``test_torch_int8_mesh.py`` holds them to 1×1)."""
+    losses = train.main(["--smoke", "--device", "cpu", "--mesh", "2x1", "--state-dtype", "int8", "--steps", "2",
+                         "--seq-len", "16", "--global-batch", "2"])
+    assert len(losses) == 2 and all(math.isfinite(x) for x in losses)

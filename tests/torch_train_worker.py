@@ -189,7 +189,7 @@ def one_step(mesh, argd: dict, ref_tree: dict, tokens: np.ndarray, labels: np.nd
     AdamW settings on the reference's weights (``ref_tree``, numpy) and
     rows, on this rank of ``mesh``; rank 0 returns the loss, the gradient
     norm, the gradients and the updated parameters, gathered whole (numpy,
-    by key path)."""
+    by key path), and with int8 moments the moments' 'q' and 'scale'."""
     from repro_torch.ckpt.manager import leaves_with_paths
     from repro_torch.launch import mesh as meshlib, train
     from repro_torch.models import layers, params as params_lib
@@ -207,18 +207,22 @@ def one_step(mesh, argd: dict, ref_tree: dict, tokens: np.ndarray, labels: np.nd
     d = mesh.axis_index(meshlib.batch_axes(mesh))
     rows = slice(d * share, (d + 1) * share)
     batch = {"tokens": torch.from_numpy(tokens[rows]).long(), "labels": torch.from_numpy(labels[rows]).long()}
-    tcfg = step_lib.TrainConfig(adamw=opt.AdamWConfig(lr=args.lr, warmup_steps=1, total_steps=args.steps),
+    tcfg = step_lib.TrainConfig(adamw=opt.AdamWConfig(lr=args.lr, warmup_steps=1, total_steps=args.steps,
+                                                      state_dtype=args.state_dtype),
                                 ce_chunk=min(1024, args.seq_len))
-    params, _, metrics = step_lib.make_train_step(cfg, tcfg, mesh, place)(
-        params, opt.init_state(params, tcfg.adamw), batch)
+    params, state, metrics = step_lib.make_train_step(cfg, tcfg, mesh, place)(
+        params, opt.init_state(params, tcfg.adamw, mesh, place), batch)
     pairs = list(zip(leaves_with_paths(params), leaves_with_paths(place)))
     new = {path: sharding.gather_to_root(p.detach(), spec, mesh) for (path, p), (_, spec) in pairs}
     grads = {path: sharding.gather_to_root(p.grad, spec, mesh) for (path, p), (_, spec) in pairs}
     if mesh.rank:
         return None
     new, grads = ({k: v.numpy() for k, v in d.items()} for d in (new, grads))
-    return {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]), "params": new,
-            "grads": grads}
+    out = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]), "params": new,
+           "grads": grads}
+    if args.state_dtype == "int8":  # replicated: rank 0's moments are whole
+        out.update({name: {path: t.numpy() for path, t in leaves_with_paths(state[name])} for name in ("m", "v")})
+    return out
 
 
 def one_steps(mesh, runs: list) -> list:
@@ -341,3 +345,49 @@ def seq_runs(mesh, runs: list) -> list:
         finally:
             layers.SEQ_SHARD = saved
     return out
+
+
+def reduce_scatter_checks(mesh, cases: list) -> list:
+    """``sharding.psum_scatter`` over 'data' of this rank's tensor for each
+    ``(shape, dim, dtype name)`` of ``cases`` — integer values that differ
+    by rank, so every sum is exact in any order — beside an all-reduce and
+    a slice of the same tensor, with the kinds and the bytes sent
+    (``sharding.COMM``) that the reduce-scatter alone counted."""
+    from repro_torch.train import sharding
+
+    torch.set_num_threads(1)
+    out = []
+    for shape, dim, dtype in cases:
+        n, idx = mesh.axis_size("data"), mesh.axis_index("data")
+        x = (torch.arange(int(np.prod(shape))).reshape(shape) % 13 + 5 * mesh.rank).to(getattr(torch, dtype))
+        whole = sharding.all_reduce(x, mesh, "data")
+        want = sharding._chunk(whole, dim, n, idx)
+        sharding.reset_kinds()
+        sent = sharding.COMM["bytes"]
+        got = sharding.psum_scatter(x, mesh, "data", dim)
+        out.append({"got": got.float().numpy(), "want": want.float().numpy(), "kinds": sharding.kinds_snapshot(),
+                    "sent": sharding.COMM["bytes"] - sent, "in_bytes": x.numel() * x.element_size()})
+    return out
+
+
+def int8_updates(mesh, params: dict, specs: dict, grads: list, norms: list, dtype: str = "float32") -> dict:
+    """AdamW with int8 moments (``optimizer.adamw_update`` over ``mesh``) on
+    this rank's shards of ``params`` (numpy float32 by name, cast to
+    ``dtype``; placements ``specs``), once for each whole gradient tree of
+    ``grads`` (cast the same way) cut to this rank's shards, with the
+    clip's norm given (``norms``).  Returns this rank's parameter shards
+    (as float32) and every moment's 'q' and 'scale' (numpy)."""
+    from repro_torch.train import optimizer as opt, sharding
+
+    torch.set_num_threads(1)
+    cfg = opt.AdamWConfig(lr=1e-2, warmup_steps=1, state_dtype="int8")
+    cast = getattr(torch, dtype)
+    local = lambda tree: sharding.local_tree({k: torch.from_numpy(v).to(cast) for k, v in tree.items()}, specs,
+                                             mesh)
+    p = local(params)
+    state = opt.init_state(p, cfg, mesh, specs)
+    for g, norm in zip(grads, norms):
+        opt.adamw_update(p, local(g), state, cfg, grad_norm=torch.tensor(norm), mesh=mesh, placement=specs)
+    moments = {name: {k: {part: t.numpy() for part, t in d.items()} for k, d in state[name].items()}
+               for name in ("m", "v")}
+    return {"params": {k: v.float().numpy() for k, v in p.items()}, **moments}
