@@ -2,7 +2,7 @@
 """Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--n-tables 20000] [--seed 0]
-    python3 chip_smoke.py --only families_mesh[,serve_mesh,...]   # mesh phases alone
+    python3 chip_smoke.py --only families_mesh[,serve_mesh,long_mesh,...]   # mesh phases alone
 
 Phases, each printing one JSON line:
 
@@ -169,7 +169,7 @@ Phases, each printing one JSON line:
    1x1's (their gap in quantisation steps printed); ms per step, tokens/s,
    peak GB, the
    most gathered weights alive at once, the collectives by kind and their
-   share per rank and run; its ranks are those of 11d and 11e (one spawn,
+   share per rank and run; its ranks are those of 11d–11f (one spawn,
    below; ``launch.train.run``'s own spawn for ``--mesh`` is driven by
    the CPU tests only);
 11c. pipeline — ``train.pipeline.pipeline_loss_fn`` at full-width
@@ -212,17 +212,34 @@ Phases, each printing one JSON line:
    prefill once more and one gradient step under sequence parallelism,
    held the same way; per rank the draw, prefill, decode and step times,
    the collectives' share and peak GB printed, and the card's memory in
-   use by every process beside each 1x1 run; 11b's runs and 11d's and
-   11e's groups run in one spawn of 4 ranks (``mesh_phase``, with
+   use by every process beside each 1x1 run;
+11f. long_mesh — serving at a batch the data axis does not divide
+   (``LONG_MESH``): h2o-danube (2 of 24 layers) and jamba (one block of
+   (SSM, MLP) and (attention, MoE)) at their published widths on the 2x2
+   grid, batch 1, so every rank holds the row (the reference's
+   replication): a prompt of 128 tokens into a cache of 524,288 slots
+   (h2o-danube's 4096-slot ring), the slots past it filled from a seeded
+   draw at the prefill's own K/V scale as if the prompt had run to
+   position 524,280 (``long_fill``; the ring in its pos % 4096 layout,
+   the SSM state as the prefill left it), then 8 decode steps of the 1x1
+   run's greedy tokens, float32, within 0.05 of max|logit| of 1x1 (run
+   in the families' side process after theirs); B.6 launches per rank
+   per prefill 2 / 1, every cache leaf at its shard's shape; each decode
+   step's collectives by kind, per rank the decode ms and the card's
+   memory in use, the 1x1 run's beside them; 11b's runs and 11d's, 11e's
+   and 11f's groups run in one spawn of 4 ranks (``mesh_phase``, with
    ``--only`` too when several are asked for), which start and warm up
-   once, and the timeline gives the three phases' seconds together;
-11f. dryrun — ``repro_torch.launch.dryrun``'s ``main`` (qwen1.5-0.5b's four
+   once, and the timeline gives the four phases' seconds together;
+11g. dryrun — ``repro_torch.launch.dryrun``'s ``main`` (qwen1.5-0.5b's four
    shapes at 16x16, its prefill_32k and train_4k with ``seq_shard=true``
    and its train_4k with ``remat_policy`` 'dots' and 'none' and with
    ``state_dtype=int8``, qwen3-32b's train_4k at both meshes; train_4k and
    decode_32k of qwen2-moe, whisper, llama-3.2-vision, deepseek-v3, mamba2
-   and jamba at 16x16, deepseek-v3's train_4k at 2x16x16 and mamba2's
-   long_500k) and ``repro_torch.launch.dryrun_mate``'s (filter_1g, broadcast, the sharded
+   and jamba at 16x16, deepseek-v3's train_4k at 2x16x16, and the
+   long_500k cells of mamba2, h2o-danube and jamba, whose batch of 1 the
+   16 data ranks do not divide: their cache argument bytes printed beside
+   their K/V shards' 1.47 MB and 33.6 MB a device) and
+   ``repro_torch.launch.dryrun_mate``'s (filter_1g, broadcast, the sharded
    build on 4 gloo ranks on the card) in subprocesses, the tracing ones
    started before the kernel build at a lower priority, ``dryrun_mate``
    right after it (they run on the host while the build runs and phase 1
@@ -236,11 +253,12 @@ Phases, each printing one JSON line:
    same lake (its tables reused from phase 1's draw, copied before any
    planting) with ``DRIVER_ARGV``: 4 mixed queries of 20 rows, FDs, the
    serving caches, a 4-shard routed lake, the build across 2 spawned ranks
-   and the row filter over 2 ranks (gloo on the one card); its printed
-   lines parsed and held (engine sets identical, routed bit-identical,
-   every request served and replayed from the cache, the 2-rank build
-   byte-identical, the 2-rank counts equal to
-   ``ops.filter_hits_table_counts`` on the card for the same keys);
+   and the row filter over a 2x2 grid of ranks (``--mesh 2x2``: the rows
+   over 'data', replicated over 'model'; gloo on the one card); its
+   printed lines parsed and held (engine sets identical, routed
+   bit-identical, every request served and replayed from the cache, the
+   2-rank build byte-identical, each of the 4 filter ranks' counts equal
+   to ``ops.filter_hits_table_counts`` on the card for the same keys);
 13. conformance — ``tests/test_conformance.py``'s scenario on the card:
    every backend of the port's registry × 128/256/512 bits exactly equal to
    'numpy' on ``discover_batched``, ``discover_many``, ``plan_and_count`` +
@@ -260,8 +278,8 @@ and are counted).  Each kernel must
 have launched on its path.  Then the ``kernels`` summary line (each
 kernel's ``launches`` on its own path — the main path for B.1–B.4, the ops
 path for B.5, the serve path for B.6 (the families, train, train_mesh,
-pipeline, serve_mesh and families_mesh paths beside it; the mesh phases'
-spawned ranks report their own launches) — and
+pipeline, serve_mesh, families_mesh and long_mesh paths beside it; the
+mesh phases' spawned ranks report their own launches) — and
 ``launches_by_path``, every
 path's own count; the driver's spawned ranks report their launches in the
 ``driver`` line), the card's name and power limit, and last
@@ -385,7 +403,7 @@ SERVE_ARCH = "qwen1.5-0.5b"
 # driver phase: ``launch.discovery.main`` at the smoke's lake with these
 # flags, beside ``--n-tables`` and ``--seed`` (sizes from PERF.md §4)
 DRIVER_ARGV = ["--queries", "4", "--rows", "20", "--fds", "--result-cache", "32",
-               "--bound-cache", "32", "--route-shards", "4", "--build-mesh", "2", "--mesh", "2x1"]
+               "--bound-cache", "32", "--route-shards", "4", "--build-mesh", "2", "--mesh", "2x2"]
 # the parent's launches: B.2 (discover, FD, routed shards), B.3 (builds and
 # query keys), B.4 (the mixed serving group and routed shards past the
 # table cap); the 2-rank filter's B.4 runs in the ranks
@@ -480,9 +498,9 @@ PIPE_STAGES, PIPE_SEQ, PIPE_BATCH, PIPE_MICRO, PIPE_TOL = 2, 512, 8, 4, 1e-2
 # weights (tests/test_models.py's serving bound); qwen1.5's 16 KV heads
 # split over 'model', starcoder2's 2 leave the cache's slots split
 SERVE_MESH = (("qwen1.5-0.5b", {"data": 2, "model": 2}), ("starcoder2-3b", {"data": 1, "model": 4}))
-# the mesh phases (11b, 11d, 11e): one spawn of MESH_SERVING_RANKS ranks takes
+# the mesh phases (11b, 11d, 11e, 11f): one spawn of MESH_SERVING_RANKS ranks takes
 # the training runs and every serving group, one after the other
-MESH_PHASES, MESH_SERVING_RANKS = ("train_mesh", "serve_mesh", "families_mesh"), 4
+MESH_PHASES, MESH_SERVING_RANKS = ("train_mesh", "serve_mesh", "families_mesh", "long_mesh"), 4
 SERVE_MESH_B, SERVE_MESH_S, SERVE_MESH_NEW, SERVE_MESH_TOL = 4, 512, 16, 0.05
 SERVE_MESH_LAYERS = 6  # of qwen1.5-0.5b's 24 and starcoder2-3b's 30, their widths whole
 # served once more under sequence parallelism (``layers.SEQ_SHARD``): the
@@ -526,13 +544,27 @@ FMESH_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}  # the spawn
 # gradient step under sequence parallelism, held against 1x1 as the
 # group's own are
 FMESH_SP = ("jamba-v0.1-52b",)
-# the dry run (phase 11e): each process's entry point, the argvs its
+# the long-context groups (phase 11f): batch 1, which the 2x2 grid's 2 data
+# ranks do not divide, so every rank holds the row and the cache's batch dim
+# is whole (the reference's replication): a prompt of FMESH_S tokens into a
+# cache of LONG_SLOTS slots (h2o-danube's 4096-slot ring), the slots past it
+# filled as if the prompt had run to LONG_SLOTS - FMESH_NEW (``long_fill``,
+# in chunks of LONG_CHUNK slots), then FMESH_NEW decode steps of the 1x1
+# run's greedy tokens, in float32, held against 1x1 within LONG_MESH_TOL of
+# max|logit| (the float32 gap is a few 1e-6; a query's attention spreads
+# over every filled slot, so a fault in the merge moves the logits far less
+# than SERVE_MESH_TOL would see); h2o-danube at its published widths cut to
+# LONG_LAYERS of its 24 layers, jamba cut as ``family_mesh_cfg`` cuts it
+LONG_MESH = (("h2o-danube-3-4b", {"data": 2, "model": 2}), ("jamba-v0.1-52b", {"data": 2, "model": 2}))
+LONG_SLOTS, LONG_CHUNK, LONG_LAYERS, LONG_MESH_TOL = 524288, 1024, 2, 1e-4
+# the dry run (phase 11g): each process's entry point, the argvs its
 # ``main`` is called with one after the other, and the status expected of
 # each cell they write ('error:<item>': an error record naming it); mamba2's and
 # jamba's cells trace in processes of their own, beside the others; the
 # module switches' cells (sequence parallelism, the remat policies) in the
 # first process, the int8 train cell after deepseek-v3's decode (the two
-# processes that ended first in earlier runs)
+# processes that ended first in earlier runs), h2o-danube's long_500k after
+# llama-3.2-vision's cells, jamba's in jamba's process
 DRYRUN_CALLS = (
     ("repro_torch.launch.dryrun", [
         ["--arch", "qwen1.5-0.5b"],
@@ -548,13 +580,16 @@ DRYRUN_CALLS = (
     ("repro_torch.launch.dryrun", [["--arch", "qwen2-moe-a2.7b,whisper-base", "--shape", "train_4k,decode_32k"]],
      {"qwen2-moe-a2.7b__train_4k__16x16": "ok", "qwen2-moe-a2.7b__decode_32k__16x16": "ok",
       "whisper-base__train_4k__16x16": "ok", "whisper-base__decode_32k__16x16": "ok"}),
-    ("repro_torch.launch.dryrun", [["--arch", "llama-3.2-vision-11b", "--shape", "train_4k,decode_32k"]],
-     {"llama-3.2-vision-11b__train_4k__16x16": "ok", "llama-3.2-vision-11b__decode_32k__16x16": "ok"}),
+    ("repro_torch.launch.dryrun", [["--arch", "llama-3.2-vision-11b", "--shape", "train_4k,decode_32k"],
+                                   ["--arch", "h2o-danube-3-4b", "--shape", "long_500k"]],
+     {"llama-3.2-vision-11b__train_4k__16x16": "ok", "llama-3.2-vision-11b__decode_32k__16x16": "ok",
+      "h2o-danube-3-4b__long_500k__16x16": "ok"}),
     ("repro_torch.launch.dryrun", [["--arch", "mamba2-1.3b", "--shape", "train_4k,decode_32k,long_500k"]],
      {"mamba2-1.3b__train_4k__16x16": "ok", "mamba2-1.3b__decode_32k__16x16": "ok",
       "mamba2-1.3b__long_500k__16x16": "ok"}),
-    ("repro_torch.launch.dryrun", [["--arch", "jamba-v0.1-52b", "--shape", "train_4k,decode_32k"]],
-     {"jamba-v0.1-52b__train_4k__16x16": "ok", "jamba-v0.1-52b__decode_32k__16x16": "ok"}),
+    ("repro_torch.launch.dryrun", [["--arch", "jamba-v0.1-52b", "--shape", "train_4k,decode_32k,long_500k"]],
+     {"jamba-v0.1-52b__train_4k__16x16": "ok", "jamba-v0.1-52b__decode_32k__16x16": "ok",
+      "jamba-v0.1-52b__long_500k__16x16": "ok"}),
     ("repro_torch.launch.dryrun", [["--arch", "deepseek-v3-671b", "--shape", "train_4k"]],
      {"deepseek-v3-671b__train_4k__16x16": "ok"}),
     ("repro_torch.launch.dryrun", [["--arch", "deepseek-v3-671b", "--shape", "train_4k", "--multi-pod"]],
@@ -567,6 +602,12 @@ DRYRUN_CALLS = (
      {"mate-filter__filter_1g-broadcast__16x16": "ok", "mate-filter__filter_1g-broadcast__2x16x16": "ok"}),
 )
 DRYRUN_TIMEOUT_S = 600
+# the long_500k cells' K/V bytes a device: layers × slots (h2o-danube's
+# 4096-slot ring, jamba's 524,288) × 8 KV heads × head dim × K and V × bf16,
+# over the 256 devices their slots split over; printed beside each cell's
+# cache argument bytes (its arguments less the parameter shards and the token)
+DRY_LONG_KV_BYTES = {"h2o-danube-3-4b__long_500k__16x16": 24 * 4096 * 8 * 120 * 2 * 2 // 256,
+                     "jamba-v0.1-52b__long_500k__16x16": 4 * 524288 * 8 * 128 * 2 * 2 // 256}
 DRYRUN_NICE = 10  # the tracing processes' priority: below the lake's draw and the build
 
 
@@ -3077,18 +3118,20 @@ class TrainMeshPlan:
     ``families``, after the families' 1x1 runs in the same process
     (``main``, beside the lake's draw: the card cannot hold both at once,
     and the plan's first training step then finds torch and the card
-    warm), which ``run`` (the ``SideRun``, its call 0) hands to
-    ``families_mesh``.  ``get`` returns the plan; ``cleanup`` removes the
+    warm) and the long-context groups' (``long_mesh_single``), which
+    ``refs`` ({phase: its ``SideCall``}) hands to ``families_mesh`` and
+    ``long_mesh``.  ``get`` returns the plan; ``cleanup`` removes the
     directory."""
 
     def __init__(self, seed, device="cuda:0", extra=(), families=False):
         import tempfile
 
         self.tmp = tempfile.mkdtemp(prefix="train_mesh_")
-        calls = [(families_mesh_single, (seed,))] if families else []
+        calls = [(families_mesh_single, (seed,)), (long_mesh_single, (seed,))] if families else []
         self.index = len(calls)
         calls.append((train_mesh_plan, (seed, self.tmp, tuple(extra), device)))
         self.run = SideRun(calls, device)
+        self.refs = {"families_mesh": SideCall(self.run, 0), "long_mesh": SideCall(self.run, 1)} if families else {}
 
     def get(self) -> dict:
         return self.run.get(self.index)
@@ -3394,49 +3437,55 @@ def pipeline_phase(seed, devices=None, device="cuda:0") -> dict[str, int]:
     return launches
 
 
-def global_cache(cfg, tokens: np.ndarray, forced: np.ndarray) -> dict:
+def global_cache(cfg, tokens: np.ndarray, forced: np.ndarray, max_seq: int | None = None) -> dict:
     """The shapes of the whole cache that ``serve_on_mesh`` fills (meta
     tensors; made with activation sharding off)."""
     from repro_torch.models import transformer
 
-    return transformer.init_cache(cfg, tokens.shape[0], tokens.shape[1] + forced.shape[0],
+    return transformer.init_cache(cfg, tokens.shape[0], max_seq or tokens.shape[1] + forced.shape[0],
                                   enc_len=transformer._enc_len(cfg), device="meta")
 
 
 def serve_on_mesh(mesh, cfg, local: dict, tokens: np.ndarray, forced: np.ndarray, whole: dict,
-                  extra=None) -> dict:
+                  extra=None, max_seq: int | None = None, fill=None) -> dict:
     """This rank's part of serving ``cfg`` over ``mesh`` (activation
-    sharding on): ``transformer.prefill`` of its rows of ``tokens`` (and of
-    ``extra``, whisper's frames / the VLM's patches of the global batch)
-    from its shards ``local``, then a decode step for each row of
-    ``forced`` (the 1x1 run's greedy tokens).  Returns the logits (ranks at
-    model coordinate 0: every model rank holds the same gathered logits),
-    the B.6 launches of the prefill, the cache leaves' devices and shapes
-    against their placements in ``whole`` (``global_cache``), and
-    host-clock times."""
+    sharding on): ``transformer.prefill`` of its rows of ``tokens`` (every
+    row where the batch axes do not divide the batch; and of ``extra``,
+    whisper's frames / the VLM's patches of the global batch) from its
+    shards ``local`` into a cache of ``max_seq`` slots (default: the
+    prompt and the decode steps), ``fill(cache)`` after it where given,
+    then a decode step for each row of ``forced`` (the 1x1 run's greedy
+    tokens).  Returns the logits (ranks at model coordinate 0: every model
+    rank holds the same gathered logits), the B.6 launches of the prefill,
+    the cache leaves' devices and shapes against their placements in
+    ``whole`` (``global_cache``), each decode step's collectives by kind,
+    and host-clock times."""
     from repro_torch.kernels import flash_kernel as flk
-    from repro_torch.launch import mesh as meshlib
-    from repro_torch.models import transformer
+    from repro_torch.models import layers, transformer
     from repro_torch.train import sharding
 
     dev = mesh.device
-    max_seq = tokens.shape[1] + forced.shape[0]
-    ba = meshlib.batch_axes(mesh)
-    share = tokens.shape[0] // mesh.axis_size(ba)
-    lo = mesh.axis_index(ba) * share
-    rows = slice(lo, lo + share)
+    max_seq = max_seq or tokens.shape[1] + forced.shape[0]
+    b = tokens.shape[0]
+    lo, hi = layers.local_rows(b)
+    rows = slice(lo, hi)
     keep = mesh.coords["model"] == 0
-    out = {"rank": mesh.rank, "coords": mesh.coords, "rows": (lo, lo + share), "logits": [],
-           "decode_ms": [], "argmax": []}
+    out = {"rank": mesh.rank, "coords": mesh.coords, "rows": (lo, hi), "logits": [],
+           "decode_ms": [], "decode_kinds": [], "argmax": []}
     with torch.inference_mode():
         tok = torch.from_numpy(tokens[rows]).to(dev, torch.long)
         kw = {k: v[rows] for k, v in (extra or {}).items()}
         torch.cuda.synchronize(dev)
         flk.flash_attention.launches, comm, t = 0, sharding.COMM["seconds"], time.perf_counter()
-        logits, cache = transformer.prefill(local, cfg, tok, max_seq, **kw)
+        logits, cache = transformer.prefill(local, cfg, tok, max_seq, batch=b, **kw)
         torch.cuda.synchronize(dev)
         out["prefill_ms"] = 1e3 * (time.perf_counter() - t)
         out["b6_prefill"] = flk.flash_attention.launches
+        if fill is not None:
+            t = time.perf_counter()
+            fill(cache)
+            torch.cuda.synchronize(dev)
+            out["fill_ms"] = 1e3 * (time.perf_counter() - t)
         bad = []
         for plan, sub in cache.specs.items():
             for name, leaves in sub.items():
@@ -3456,10 +3505,12 @@ def serve_on_mesh(mesh, cfg, local: dict, tokens: np.ndarray, forced: np.ndarray
                 break
             nxt = torch.from_numpy(forced[step][rows]).to(dev, torch.long)
             torch.cuda.synchronize(dev)
-            t = time.perf_counter()
+            kinds, t = sharding.kinds_snapshot(), time.perf_counter()
             logits, cache = transformer.decode_step(local, cfg, nxt, cache)
             torch.cuda.synchronize(dev)
             out["decode_ms"].append(1e3 * (time.perf_counter() - t))
+            out["decode_kinds"].append({k: {f: v[f] - kinds[k][f] for f in v}
+                                        for k, v in sharding.kinds_snapshot().items() if v["count"] > kinds[k]["count"]})
         out["comm_s"] = sharding.COMM["seconds"] - comm
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return out
@@ -3838,20 +3889,21 @@ def families_mesh_single(_mesh, seed: int) -> dict:
     return out
 
 
-def families_mesh_ranks(mesh, seed: int, refs: dict) -> list[dict]:
+def families_mesh_ranks(mesh, seed: int, refs: dict, grids: dict | None = None) -> list[dict]:
     """One rank of the ``families_mesh`` phase: for each group of
     ``FAMILIES_MESH`` in turn, its ``GridMesh`` over this world, this rank's
     shards drawn (``draw_shards``), served (``serve_on_mesh``: the 1x1 run's
     prompts and greedy tokens, from the shards gathered over 'data' once,
     so no call gathers weights) and trained (``train_family``).  Returns a
     report per group: the serving report, the training report, the
-    experts this rank holds per MoE layer, and the peak GB of the draw."""
+    experts this rank holds per MoE layer, and the peak GB of the draw.
+    ``grids``: the ``GridMesh`` of each grid made so far (filled here)."""
     from repro_torch.data.pipeline import stub_inputs
     from repro_torch.launch import mesh as meshlib
     from repro_torch.models import layers, params as params_lib, transformer
     from repro_torch.train import optimizer as opt, sharding
 
-    reports, grids = [], {}
+    reports, grids = [], {} if grids is None else grids
     for arch, grid in FAMILIES_MESH:
         key = tuple(grid.items())
         grid_mesh = grids[key] = grids.get(key) or meshlib.grid_mesh(mesh, grid)  # one set of groups a grid
@@ -3906,6 +3958,254 @@ def families_mesh_ranks(mesh, seed: int, refs: dict) -> list[dict]:
     return reports
 
 
+def long_cfg(arch: str):
+    """A ``LONG_MESH`` group's model: jamba as ``family_mesh_cfg`` cuts it,
+    the others at their published widths cut to ``LONG_LAYERS`` layers."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    return family_mesh_cfg(arch) if cfg.layer_pattern == "jamba" else dataclasses.replace(cfg, n_layers=LONG_LAYERS)
+
+
+def _attn_layers(cfg):
+    """(plan name, sublayer key, stack length) of every attention sublayer."""
+    from repro_torch.models import transformer
+
+    return [(plan.name, f"s{i}", plan.n) for plan in transformer.group_plans(cfg)
+            for i, (mixer, _ffn) in enumerate(plan.sublayers) if mixer == "attn"]
+
+
+def long_scales(cfg, cache) -> dict:
+    """{'<plan>.<sublayer>.<layer>': (K's std, V's std)} over the slots a
+    prefill wrote, from a whole (1x1) cache."""
+    out = {}
+    for plan, sub, n in _attn_layers(cfg):
+        c = cache[plan][sub]
+        for li in range(n):
+            held = c["slot_pos"][li, 0] >= 0
+            out[f"{plan}.{sub}.{li}"] = (float(c["k"][li, 0][held].float().std()),
+                                         float(c["v"][li, 0][held].float().std()))
+    return out
+
+
+def long_fill(cfg, cache, scales: dict, seed: int, mesh=None) -> None:
+    """Fill the attention caches a prefill left (in place: this rank's
+    shards over ``mesh``, the whole cache without one) as if the prompt had
+    run to position P = ``LONG_SLOTS`` - ``FMESH_NEW``: every slot holds the
+    position it would hold then — a cache of at least P slots position =
+    slot below P (the prompt's slots keep the prefill's K/V), a ring of w
+    slots positions P - w .. P - 1, each at slot pos % w — its K and V a
+    normal draw at ``scales`` (the prefill's own, ``long_scales``) in
+    chunks of ``LONG_CHUNK`` slots, each from a generator of its own, so a
+    rank draws only the chunks of its slots and every layout holds the
+    same values; 'pos' = P.  The SSM state stays as the prefill left it."""
+    p_end = LONG_SLOTS - FMESH_NEW
+    specs = getattr(cache, "specs", None)
+
+    def span(c, sp, leaf: str, dim: int) -> tuple[int, int]:
+        """(this rank's first global index along ``dim`` of ``leaf``, its
+        count)."""
+        local = c[leaf].shape[dim]
+        axes = None if sp is None else sp[leaf][dim]
+        return (0 if axes is None else mesh.axis_index(axes) * local), local
+
+    key = 0
+    for plan, sub, n in _attn_layers(cfg):
+        c, sp = cache[plan][sub], None if specs is None else specs[plan][sub]
+        (k_lo, k_n), (h_lo, h_n), (p_lo, p_n) = span(c, sp, "k", 2), span(c, sp, "k", 3), span(c, sp, "slot_pos", 2)
+        slots = k_n if sp is None or sp["k"][2] is None else k_n * mesh.axis_size(sp["k"][2])
+        if k_n % LONG_CHUNK or p_n % LONG_CHUNK:
+            raise ValueError(f"{plan}.{sub}: {k_n} / {p_n} local slots, not a multiple of {LONG_CHUNK}")
+        dev = c["k"].device
+        for li in range(n):
+            prompt = int(c["pos"][li].max())
+            k_std, v_std = scales[f"{plan}.{sub}.{li}"]
+
+            def position(g: torch.Tensor) -> torch.Tensor:
+                """The position at global slots ``g`` once the prompt reached
+                P (-1 for an empty slot)."""
+                if slots < p_end:  # a ring
+                    return (p_end - slots) + (g - (p_end - slots)) % slots
+                return torch.where(g < p_end, g, torch.full_like(g, -1))
+
+            for lo in range(p_lo, p_lo + p_n, LONG_CHUNK):
+                g = torch.arange(lo, lo + LONG_CHUNK, device=dev)
+                pos = position(g)
+                new = pos >= prompt
+                at = slice(lo - p_lo, lo - p_lo + LONG_CHUNK)
+                c["slot_pos"][li, :, at] = torch.where(new, pos, c["slot_pos"][li, :, at]).to(torch.int32)
+            for lo in range(k_lo, k_lo + k_n, LONG_CHUNK):
+                gen = torch.Generator(device=dev).manual_seed(seed * 1_000_003 + key * 65_537 + lo // LONG_CHUNK)
+                shape = (LONG_CHUNK, cfg.n_kv_heads, cfg.head_dim)
+                kv = [torch.randn(shape, generator=gen, device=dev) * std for std in (k_std, v_std)]
+                new = (position(torch.arange(lo, lo + LONG_CHUNK, device=dev)) >= prompt)[:, None, None]
+                at = slice(lo - k_lo, lo - k_lo + LONG_CHUNK)
+                for leaf, val in zip(("k", "v"), kv):
+                    buf = c[leaf][li, :, at]
+                    buf.copy_(torch.where(new, val[:, h_lo : h_lo + h_n].to(buf.dtype), buf))
+            c["pos"][li] = p_end
+            key += 1
+
+
+def long_mesh_single(_mesh, seed: int) -> dict:
+    """The 1x1 comparator of every ``LONG_MESH`` group, in the families'
+    side process after their 1x1 runs have freed the card: each cut model
+    drawn whole from ``seed`` (``draw_shards``: the bf16 draw's values,
+    served in float32), a prefill of one prompt of ``FMESH_S`` tokens into
+    a cache of ``LONG_SLOTS`` slots, ``long_fill`` at the prefill's own K/V
+    scales, then ``FMESH_NEW`` greedy decode steps; the card's memory in use
+    watched throughout (``CardMemory``)."""
+    from repro_torch.models import transformer
+    from repro_torch.train import optimizer as opt
+
+    dev = _mesh.device
+    out = {}
+    for arch, _grid in LONG_MESH:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with CardMemory(dev) as card:
+            cfg = long_cfg(arch)
+            weights = cast_tree(draw_shards(cfg, seed, dev), torch.float32, True)
+            tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(1, FMESH_S))
+            single, forced, decode_ms = [], [], []
+            with float32_activations(), torch.inference_mode():
+                torch.cuda.synchronize(dev)
+                t = time.perf_counter()
+                logits, cache = transformer.prefill(weights, cfg, torch.from_numpy(tokens).to(dev), LONG_SLOTS)
+                torch.cuda.synchronize(dev)
+                prefill_ms = 1e3 * (time.perf_counter() - t)
+                scales = long_scales(cfg, cache)
+                long_fill(cfg, cache, scales, seed)
+                cache_gb = sum(t_.numel() * t_.element_size() for t_ in opt.leaves(cache)) / 1e9
+                for step in range(FMESH_NEW + 1):
+                    single.append(logits.float().cpu().numpy())
+                    if step == FMESH_NEW:
+                        break
+                    nxt = logits.argmax(dim=-1)
+                    forced.append(nxt.cpu().numpy())
+                    torch.cuda.synchronize(dev)
+                    t = time.perf_counter()
+                    logits, cache = transformer.decode_step(weights, cfg, nxt, cache)
+                    torch.cuda.synchronize(dev)
+                    decode_ms.append(1e3 * (time.perf_counter() - t))
+            out[arch] = {"tokens": tokens, "logits": single, "forced": np.stack(forced), "scales": scales,
+                         "prefill_ms": prefill_ms, "decode_ms": decode_ms, "cache_gb": cache_gb,
+                         "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+            del weights, cache, logits
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[arch].update(card=card.report(), group_s=time.perf_counter() - t0)
+    return out
+
+
+def long_mesh_ranks(mesh, seed: int, refs: dict, grids: dict) -> list[dict]:
+    """One rank of the ``long_mesh`` phase: for each group of ``LONG_MESH``
+    in turn, its ``GridMesh`` (shared through ``grids`` with the families'
+    groups), this rank's shards drawn (``draw_shards``) and gathered over
+    'data' once, then served (``serve_on_mesh``) at batch 1: the 1x1 run's
+    prompt into a cache of ``LONG_SLOTS`` slots, ``long_fill`` of this
+    rank's slots at the 1x1 prefill's K/V scales, and its greedy tokens;
+    the card's memory in use watched (``CardMemory``)."""
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import layers, params as params_lib, transformer
+    from repro_torch.train import optimizer as opt, sharding
+
+    reports = []
+    for arch, grid in LONG_MESH:
+        t0 = time.perf_counter()
+        key = tuple(grid.items())
+        grid_mesh = grids[key] = grids.get(key) or meshlib.grid_mesh(mesh, grid)
+        dev, cfg, ref = grid_mesh.device, long_cfg(arch), refs[arch]
+        whole = global_cache(cfg, ref["tokens"], ref["forced"], LONG_SLOTS)
+        torch.cuda.reset_peak_memory_stats(dev)
+        layers.enable_activation_sharding(grid_mesh, vocab_size=cfg.vocab_size)
+        try:
+            with CardMemory(dev) as card:
+                place = params_lib.validate_divisibility(transformer.model_specs(cfg), grid_mesh,
+                                                         meshlib.rules_for(grid_mesh))
+                t = time.perf_counter()
+                local = draw_shards(cfg, seed, dev, grid_mesh, place)
+                draw = {"s": time.perf_counter() - t}
+                t = time.perf_counter()
+                with torch.no_grad():  # gathered over 'data' once: prefill and decode gather nothing
+                    served_params = cast_tree(sharding.gather_tree(local, place, grid_mesh), torch.float32, True)
+                draw["gather_s"] = time.perf_counter() - t
+                devices = sorted({str(t_.device) for t_ in opt.leaves(local)})
+                del local
+                torch.cuda.empty_cache()
+                with float32_activations():
+                    served = serve_on_mesh(grid_mesh, cfg, served_params, ref["tokens"], ref["forced"], whole,
+                                           max_seq=LONG_SLOTS,
+                                           fill=lambda cache: long_fill(cfg, cache, ref["scales"], seed, grid_mesh))
+                del served_params
+            reports.append({"arch": arch, "grid": grid, "draw": draw, "serve": served, "devices": devices,
+                            "card": card.report(), "group_s": time.perf_counter() - t0})
+        finally:
+            layers.disable_activation_sharding()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return reports
+
+
+def long_mesh_report(refs, ranks: list, ranks_s: float, device="cuda:0") -> dict[str, int]:
+    """The ``long_mesh`` line from every rank's reports
+    (``long_mesh_ranks``) against the 1x1 runs of ``refs``; raises after
+    the line if a check failed."""
+    from repro_torch import configs
+
+    results = refs.get()
+    launches = {name: 0 for name in counters()}
+    failed, rows = [], []
+    for g, (arch, grid) in enumerate(LONG_MESH):
+        cfg, ref = long_cfg(arch), results[arch]
+        group = [r[g] for r in ranks]
+        want_b6 = flash_per_prefill(cfg)
+        gaps, by_step = [], [0.0] * (FMESH_NEW + 1)
+        for r in group:
+            sv = r["serve"]
+            if sv["rows"] != (0, 1):
+                failed.append(f"{arch} rank {sv['rank']}: rows {sv['rows']}, expected the one row (0, 1)")
+            for step, got in enumerate(sv["logits"]):
+                want = ref["logits"][step]
+                gaps.append(float(np.max(np.abs(got - want))) / float(np.max(np.abs(want))))
+                by_step[step] = max(by_step[step], gaps[-1])
+            if sv["b6_prefill"] != want_b6:
+                failed.append(f"{arch} rank {sv['rank']}: {sv['b6_prefill']} B.6 launches per prefill,"
+                              f" expected {want_b6}")
+            if sv["cache_bad"] or r["devices"] != [device]:
+                failed.append(f"{arch} rank {sv['rank']}: cache leaves {sv['cache_bad']}, shards on {r['devices']}")
+            launches["flash_attention"] += sv["b6_prefill"]
+        if len(gaps) != 2 * (FMESH_NEW + 1) or max(gaps) > LONG_MESH_TOL:
+            failed.append(f"{arch} {grid}: {len(gaps)} logits, gap {max(gaps, default=None)} against 1x1,"
+                          f" bound {LONG_MESH_TOL}")
+        rows.append({
+            "arch": arch, "grid": grid, "layers": f"{cfg.n_layers} of {configs.get_config(arch).n_layers}",
+            "batch": 1, "prompt": FMESH_S, "slots": LONG_SLOTS, "new": FMESH_NEW,
+            "cache_specs": group[0]["serve"]["cache_specs"], "max_gap": max(gaps, default=None),
+            "gap_per_step": by_step, "serve_tolerance": LONG_MESH_TOL,
+            "greedy_equal_1x1": all(a == np.argmax(ref["logits"][step], axis=-1).tolist()
+                                    for r in group for step, a in enumerate(r["serve"]["argmax"])),
+            "b6_launches_per_prefill": [r["serve"]["b6_prefill"] for r in group], "b6_plan": want_b6,
+            "decode_kinds_rank0": group[0]["serve"]["decode_kinds"][-1],
+            "ranks": [{"rank": r["serve"]["rank"], "coords": r["serve"]["coords"], "draw_s": r["draw"]["s"],
+                       "gather_s": r["draw"]["gather_s"], "prefill_ms": r["serve"]["prefill_ms"],
+                       "fill_ms": r["serve"]["fill_ms"], "decode_ms": r["serve"]["decode_ms"],
+                       "decode_ms_median": _median(r["serve"]["decode_ms"]),
+                       "serve_comm_share": r["serve"]["comm_s"] / (
+                           (r["serve"]["prefill_ms"] + sum(r["serve"]["decode_ms"])) / 1e3),
+                       "peak_gb": r["serve"]["peak_gb"], "card": r["card"], "group_s": r["group_s"]} for r in group],
+            "single": {"group_s": ref["group_s"], "prefill_ms": ref["prefill_ms"], "decode_ms": ref["decode_ms"],
+                       "decode_ms_median": _median(ref["decode_ms"]), "cache_gb": ref["cache_gb"],
+                       "peak_gb": ref["peak_gb"], "card": ref["card"]},
+        })
+    emit({"phase": "long_mesh", "gpu": nvidia_smi(), "groups": rows, "single_s": refs.seconds(),
+          "ranks_wall_s": ranks_s, "launches": launches, "failed": failed})
+    if failed:
+        raise AssertionError(f"long_mesh: {failed}")
+    check_counts(launches, ("flash_attention",), "long_mesh path")
+    return launches
+
+
 def _side_calls(mesh, calls: list) -> list:
     """Each ``fn(mesh, *args)`` of ``calls`` in turn: [(its result, its
     end in seconds from the first's start)]."""
@@ -3952,10 +4252,30 @@ class SideRun:
         return self.result[i][1]
 
 
-def family_refs(seed: int, device: str = "cuda:0") -> SideRun:
-    """The 1x1 runs of ``families_mesh`` (``families_mesh_single``) in a
-    ``SideRun``."""
-    return SideRun([(families_mesh_single, (seed,))], device)
+class SideCall:
+    """Call ``i`` of a ``SideRun``: ``get()`` its result, ``seconds()`` its
+    end, in seconds from the run's first call's start."""
+
+    def __init__(self, run: SideRun, i: int):
+        self.run, self.i = run, i
+
+    def get(self):
+        return self.run.get(self.i)
+
+    def seconds(self) -> float:
+        return self.run.seconds(self.i)
+
+
+def side_refs(seed: int, phases, device: str = "cuda:0") -> dict:
+    """The 1x1 runs the mesh phases of ``phases`` compare with, in one
+    ``SideRun`` (the families', then the long-context groups', after the
+    families' have freed the card): {'families_mesh' / 'long_mesh': its
+    ``SideCall``}."""
+    calls = [(fn, (seed,)) for name, fn in (("families_mesh", families_mesh_single),
+                                            ("long_mesh", long_mesh_single)) if name in phases]
+    run = SideRun(calls, device) if calls else None
+    names = [name for name in ("families_mesh", "long_mesh") if name in phases]
+    return {name: SideCall(run, i) for i, name in enumerate(names)}
 
 
 def _parent_gb(device) -> float:
@@ -4072,15 +4392,19 @@ def families_mesh_report(refs: SideRun, ranks: list, ranks_s: float, parent_gb: 
 
 
 def mesh_ranks(mesh, train_runs: dict | None, serve_groups: list, seed: int,
-               refs: dict | None) -> tuple[dict | None, list, list]:
+               refs: dict | None, long_refs: dict | None = None) -> tuple[dict | None, list, list, list]:
     """One rank of ``mesh_phase``: ``train_mesh``'s runs (none where
     ``train_runs`` is None), ``serve_mesh``'s groups, then
-    ``families_mesh``'s (none where ``refs`` is None)."""
+    ``families_mesh``'s (none where ``refs`` is None), then
+    ``long_mesh``'s (none where ``long_refs`` is None)."""
     train = None if train_runs is None else train_mesh_ranks(mesh, train_runs)
-    return train, serve_mesh_ranks(mesh, serve_groups), [] if refs is None else families_mesh_ranks(mesh, seed, refs)
+    grids: dict = {}  # one set of process groups a grid, over the families' and the long-context groups
+    served = serve_mesh_ranks(mesh, serve_groups)
+    fam = [] if refs is None else families_mesh_ranks(mesh, seed, refs, grids)
+    return train, served, fam, [] if long_refs is None else long_mesh_ranks(mesh, seed, long_refs, grids)
 
 
-def mesh_phase(seed, phases=MESH_PHASES, refs: SideRun | None = None, device="cuda:0",
+def mesh_phase(seed, phases=MESH_PHASES, refs: dict | None = None, device="cuda:0",
                train_extra=(), train_plan: TrainMeshPlan | None = None) -> dict[str, dict[str, int]]:
     """The mesh phases of ``phases``, their runs and groups in one spawn of
     4 gloo ranks on the one card (``mesh_ranks``), which start and warm up
@@ -4126,6 +4450,20 @@ def mesh_phase(seed, phases=MESH_PHASES, refs: SideRun | None = None, device="cu
     use beside it.  The path's B.6 launches are the ranks' own, from each
     group's prefill, decode and steps.
 
+    ``long_mesh``: serving at batch 1, which the 2 data ranks of the 2x2
+    grid do not divide (``LONG_MESH``): each cut model's 1x1 run after the
+    families' in the same process (``long_mesh_single``), then the ranks
+    (``long_mesh_ranks``).  Held, per group: prefill's and every decode
+    step's logits (float32) within ``LONG_MESH_TOL`` of max|logit| of
+    1x1's, on every rank the one row; B.6 launches per rank per prefill
+    equal to the attention layers; every cache leaf on the card at its
+    shard's shape.  Printed: each decode step's collectives by kind, per
+    rank the draw, gather, prefill, fill and decode times and the card's
+    memory in use; the 1x1 run's decode ms and its card beside them.
+
+    ``refs``: the 1x1 runs (``side_refs``: started beside the lake's draw
+    by ``main``, here when none are given).
+
     Each phase's line carries the seconds of the whole spawn and is printed
     before a failed check raises.  Returns each phase's launches."""
     from repro_torch.launch import mesh as meshlib
@@ -4135,14 +4473,16 @@ def mesh_phase(seed, phases=MESH_PHASES, refs: SideRun | None = None, device="cu
     try:
         plan = train_plan.get() if "train_mesh" in phases else None
         serve_refs = serve_mesh_refs(seed, device) if "serve_mesh" in phases else None
-        refs = (refs or family_refs(seed, device)) if "families_mesh" in phases else None
+        refs = side_refs(seed, phases, device) if refs is None else refs
+        fam_refs, long_refs = refs.get("families_mesh"), refs.get("long_mesh")
         parent_gb = _parent_gb(device)
         groups = serve_mesh_groups(seed, serve_refs) if serve_refs else []
-        fam = refs.get() if refs else None
+        fam = fam_refs.get() if fam_refs else None
+        long = long_refs.get() if long_refs else None
         t = time.perf_counter()
         ranks = meshlib.run_ranks(mesh_ranks, MESH_SERVING_RANKS, backend="gloo",
                                   devices=[device] * MESH_SERVING_RANKS,
-                                  args=(plan and plan["ranks"], groups, seed, fam),
+                                  args=(plan and plan["ranks"], groups, seed, fam, long),
                                   timeout_s=TRAIN_MESH_TIMEOUT_S, env=FMESH_ENV)
         wall = time.perf_counter() - t
         out = {}
@@ -4153,8 +4493,10 @@ def mesh_phase(seed, phases=MESH_PHASES, refs: SideRun | None = None, device="cu
             train_plan.cleanup()
     if serve_refs:
         out["serve_mesh"] = serve_mesh_report(serve_refs, [r[1] for r in ranks], wall)
-    if refs:
-        out["families_mesh"] = families_mesh_report(refs, [r[2] for r in ranks], wall, parent_gb, device)
+    if fam_refs:
+        out["families_mesh"] = families_mesh_report(fam_refs, [r[2] for r in ranks], wall, parent_gb, device)
+    if long_refs:
+        out["long_mesh"] = long_mesh_report(long_refs, [r[3] for r in ranks], wall, device)
     return out
 
 
@@ -4299,6 +4641,12 @@ def dryrun_phase(runs_started: DryRuns) -> dict[str, int]:
                            collective_counts={k: int(v) for k, v in hc["collective_counts"].items() if v},
                            param_bytes_per_device=rec.get("param_bytes_per_device"),
                            trace_s=rec["compile_seconds"], trace_device=rec["trace_device"])
+                if name in DRY_LONG_KV_BYTES:  # the cache's bytes: the arguments less the shards and the token
+                    cache = ma["argument_size_in_bytes"] - rec["param_bytes_per_device"] - 8
+                    row.update(cache_argument_bytes=cache, kv_bytes_planned=DRY_LONG_KV_BYTES[name])
+                    if cache < DRY_LONG_KV_BYTES[name]:
+                        failed.append(f"{name}: cache arguments {cache} B, below its K/V shards'"
+                                      f" {DRY_LONG_KV_BYTES[name]} B")
             cells.append(row)
     temp = {row["cell"]: row["temp_gb"] for row in cells if "temp_gb" in row}
     emit({"phase": "dryrun", "gpu": nvidia_smi(), "planned_not_timed": True, "cells": cells, "runs": runs,
@@ -4367,13 +4715,14 @@ def driver_phase(args, cells) -> dict[str, int]:
     lake (``--n-tables`` tables from ``--seed``): the default config (128
     bits, 'fused-gather', rank 'quality', gate on), ``DRIVER_ARGV`` — FDs,
     the serving caches, a 4-shard routed lake, the build across 2 ranks and
-    the row filter over 2 ranks.  Its printed lines are parsed and held:
+    the row filter over a 2x2 grid of ranks (the rows over 'data', each
+    block replicated over 'model').  Its printed lines are parsed and held:
     every engine set identical, the routed top-k bit-identical, every
     request served and every replay from the cache, the 2-rank build
-    byte-identical (the driver exits otherwise) and the 2-rank filter's
-    counts equal to ``ops.filter_hits_table_counts`` over every corpus row
-    for the same keys (kernel B.4 on the card; rows with a hit per table,
-    matching rows per key).  Launches are counted around ``main`` only: the
+    byte-identical (the driver exits otherwise) and each of the 4 filter
+    ranks' counts equal to ``ops.filter_hits_table_counts`` over every
+    corpus row for the same keys (kernel B.4 on the card; rows with a hit
+    per table, matching rows per key).  Launches are counted around ``main`` only: the
     parent's; the ranks report their own."""
     from repro_torch.data import synthetic
     from repro_torch.kernels import ops
@@ -4411,7 +4760,7 @@ def driver_phase(args, cells) -> dict[str, int]:
                    r"superkeys=([\d.]+)s postings=([\d.]+)s merge=([\d.]+)s", lines)
     fd_m = _one(r"FD workload .*candidates=(\d+) validated=(\d+) pruned=(\d+) "
                 r"bytes_verified=(\d+)B", lines)
-    mesh_m = _one(r"distributed filter on mesh 2x1 \(impl=(\w+)\): (\d+) candidate rows across "
+    mesh_m = _one(r"distributed filter on mesh 2x2 \(impl=(\w+)\): (\d+) candidate rows across "
                   r"(\d+) tables in ([\d.]+)s", lines)
     if routed_m.group(2) != "True":
         raise AssertionError("routed top-k is not bit-identical")
@@ -4423,8 +4772,12 @@ def driver_phase(args, cells) -> dict[str, int]:
     if len(digests) != 1:
         raise AssertionError("the build ranks' artifacts differ")
 
-    # the 2-rank filter's counts against the single-host launch
-    (superkeys, row_tables, qsk, n_tables, _backend, world, _dev), ranks = filters[0]
+    # every rank's counts (2 row blocks over 'data', each replicated over 'model') against the
+    # single-host launch
+    (superkeys, row_tables, qsk, n_tables, _backend, grid, _dev), ranks = filters[0]
+    world = grid["data"] * grid["model"]
+    if len(ranks) != world or world != 4:
+        raise AssertionError(f"the mesh filter ran on {len(ranks)} ranks of {grid}, expected 4")
     dev = torch.device("cuda")
     elig = np.ones((superkeys.shape[0], qsk.shape[0]), dtype=bool)
     hits, _ = ops.filter_hits_table_counts(superkeys, qsk, elig, row_tables, n_tables,
@@ -4457,7 +4810,7 @@ def driver_phase(args, cells) -> dict[str, int]:
                          "postings_s": float(build_m.group(5)), "merge_s": float(build_m.group(6))},
           "fd": {"candidates": int(fd_m.group(1)), "validated": int(fd_m.group(2)),
                  "pruned": int(fd_m.group(3)), "bytes_verified": int(fd_m.group(4))},
-          "mesh_filter": {"ranks": world, "impl": mesh_m.group(1), "n_tables": n_tables,
+          "mesh_filter": {"ranks": world, "grid": grid, "impl": mesh_m.group(1), "n_tables": n_tables,
                           "query_keys": int(qsk.shape[0]), "rows_with_hits": int(any_counts.sum()),
                           "tables_with_hits": int((any_counts > 0).sum()),
                           "counts_equal_single_host": True, "s": float(mesh_m.group(4)),
@@ -4638,7 +4991,6 @@ def main() -> int:
         if dry is not None:
             dry.start_built()
         train_plan = TrainMeshPlan(args.seed, families=True) if only is None else None
-        refs = train_plan and train_plan.run
         if only:
             mesh = tuple(n for n in MESH_PHASES if n in only)  # the mesh phases asked for share one spawn
             for name in dict.fromkeys(mesh if n in mesh else n for n in only):
@@ -4650,17 +5002,21 @@ def main() -> int:
                 emit({"phase": "only", "ran": "+".join(mesh) if name == mesh else name,
                       "wall_s": time.perf_counter() - t})
             return 0
-        return _phases(args, dry, refs, train_plan)
+        return _phases(args, dry, train_plan)
     finally:
+        from repro_torch.launch import mesh as meshlib
+
+        meshlib.release_prestarted()
         if dry is not None:
             dry.stop()
         if train_plan is not None:
             train_plan.cleanup()
 
 
-def _phases(args, dry: DryRuns, refs: SideRun, train_plan: "TrainMeshPlan") -> int:
+def _phases(args, dry: DryRuns, train_plan: "TrainMeshPlan") -> int:
     """``main``'s phases after the kernel build."""
     from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as meshlib
 
     t0 = time.perf_counter()
     corpus = synthetic.make_corpus(synthetic.SyntheticSpec(n_tables=args.n_tables, seed=args.seed))
@@ -4677,7 +5033,6 @@ def _phases(args, dry: DryRuns, refs: SideRun, train_plan: "TrainMeshPlan") -> i
           "cells": int((corpus.cell_value_ids >= 0).sum()), "wall_s": time.perf_counter() - t0})
 
     dry.wait()  # from here on, nothing timed shares the host or the card with them
-    refs.get()
     train_plan.get()
     rows, lane_prefixes = kernel_phase(args.seed, corpus)
     flash_grad_phase(args.seed)
@@ -4707,16 +5062,23 @@ def _phases(args, dry: DryRuns, refs: SideRun, train_plan: "TrainMeshPlan") -> i
     del session256
     run("fd", fd_phase, session, truth)
     del session
+    # each spawn's processes start a phase ahead (``meshlib.prestart``), so their start-up — seconds a
+    # process — runs beside the phase before theirs instead of on the critical path
+    meshlib.prestart(MESH_RANKS)  # routed's, taken after its builds
     run("routed", routed_phase, corpus, truth, mixed)
     run("serving_tier", serving_phase, corpus, truth, mixed, args.seed)
     run("serve", serve_phase, args.seed)
     run("families", families_phase, args.seed)
+    meshlib.prestart(PIPE_STAGES)
     run("train", train_phase, args.seed)
+    meshlib.prestart(MESH_SERVING_RANKS, devices=["cuda:0"] * MESH_SERVING_RANKS, env=FMESH_ENV)
     run("pipeline", pipeline_phase, args.seed)
     t = time.perf_counter()
-    by_path.update(mesh_phase(args.seed, MESH_PHASES, refs, train_plan=train_plan))
+    by_path.update(mesh_phase(args.seed, MESH_PHASES, train_plan.refs, train_plan=train_plan))
     walls["+".join(MESH_PHASES)] = time.perf_counter() - t
     run("dryrun", dryrun_phase, dry)
+    meshlib.prestart(2)  # the driver's --build-mesh 2 and --mesh 2x2 ranks, taken after its session build
+    meshlib.prestart(4)
     run("driver", driver_phase, args, lake_cells)
     del lake_cells
     run("conformance", conformance_phase)
@@ -4738,7 +5100,7 @@ def _phases(args, dry: DryRuns, refs: SideRun, train_plan: "TrainMeshPlan") -> i
 # the phases ``--only`` runs alone: each needs the kernel build and nothing
 # else (the mesh phases and the dry runs are run by ``main`` itself)
 ONLY_PHASES = {"train": train_phase, "train_mesh": None, "pipeline": pipeline_phase, "serve_mesh": None,
-               "families_mesh": None, "dryrun": None}
+               "families_mesh": None, "long_mesh": None, "dryrun": None}
 
 
 if __name__ == "__main__":

@@ -16,7 +16,10 @@ embarrassingly parallel over candidate rows; the OFFLINE build
 (``shard_bounds``, ``mesh_shards``, ``pad_rows_to_shards``,
 ``shard_corpus_rows``) are the shared vocabulary: contiguous balanced
 row/value blocks, padded to the group where device work needs equal shards.
-A group has one axis, so its shard count is ``mesh.size``.
+A one-axis group's shard count is ``mesh.size``.  The row filter also runs
+on a multi-axis ``launch.mesh.GridMesh``: its rows split over the named
+``row_axes`` (the reference's ``('data',)``) and replicated over the
+others, the counts all-reduced over ``row_axes`` only.
 
 The per-shard filter bodies:
 
@@ -46,6 +49,10 @@ from repro_torch.kernels import filter_kernel, registry
 from repro_torch.kernels.registry import Backend
 
 _LOG = logging.getLogger(__name__)
+
+# The name of the group's one axis, as the reference's one-axis meshes name
+# theirs: ``BuildStats.mesh_shape`` and the error messages carry it.
+MESH_AXES = ("data",)
 
 
 def filter_counts_local(
@@ -160,12 +167,15 @@ def shard_impl_for(
 def make_distributed_filter(
     mesh,
     n_tables: int,
+    row_axes: tuple[str, ...] = MESH_AXES,
     backend: Backend | str | None = None,
 ):
     """``(superkeys, row_tables, query_sks) -> (table_counts, key_counts)``
-    over ``mesh``: each rank passes its own row block (``shard_corpus_rows``)
-    and the replicated query super keys, runs the shard impl on its device,
-    and gets the all-reduced int32 counts back on that device.
+    over ``mesh``: each rank passes its own row block (``shard_corpus_rows``
+    over the same ``row_axes``) and the replicated query super keys, runs
+    the shard impl on its device, and gets the int32 counts all-reduced
+    over ``row_axes`` back on that device: on a ``GridMesh`` every replica
+    over the other axes gets the same counts.
 
     ``backend`` is a resolved registry ``Backend``, a registered backend
     name, or a shard-impl name: 'broadcast' (baseline) | 'blocked'
@@ -176,7 +186,7 @@ def make_distributed_filter(
 
     def run(superkeys, row_tables, query_sks):
         tc, kc = local(superkeys, row_tables, query_sks, n_tables)
-        return all_reduce_sum(tc, mesh), all_reduce_sum(kc, mesh)
+        return all_reduce_sum(tc, mesh, row_axes), all_reduce_sum(kc, mesh, row_axes)
 
     return run
 
@@ -249,9 +259,9 @@ def _collective_input(t: torch.Tensor, mesh) -> torch.Tensor:
     return t.cpu().contiguous()
 
 
-def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
-    """Element-wise SUM over the group's ranks, returned on ``t``'s device
-    (the reference's ``psum``)."""
+def all_reduce_sum(t: torch.Tensor, mesh, axes: tuple[str, ...] = MESH_AXES) -> torch.Tensor:
+    """Element-wise SUM over the group's ranks (over ``axes`` of a
+    ``GridMesh``), returned on ``t``'s device (the reference's ``psum``)."""
     import torch.distributed as dist
 
     if _dry(t, mesh, "all-reduce", t.numel() * t.element_size()):
@@ -259,7 +269,7 @@ def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
     buf = _collective_input(t, mesh)
     if buf is t:
         buf = buf.clone()
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=_row_shards(mesh, axes)[2])
     return buf.to(t.device)
 
 
@@ -279,11 +289,6 @@ def all_gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Shard helpers shared by the online filter and the offline index build
 # ---------------------------------------------------------------------------
-
-
-# The name of the group's one axis, as the reference's one-axis meshes name
-# theirs: ``BuildStats.mesh_shape`` and the error messages carry it.
-MESH_AXES = ("data",)
 
 
 def mesh_shards(mesh, n_shards: int | None) -> int:
@@ -326,24 +331,40 @@ def pad_rows_to_shards(x: np.ndarray, n_shards: int, value=0) -> np.ndarray:
     return np.pad(x, pads, constant_values=value)
 
 
+def _row_shards(mesh, row_axes: tuple[str, ...]) -> tuple:
+    """(shards, this rank's shard, the process group over them) of rows
+    split over ``row_axes``: a ``GridMesh``'s axes by name; a one-axis
+    group's only axis is ``MESH_AXES``."""
+    if hasattr(mesh, "axis_size"):  # a GridMesh
+        if not set(row_axes) <= set(mesh.axis_names):
+            raise ValueError(f"row axes {row_axes} are not all axes of the mesh {mesh.shape}")
+        return mesh.axis_size(row_axes), mesh.axis_index(row_axes), mesh.group(row_axes)
+    if tuple(row_axes) != MESH_AXES:
+        raise ValueError(f"a one-axis group's axis is {MESH_AXES}, not {row_axes}")
+    return mesh.size, mesh.rank, mesh.group
+
+
 def shard_corpus_rows(
     superkeys: np.ndarray,
     row_tables: np.ndarray,
     mesh,
+    row_axes: tuple[str, ...] = MESH_AXES,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """This rank's block of the padded corpus rows, on its device: int32
     super keys (uint32 bit patterns) and int32 row→table ids (-1 pads).
+    The blocks split over ``row_axes`` (on a ``GridMesh``, replicated over
+    its other axes).
 
     Re-invoking with another group is the elastic-scaling path: the blocks
     are cut again from the host copy.
     """
     from repro_torch.core.xash import lanes_to_torch
 
-    n_shards = mesh.size
+    n_shards, shard, _group = _row_shards(mesh, row_axes)
     sk = pad_rows_to_shards(np.asarray(superkeys, dtype=np.uint32), n_shards)
     rt = pad_rows_to_shards(np.asarray(row_tables, dtype=np.int32), n_shards, value=-1)
     per = sk.shape[0] // n_shards
-    lo, hi = mesh.rank * per, (mesh.rank + 1) * per
+    lo, hi = shard * per, (shard + 1) * per
     return (
         lanes_to_torch(sk[lo:hi], mesh.device),
         torch.from_numpy(np.ascontiguousarray(rt[lo:hi])).to(mesh.device),

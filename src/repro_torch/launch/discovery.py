@@ -42,10 +42,11 @@ the single-host engines, and prints the cross-shard traffic
 would have shipped.
 
 ``--mesh dxm`` additionally runs the distributed row filter
-(``core.distributed.make_distributed_filter``) over a d-rank group, rows
-sharded over the ranks, to show the corpus-sharded layout; the default 1x1
-is a one-rank group in this process.  The port's group has one axis, so a
-'model' axis (m > 1) raises (ROADMAP C.13).
+(``core.distributed.make_distributed_filter``) over a d×m grid of ranks
+(``launch.mesh.GridMesh`` {'data': d, 'model': m}), the rows split over
+'data' and replicated over 'model', the counts all-reduced over 'data'
+only, to show the corpus-sharded layout; every rank's counts must agree.
+The default 1x1 is a one-rank group in this process.
 """
 
 from __future__ import annotations
@@ -80,21 +81,15 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _mesh_ranks(spec: str) -> int:
-    """``'dxm'`` -> d, the ranks of the row filter's group; the port's groups
-    have one axis, so m > 1 raises."""
+def _mesh_grid(spec: str) -> dict:
+    """``'dxm'`` -> the row filter's grid ``{'data': d, 'model': m}``."""
     try:
         dp, mp = (int(x) for x in spec.split("x"))
     except ValueError:
         raise ValueError(f"--mesh takes DxM (for example 1x1), got {spec!r}") from None
     if dp < 1 or mp < 1:
         raise ValueError(f"--mesh {spec}: both axes must be >= 1")
-    if mp > 1:
-        raise ValueError(
-            f"--mesh {spec}: the port's process-group mesh has one axis ('data');"
-            f" a 'model' axis of {mp} is not supported (ROADMAP C.13)"
-        )
-    return dp
+    return {"data": dp, "model": mp}
 
 
 def index_digest(index) -> str:
@@ -133,13 +128,13 @@ def mesh_build(corpus, config, world: int, device) -> list[dict]:
 
 
 def mesh_filter_rank(mesh, superkeys, row_tables, query_sk, n_tables, backend) -> dict:
-    """One rank of ``--mesh``: filter this rank's row block against the
-    replicated query keys and all-reduce the counts.  Returns the counts,
-    the seconds to the all-reduced counts on the device, and this rank's
-    B.1 / B.4 launches."""
-    sk, rt = distributed.shard_corpus_rows(superkeys, row_tables, mesh)
+    """One rank of ``--mesh``: filter this rank's row block (its rows over
+    'data') against the replicated query keys and all-reduce the counts
+    over 'data'.  Returns the counts, the seconds to the all-reduced counts
+    on the device, and this rank's B.1 / B.4 launches."""
+    sk, rt = distributed.shard_corpus_rows(superkeys, row_tables, mesh, ("data",))
     qsk = lanes_to_torch(query_sk, mesh.device)
-    fn = distributed.make_distributed_filter(mesh, n_tables, backend=backend)
+    fn = distributed.make_distributed_filter(mesh, n_tables, ("data",), backend=backend)
     before = _launches()
     t0 = time.perf_counter()
     tc, kc = fn(sk, rt, qsk)
@@ -150,14 +145,16 @@ def mesh_filter_rank(mesh, superkeys, row_tables, query_sk, n_tables, backend) -
             "seconds": seconds, "launches": {k: after[k] - before[k] for k in after}}
 
 
-def mesh_filter(superkeys, row_tables, query_sk, n_tables, backend, world: int, device) -> list[dict]:
-    """``mesh_filter_rank`` over a ``world``-rank group: one rank joins a
-    group of one in this process, more are spawned.  Results in rank order."""
+def mesh_filter(superkeys, row_tables, query_sk, n_tables, backend, grid: dict, device) -> list[dict]:
+    """``mesh_filter_rank`` over the ranks of ``grid`` ({'data': d,
+    'model': m}): one rank joins a group of one in this process, more are
+    spawned, each with its ``GridMesh``.  Results in rank order."""
+    world = grid["data"] * grid["model"]
     group, devices = meshlib.rank_layout(world, device)
     args = (superkeys, row_tables, query_sk, n_tables, backend)
     if world > 1:
         return meshlib.run_ranks(mesh_filter_rank, world, backend=group, devices=devices,
-                                 args=args, timeout_s=RANK_TIMEOUT_S)
+                                 args=args, timeout_s=RANK_TIMEOUT_S, grid=grid)
     with tempfile.TemporaryDirectory() as tmp:
         mesh = meshlib.make_mesh(os.path.join(tmp, "store"), 1, 0, backend=group,
                                  device=devices[0])
@@ -214,8 +211,8 @@ def main(argv=None):
                     help="hot-table bound cache capacity (0: off) — warm "
                          "queries skip gather+filter at any k")
     ap.add_argument("--mesh", default="1x1",
-                    help="DxM: run the distributed row filter over a D-rank "
-                         "group (M must be 1: the group has one axis)")
+                    help="DxM: run the distributed row filter over a D×M "
+                         "grid of ranks, rows over D, replicated over M")
     ap.add_argument("--build-mesh", type=int, default=1, metavar="N",
                     help="shard the offline index build over an N-rank "
                          "process group and check it byte-identical to the "
@@ -228,7 +225,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=3)
     ap.add_argument("--device", default=None, help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
-    mesh_dp = _mesh_ranks(args.mesh)
+    mesh_grid = _mesh_grid(args.mesh)
     dev = resolve_device(args.device)
 
     print(f"[mate] building corpus ({args.n_tables} tables) ...")
@@ -444,7 +441,7 @@ def main(argv=None):
     # registry precedence (a fused backend runs the fused shard launch)
     n_tables = len(corpus.tables)
     ranks = mesh_filter(index.superkeys, row_tables, qsk, n_tables, session.backend,
-                        mesh_dp, dev)
+                        mesh_grid, dev)
     tc = ranks[0]["table_counts"]
     if any(not np.array_equal(r["table_counts"], tc) for r in ranks):
         raise SystemExit("[mate] the ranks' all-reduced counts differ")

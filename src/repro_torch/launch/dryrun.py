@@ -28,6 +28,10 @@ fake tensor their kernels' shape rules, never a plain version).
   * ``decode``: one ``transformer.decode_step`` on rank 0's shard of a
     cache of ``seq_len`` slots, the next token its argmax.
 
+Rank 0's rows are its share of the global batch where the batch axes
+divide it, else every row (the reference's replication: long_500k's batch
+of 1, whose cache slots then split over every axis).
+
 What a cell records:
 
   * ``memory_analysis``: ``argument_size_in_bytes``, the bytes of the
@@ -225,16 +229,10 @@ def _collectives(hc: dict) -> dict:
     return out
 
 
-def _local_rows(batch: int, mesh) -> int:
-    """Rank 0's rows of a global batch: split over the batch axes when they
-    divide it (the reference's data sharding), else every row."""
-    n = mesh.axis_size(meshlib.batch_axes(mesh))
-    return batch // n if batch % n == 0 else batch
-
-
 def program(cfg, shape, variant: Variant, mesh, place, dev):
-    """(fn, its arguments) of a cell's program on this rank of ``mesh``:
-    zero-filled arguments (fake ones under ``FakeTensorMode``; real ones
+    """(fn, its arguments) of a cell's program on this rank of ``mesh``,
+    with activation sharding on over it (this rank's rows are
+    ``layers.local_rows``'): zero-filled arguments (fake ones under ``FakeTensorMode``; real ones
     run the same program, as the tests do on gloo ranks).  ``fn`` runs
     under the variant's module switches (``module_flags``)."""
     fn, args = _program(cfg, shape, variant, mesh, place, dev)
@@ -268,7 +266,8 @@ def _program(cfg, shape, variant: Variant, mesh, place, dev):
     params = sharding.local_tree(full, place, mesh)
     del full
     b, s = shape.global_batch, shape.seq_len
-    rows = _local_rows(b, mesh)
+    lo, hi = layers.local_rows(b)
+    rows = hi - lo
     extra = {}
     if cfg.encoder is not None:
         extra["frames"] = torch.zeros(rows, cfg.encoder.n_frames, cfg.d_model, dtype=torch.bfloat16, device=dev)
@@ -287,7 +286,7 @@ def _program(cfg, shape, variant: Variant, mesh, place, dev):
 
         def prefill(params, tokens, extra):
             with torch.no_grad():
-                return transformer.prefill(params, cfg, tokens, s + 64, **extra)
+                return transformer.prefill(params, cfg, tokens, s + 64, batch=b, **extra)
 
         return prefill, (params, tokens, extra)
     cache = transformer.init_cache(cfg, b, s, enc_len=transformer._enc_len(cfg), device=dev)

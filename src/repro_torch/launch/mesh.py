@@ -32,7 +32,10 @@ copies).
 ``run_ranks`` spawns one process per rank, runs a function in each and
 hands the results back (given ``grid``, each rank gets its ``GridMesh``);
 every wait has a deadline, so a hung rank fails the call instead of hanging
-its caller.
+its caller.  ``prestart`` starts a call's processes ahead of it (each has
+imported torch and made its device's context when the call comes), so a
+caller can spend their start-up — seconds a process — on other work;
+``release_prestarted`` stops the sets no call took.
 
 A dry mesh (``dry_grid_mesh``, ``dry_production_mesh``, ``dry_mesh``;
 backend 'dry') is one rank's view of a grid that joins no world: its
@@ -394,6 +397,70 @@ def _rank_main(fn, rank, world_size, backend, device, store_path, args, results,
         results.put((rank, False, traceback.format_exc()))
 
 
+# prestarted rank processes, by the ``run_ranks`` call they wait for:
+# (world size, backend, devices, env) -> [(processes, job queues, results queue)]
+_PRESTARTED: dict = {}
+
+
+def _call_key(world_size: int, backend: str, devices: list, env: dict | None) -> tuple:
+    return world_size, backend, tuple(devices), tuple(sorted((env or {}).items()))
+
+
+def prestart(world_size: int, *, backend: str = "gloo", devices=None, env: dict | None = None) -> None:
+    """Start the ``world_size`` rank processes of a later ``run_ranks``
+    call with the same ``world_size``, ``backend``, ``devices`` and
+    ``env`` now (``env`` added to this process's environment, restored
+    once they have started): each imports torch and the port, makes its
+    device's context and waits for the call's function.
+    ``release_prestarted`` stops the sets no call took."""
+    devices = rank_devices(world_size) if devices is None else [str(d) for d in devices]
+    ctx = multiprocessing.get_context("spawn")
+    results, jobs = ctx.Queue(), [ctx.Queue() for _ in range(world_size)]
+    procs = [ctx.Process(target=_prestarted_main, args=(jobs[r], results, devices[r]), daemon=True)
+             for r in range(world_size)]
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    _PRESTARTED.setdefault(_call_key(world_size, backend, devices, env), []).append((procs, jobs, results))
+
+
+def _prestarted_main(jobs, results, device: str) -> None:
+    """A rank process: ready its device, then run the one job it is handed
+    (``_rank_main``'s arguments but the device and the results queue), or
+    exit on None."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.zeros(1, device=dev)  # the context, made now
+    job = jobs.get()
+    if job is not None:
+        fn, rank, world_size, backend, store_path, args, timeout_s, grid = job
+        _rank_main(fn, rank, world_size, backend, device, store_path, args, results, timeout_s, grid)
+
+
+def release_prestarted() -> None:
+    """Stop every prestarted set that no ``run_ranks`` call took."""
+    sets = [s for waiting in _PRESTARTED.values() for s in waiting]
+    _PRESTARTED.clear()
+    for procs, jobs, results in sets:
+        for q in jobs:
+            q.put(None)
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        results.close()
+
+
 def run_ranks(
     fn,
     world_size: int,
@@ -414,37 +481,23 @@ def run_ranks(
     ``grid`` (axis name → size, product ``world_size``) each rank is handed
     its ``GridMesh`` instead of the one-axis ``Mesh``.  ``env``: environment
     variables the ranks' processes start with (this process's environment
-    is restored once they have started).  Raises
+    is restored once they have started).  The ranks are the processes
+    ``prestart`` started for a call like this one, else a set it starts
+    now.  Raises
     ``RuntimeError`` when a rank fails or dies, and
     ``TimeoutError`` when the ranks have not all reported within
     ``timeout_s``; every rank is stopped before this returns or raises.
     """
     devices = rank_devices(world_size) if devices is None else [str(d) for d in devices]
-    ctx = multiprocessing.get_context("spawn")
-    results = ctx.Queue()
+    key = _call_key(world_size, backend, devices, env)
+    if not _PRESTARTED.get(key):
+        prestart(world_size, backend=backend, devices=devices, env=env)
+    procs, jobs, results = _PRESTARTED[key].pop(0)
     got: dict[int, object] = {}
     with tempfile.TemporaryDirectory() as tmp:
         store = os.path.join(tmp, "store")
-        procs = [
-            ctx.Process(
-                target=_rank_main,
-                args=(fn, r, world_size, backend, devices[r], store, args, results, timeout_s,
-                      grid),
-                daemon=True,
-            )
-            for r in range(world_size)
-        ]
-        saved = {k: os.environ.get(k) for k in env or {}}
-        os.environ.update(env or {})
-        try:
-            for p in procs:
-                p.start()
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
+        for r, q in enumerate(jobs):
+            q.put((fn, r, world_size, backend, store, args, timeout_s, grid))
         deadline = time.monotonic() + timeout_s
         try:
             while len(got) < world_size:

@@ -58,7 +58,11 @@ split region such a weight is therefore used as it is
 (the encoder's output) stays whole on every rank and enters through
 ``copy_to``.  Decode never shards the sequence.
 
-Serving over a mesh (``transformer.prefill`` / ``decode_step``): the cache
+Serving over a mesh (``transformer.prefill`` / ``decode_step``): the rows
+of the global batch are split over the batch axes where they divide it,
+else every batch rank holds every row (``rows_split``, the reference's
+fallback to replication; the layers then run under
+``rows_context(False)``, and ``batch_ranks`` is 1).  The cache
 is placed by ``launch.mesh.cache_pspec_for`` — its KV heads over 'model'
 where they divide it, else its slots over the slot axes (the model axis,
 or every axis for a batch of one).  Prefill runs ``attention_fwd`` (B.6
@@ -208,10 +212,51 @@ def region_weight(w: torch.Tensor) -> torch.Tensor:
     return w if _SEQ else sharding.copy_to(w, _ACT_MESH)
 
 
+_ROWS_SPLIT = True  # False while a serving call holds every row of its batch on each batch rank
+
+
+def rows_split(batch: int) -> bool:
+    """The reference's rule for a global batch of ``batch`` rows over the
+    batch axes (``constrain_batch``'s fallback): split where they divide
+    it, else whole on every batch rank."""
+    return batch % _ACT_BATCH_SIZE == 0
+
+
+def local_rows(batch: int) -> tuple[int, int]:
+    """This rank's rows [lo, hi) of a global batch of ``batch`` rows, by
+    ``rows_split``: its share where the batch axes divide ``batch``, else
+    every row (every row too without a mesh)."""
+    if _ACT_MESH is None or not rows_split(batch):
+        return 0, batch
+    i = _ACT_MESH.axis_index(_ACT_BATCH_AXES)
+    return i * batch // _ACT_BATCH_SIZE, (i + 1) * batch // _ACT_BATCH_SIZE
+
+
+@contextlib.contextmanager
+def rows_context(split: bool):
+    """Run the layers inside on rows split over the batch axes (``split``)
+    or on every row of the batch, replicated over them: then no
+    collective over the batch axes combines rows (``batch_ranks`` is 1),
+    and FSDP's weight gathers stay as they are."""
+    global _ROWS_SPLIT
+    saved, _ROWS_SPLIT = _ROWS_SPLIT, split
+    try:
+        yield
+    finally:
+        _ROWS_SPLIT = saved
+
+
+def batch_ranks() -> int:
+    """The ranks the rows are split over: the batch axes' size, or 1 where
+    every rank holds every row (``rows_context``) or there is no mesh."""
+    return _ACT_BATCH_SIZE if _ROWS_SPLIT else 1
+
+
 def batch_sum(t: torch.Tensor) -> torch.Tensor:
     """``t`` summed over the batch axes (no gradient): a count or metric
-    over the global batch.  Itself without a mesh."""
-    if _ACT_BATCH_SIZE == 1:
+    over the global batch.  Itself without a mesh, or where the rows are
+    whole on every rank."""
+    if batch_ranks() == 1:
         return t
     return sharding.all_reduce(t, _ACT_MESH, _ACT_BATCH_AXES)
 
@@ -417,7 +462,7 @@ def attention_fwd(
         k = repeat_kv(k, hl)
         v = repeat_kv(v, hl)
     out = flash_kernel.flash_attention(q, k, v, causal=causal, window=window)
-    constrain_batch(out, 0, 2, global_shape=(out.shape[0] * _ACT_BATCH_SIZE, out.shape[1], cfg.n_heads,
+    constrain_batch(out, 0, 2, global_shape=(out.shape[0] * batch_ranks(), out.shape[1], cfg.n_heads,
                                              out.shape[3]))
     return region_out(_out_proj(out, p["wo"]), tp)  # row-parallel wo
 

@@ -35,10 +35,14 @@ ranks exchange their choices ('einsum': an all-gather of the top-k
 experts) or their per-expert counts ('scatter': an exclusive prefix), so
 capacities, positions and drops are the unsplit run's, and the experts of
 such a group run as the reference's placement of the buffer splits them
-over the data ranks (``_experts_over``).  The load-balancing loss is the
-global batch's.  Under sequence parallelism (``layers.SEQ_SHARD``) the
-layer's input is gathered over 'model' first (``layers.region_in``), so
-the router sees every position and the groups, capacities and drops are
+over the data ranks (``_experts_over``).  Where every data rank holds
+every row of a batch the data axis does not divide
+(``layers.rows_context``, the reference's fallback to replication), the
+groups and capacities are those of those rows alone, and nothing is
+exchanged over 'data'.  The load-balancing loss is the global batch's.
+Under sequence parallelism (``layers.SEQ_SHARD``) the layer's input is
+gathered over 'model' first (``layers.region_in``), so the router sees
+every position and the groups, capacities and drops are
 those of the run without it; the split partials are reduce-scattered
 back to this rank's positions, a whole layer's output cut to them, and a
 router the model axis does not split takes the aux loss's gradient from
@@ -115,20 +119,22 @@ def _aux_loss(cfg: ModelConfig, probs: torch.Tensor, top_e: torch.Tensor, own: t
     like the layer output's, is this rank's positions' part."""
     e = cfg.moe.n_routed
     counts = _counts(top_e, e).float()
+    n_ranks = layers.batch_ranks()
+    split = layers._ACT_BATCH_AXES if n_ranks > 1 else ()
     if own is not None:
-        mesh, axes = layers._ACT_MESH, layers._ACT_BATCH_AXES + (layers._ACT_MODEL_AXIS,)
-        rows = probs.numel() // e * layers._ACT_BATCH_SIZE
+        mesh, axes = layers._ACT_MESH, split + (layers._ACT_MODEL_AXIS,)
+        rows = probs.numel() // e * n_ranks
         mine = layers.own_positions(probs.reshape(*own, e)).reshape(-1, e)
         me = sharding.reduce_from(mine.sum(dim=0), mesh, axes) / rows
-        ce = layers.batch_sum(counts) / (top_e.numel() * layers._ACT_BATCH_SIZE)
-    elif layers._ACT_BATCH_SIZE == 1:
+        ce = layers.batch_sum(counts) / (top_e.numel() * n_ranks)
+    elif n_ranks == 1:
         me = probs.reshape(-1, e).mean(dim=0)
         ce = counts / top_e.numel()
     else:
-        mesh, axes = layers._ACT_MESH, layers._ACT_BATCH_AXES
-        rows = probs.numel() // e * layers._ACT_BATCH_SIZE  # every rank routes as many rows
+        mesh, axes = layers._ACT_MESH, split
+        rows = probs.numel() // e * n_ranks  # every rank routes as many rows
         me = sharding.reduce_from(probs.reshape(-1, e).sum(dim=0), mesh, axes) / rows
-        ce = layers.batch_sum(counts) / (top_e.numel() * layers._ACT_BATCH_SIZE)
+        ce = layers.batch_sum(counts) / (top_e.numel() * n_ranks)
     return (me * ce).sum() * e * cfg.moe.aux_loss_weight
 
 
@@ -169,10 +175,12 @@ def _slot_major(top_e: torch.Tensor, n_experts: int) -> torch.Tensor:
 def _spread() -> tuple:
     """(batch ranks D, this rank's index over the batch axes): the rows of
     a mesh's global batch are split over D ranks, this rank's the
-    index-th slice (1, 0 without a mesh)."""
-    if layers._ACT_BATCH_SIZE == 1:
+    index-th slice (1, 0 without a mesh, or where every rank holds every
+    row: ``layers.rows_context``)."""
+    n_ranks = layers.batch_ranks()
+    if n_ranks == 1:
         return 1, 0
-    return layers._ACT_BATCH_SIZE, layers._ACT_MESH.axis_index(layers._ACT_BATCH_AXES)
+    return n_ranks, layers._ACT_MESH.axis_index(layers._ACT_BATCH_AXES)
 
 
 def route_einsum(p: dict, cfg: ModelConfig, x: torch.Tensor) -> dict:

@@ -59,10 +59,15 @@ MLA its heads (``models.mla``), cross-attention and whisper's encoder
 the attention's column- and row-parallel path, the SSM blocks their heads
 (``models.ssm``: 'h' split with them, the 'conv' shard exchanged over
 'model'), and jamba mixes the SSM, attention, MLP and MoE paths; the MTP
-module's embedding is vocab-parallel like the model's.  The families with
-MoE, MLA, cross-attention or an encoder need their batch split over D;
-the dense decoders and the pure SSM take a batch the data axis does not
-divide (every data rank runs all of it).
+module's embedding is vocab-parallel like the model's.  Every family
+takes a global batch the batch axes do not divide, by the reference's
+rule (``layers.rows_split``): then every batch rank holds all its rows
+(whisper's frames and the VLM's patches too), the cache's batch dim is
+whole (at batch 1 the slots split over every axis), and the layers run
+under ``layers.rows_context(False)``: the MoE groups and capacities are
+those rows', and nothing over the batch axes combines rows; FSDP's
+gathers over them stay.  ``prefill`` is told the global batch
+(``batch``), and ``decode_step`` reads it off its ``MeshCache``.
 """
 
 from __future__ import annotations
@@ -439,7 +444,7 @@ def _block_fwd(lp, cfg: ModelConfig, plan: GroupPlan, x, positions, enc_out, enc
     None)."""
     lp = fsdp.block(plan.name, lp) if fsdp else lp
     aux = None
-    shape = (x.shape[0] * layers._ACT_BATCH_SIZE, positions.shape[0], x.shape[-1])
+    shape = (x.shape[0] * layers.batch_ranks(), positions.shape[0], x.shape[-1])
     with layers.seq_context(seq):
         layers.constrain_seq(x, shape)
         for i, (mixer, ffn) in enumerate(plan.sublayers):
@@ -562,30 +567,14 @@ def _enc_len(cfg: ModelConfig) -> int:
 
 class MeshCache(dict):
     """A cache tree over a mesh (``init_cache`` under activation
-    sharding): the dict of this rank's shards, and ``specs``, every leaf's
+    sharding): the dict of this rank's shards, ``specs``, every leaf's
     placement on the mesh (``launch.mesh.cache_pspec_for``) by the same key
-    paths."""
+    paths, and ``batch``, the global batch it holds (its rows split over
+    the batch axes where they divide it, ``layers.rows_split``)."""
 
-    def __init__(self, tree: dict, specs: dict):
+    def __init__(self, tree: dict, specs: dict, batch: int):
         super().__init__(tree)
-        self.specs = specs
-
-
-def _serve_mesh(cfg: ModelConfig, batch: int | None = None):
-    """The activation mesh when serving runs over one (None without), after
-    checking that it can: the families with MoE, MLA, cross-attention or an
-    encoder need their batch split over D (their caches and MoE groups do
-    not split below the batch); the dense decoders and the pure SSM do
-    not."""
-    mesh = layers._ACT_MESH
-    if mesh is None:
-        return mesh
-    rows_free = (cfg.moe is None and cfg.mla is None and cfg.encoder is None and cfg.vision is None
-                 and cfg.layer_pattern == "uniform")
-    if not rows_free and batch is not None and batch % layers._ACT_BATCH_SIZE:
-        raise ValueError(f"serving {cfg.name} over a mesh needs its batch {batch} split over the"
-                         f" {layers._ACT_BATCH_SIZE} batch ranks")
-    return mesh
+        self.specs, self.batch = specs, batch
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
@@ -596,8 +585,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
     positions, MLA {'ckv', 'kr', 'pos'}, SSM {'h', 'conv', 'pos'}.
 
     Over a mesh (activation sharding on) ``batch`` is the global batch and
-    each leaf is this rank's shard (a ``MeshCache``)."""
-    mesh = _serve_mesh(cfg, batch)
+    each leaf is this rank's shard (a ``MeshCache``): its batch dim whole
+    where the batch axes do not divide ``batch``."""
+    mesh = layers._ACT_MESH
     if mesh is not None:
         from repro_torch.launch import mesh as meshlib
     cache: dict[str, Any] = {}
@@ -618,7 +608,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
                             for k, t in one.items()}
         cache[plan.name] = sub
         specs[plan.name] = sub_specs
-    return cache if mesh is None else MeshCache(cache, specs)
+    return cache if mesh is None else MeshCache(cache, specs, batch)
 
 
 def _local_shape(shape: tuple, spec: tuple, mesh) -> tuple:
@@ -651,11 +641,35 @@ def _held(buf: torch.Tensor, axes: tuple) -> slice:
     return slice(off, off + local)
 
 
+def _serve_rows(batch: int | None, b: int):
+    """``layers.rows_context`` of a serving call whose global batch is
+    ``batch`` and whose rows here are ``b``: split over the batch axes
+    where they divide ``batch``, else all of them on every batch rank
+    (``layers.local_rows``).  Over the activation mesh ``batch`` must be
+    given: ``b`` alone cannot tell a rank's share from every row."""
+    if layers._ACT_MESH is None:
+        return layers.rows_context(True)
+    if batch is None:
+        raise ValueError("serving over a mesh needs the global batch: prefill's batch=, and a"
+                         " MeshCache (init_cache over the mesh) for decode_step")
+    lo, hi = layers.local_rows(batch)
+    if b != hi - lo:
+        raise ValueError(f"a batch of {batch} over {layers._ACT_BATCH_SIZE} batch ranks gives each"
+                         f" {hi - lo} rows, not {b}")
+    return layers.rows_context(layers.rows_split(batch))
+
+
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor, cache: dict):
     """One decode step: next-token logits f32[B, V] + the cache, updated in
-    place (over a mesh: this rank's rows, every vocabulary entry; the
-    shards gathered as ``prefill`` gathers them)."""
-    fsdp = _fsdp(cfg) if _serve_mesh(cfg) is not None else None
+    place (over a mesh: this rank's rows — every row where the batch axes
+    do not divide the cache's batch — every vocabulary entry; the shards
+    gathered as ``prefill`` gathers them)."""
+    with _serve_rows(getattr(cache, "batch", None), token.shape[0]):
+        return _decode_step(params, cfg, token, cache)
+
+
+def _decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor, cache: dict):
+    fsdp = _fsdp(cfg)
     params = params if fsdp is None else fsdp.top(params)
     x = _embed(params, token)[:, None, :]
     for plan, li, lp in _blocks(params, cfg):
@@ -714,7 +728,8 @@ def _prefill_attn(spec, cfg, hh, positions, c, li, slot_axes=((), ()), seq=False
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int, *,
-            frames: torch.Tensor | None = None, patches: torch.Tensor | None = None):
+            frames: torch.Tensor | None = None, patches: torch.Tensor | None = None,
+            batch: int | None = None):
     """Run the prompt, build the cache. Returns (last-token logits f32[B, V],
     cache).
 
@@ -730,17 +745,27 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int, 
     position's hidden state comes from the last model rank.  Over a mesh
     the top-level leaves are gathered once and each block's inside the
     block (``_Fsdp``), as the reference's serving program gathers them.
+    ``batch``: the global batch, required over a mesh (without one it is
+    ``tokens``' rows); ``tokens`` (and ``frames`` / ``patches``) are this
+    rank's rows of it, ``layers.local_rows(batch)``: every row, on every
+    batch rank, where the batch axes do not divide it.
     """
-    b, s = tokens.shape
+    batch = tokens.shape[0] if batch is None and layers._ACT_MESH is None else batch
+    with _serve_rows(batch, tokens.shape[0]):
+        return _prefill(params, cfg, tokens, max_seq, frames, patches, batch)
+
+
+def _prefill(params, cfg, tokens, max_seq, frames, patches, batch):
+    s = tokens.shape[1]
     if cfg.sliding_window == 0 and s > max_seq:
         raise ValueError(f"prompt length {s} exceeds max_seq {max_seq}")
-    fsdp = _fsdp(cfg) if _serve_mesh(cfg, b * layers._ACT_BATCH_SIZE) is not None else None
+    fsdp = _fsdp(cfg)
     params = params if fsdp is None else fsdp.top(params)
     dev = tokens.device
     positions = torch.arange(s, device=dev)
     seq = layers.seq_parallel(s)
     x = _embed(params, tokens, seq=True) if seq else _embed(params, tokens)
-    cache = init_cache(cfg, b * layers._ACT_BATCH_SIZE, max_seq, enc_len=_enc_len(cfg), device=dev)
+    cache = init_cache(cfg, batch, max_seq, enc_len=_enc_len(cfg), device=dev)
     enc_out, enc_positions = _encode(params, cfg, frames, patches, fsdp=fsdp)
     with layers.seq_context(seq):
         x = _prefill_blocks(params, cfg, x, positions, cache, enc_out, enc_positions, seq, fsdp)
@@ -790,7 +815,7 @@ def _prefill_block(lp, cfg, plan, li, x, positions, cache, enc_out, enc_position
         window = cfg.sliding_window if mixer == "attn" else 0
         x, _ = _layer_fwd(spec, cfg, x, positions, mixer, ffn, window=window,
                           enc_out=enc_out, enc_positions=enc_positions)
-        layers.constrain_seq(x, (x.shape[0] * layers._ACT_BATCH_SIZE, s, x.shape[-1]))
+        layers.constrain_seq(x, (x.shape[0] * layers.batch_ranks(), s, x.shape[-1]))
     return x
 
 

@@ -11,7 +11,10 @@ the backend's class are masked too: backend names, the session's repr,
 the match-matrix readback (a fused backend never builds the matrix) and
 the mesh filter's shard impl.  The process-group paths (``--build-mesh
 2``, ``--route-shards 2``, ``--mesh 2x1``) spawn gloo ranks, so they run
-once, as subprocesses of both drivers side by side.
+once, as subprocesses of both drivers side by side; so does ``--mesh
+2x2`` (4 gloo ranks, the rows over 'data' and replicated over 'model';
+the reference on 4 forced host devices), whose counts equal ``--mesh
+1x1``'s.
 """
 
 import argparse
@@ -126,23 +129,24 @@ def test_driver_takes_every_reference_flag():
     assert port["--device"][1] is None  # the card unless asked for the CPU
 
 
-def test_mesh_with_a_model_axis_raises():
-    with pytest.raises(ValueError, match=r"--mesh 2x2: .*one axis.*ROADMAP C\.13"):
-        driver.main(SMALL + ["--mesh", "2x2", "--device", "cpu"])
+def test_a_malformed_mesh_raises():
     with pytest.raises(ValueError, match="DxM"):
         driver.main(SMALL + ["--mesh", "two", "--device", "cpu"])
+    with pytest.raises(ValueError, match=">= 1"):
+        driver.main(SMALL + ["--mesh", "0x2", "--device", "cpu"])
 
 
-def test_process_group_paths_match_the_reference():
-    """--build-mesh 2 (the build across 2 gloo ranks, byte-identical to the
-    single-host build), --route-shards 2 and --mesh 2x1 (the row filter over
-    2 ranks), one subprocess per driver, run side by side."""
-    argv = SMALL + ["--build-mesh", "2", "--route-shards", "2", "--mesh", "2x1"]
+def _drivers(argv: list, ref_env: dict | None = None) -> dict:
+    """The ``[mate]`` lines of both drivers run with ``argv`` as
+    subprocesses side by side (the reference on 'numpy', the port on
+    'fused-gather' on the CPU); ``ref_env``: the reference's extra
+    environment."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     procs = {
         "ref": subprocess.Popen(
             [sys.executable, "-m", "repro.launch.discovery", *argv, "--backend", "numpy"],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            cwd=ROOT, env=dict(env, **(ref_env or {})), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True),
         "port": subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.discovery", *argv,
              "--backend", "fused-gather", "--device", "cpu"],
@@ -159,8 +163,31 @@ def test_process_group_paths_match_the_reference():
             if p.poll() is None:
                 p.kill()
                 p.wait(timeout=30)
+    return out
+
+
+def test_process_group_paths_match_the_reference():
+    """--build-mesh 2 (the build across 2 gloo ranks, byte-identical to the
+    single-host build), --route-shards 2 and --mesh 2x1 (the row filter over
+    2 ranks), one subprocess per driver, run side by side."""
+    argv = SMALL + ["--build-mesh", "2", "--route-shards", "2", "--mesh", "2x1"]
+    out = _drivers(argv)
     got = out["port"]
     assert _mask(got, True) == _mask(out["ref"], True)
     assert "[mate] build stats: shards=2 mesh={'data': 2} " in "\n".join(got)
     assert any("bit_identical=True" in ln for ln in got)
     assert got[-1].startswith("[mate] distributed filter on mesh 2x1 (impl=fused)")
+
+
+def test_mesh_with_a_model_axis_matches_the_reference():
+    """--mesh 2x2: the row filter on 4 gloo ranks, the rows over 'data'
+    and replicated over 'model', beside the reference's on 4 forced host
+    devices; the counts in its line equal --mesh 1x1's."""
+    out = _drivers(SMALL + ["--mesh", "2x2"], {"XLA_FLAGS": "--xla_force_host_platform_device_count=4"})
+    got = out["port"]
+    assert _mask(got, True) == _mask(out["ref"], True)
+    assert got[-1].startswith("[mate] distributed filter on mesh 2x2 (impl=fused)")
+    one = _run(driver.main, SMALL + ["--backend", "fused-gather", "--device", "cpu"])
+    counts = lambda line: line.split("): ", 1)[1].rsplit(" in ", 1)[0]  # noqa: E731
+    assert one[-1].startswith("[mate] distributed filter on mesh 1x1")
+    assert counts(got[-1]) == counts(one[-1]), (got[-1], one[-1])

@@ -12,7 +12,10 @@ train step and prefill and mamba2's train step with ``seq_shard=True``
 (the sequence's all-gathers and reduce-scatters; a train step's FSDP
 backward is a reduce-scatter at every setting), and qwen1.5-0.5b's
 train step under ``remat_policy`` 'dots' (each collective of a block run
-again in its recompute, none saved) and 'none'.  A real tensor given to a dry mesh
+again in its recompute, none saved) and 'none'.  So they are at batch 1,
+which the data axis does not divide (every rank holds the row): a decode
+step of h2o-danube and of jamba (their attention slots split over both
+axes) and a prefill of qwen2-moe (its dispatch groups the row's own).  A real tensor given to a dry mesh
 raises, and a fake tensor reaches no ``_build.load``: each kernel gives it
 its shape rule and counts no launch.
 """
@@ -36,7 +39,9 @@ RUNS = [(arch, kind, 4, 32) for arch in ("qwen1.5-0.5b", "qwen3-32b", "mamba2-1.
 RUNS += [("qwen1.5-0.5b", "train", 4, 32, {"seq_shard": True}), ("qwen1.5-0.5b", "prefill", 4, 32, {"seq_shard": True}),
          ("mamba2-1.3b", "train", 4, 32, {"seq_shard": True}),
          ("qwen1.5-0.5b", "train", 4, 32, {"remat_policy": "dots"}),
-         ("qwen1.5-0.5b", "train", 4, 32, {"remat_policy": "none"})]
+         ("qwen1.5-0.5b", "train", 4, 32, {"remat_policy": "none"}),
+         ("h2o-danube-3-4b", "decode", 1, 32), ("jamba-v0.1-52b", "decode", 1, 32),
+         ("qwen2-moe-a2.7b", "prefill", 1, 32)]
 IDS = [f"{r[0]}-{r[1]}" + "".join(f"-{k}={v}" for k, v in (r[4:] or [{}])[0].items()) for r in RUNS]
 
 
@@ -142,9 +147,10 @@ def test_ssm_caches_are_their_shards_over_a_mesh(arch, grid):
 
 @pytest.mark.parametrize("arch,grid", SSM_SERVE_GRIDS)
 def test_serving_the_other_families_over_a_mesh_names_its_item(arch, grid):
-    """The one refusal left to the SSM and hybrid families over a mesh
-    names its rule: the hybrid (MoE layers) needs its batch split over the
-    data ranks, the pure SSM does not (the shards themselves:
+    """The SSM and hybrid families over a mesh refuse no batch: at a batch
+    of 3, which 2 data ranks do not divide, the cache is built with its
+    batch dim whole on every rank, the hybrid's (MoE layers) as the pure
+    SSM's (the shards themselves:
     ``test_ssm_caches_are_their_shards_over_a_mesh``)."""
     from repro_torch.models import layers, transformer
 
@@ -153,11 +159,10 @@ def test_serving_the_other_families_over_a_mesh_names_its_item(arch, grid):
     layers.enable_activation_sharding(mesh, vocab_size=cfg.vocab_size)
     try:
         with FakeTensorMode():
-            if cfg.moe is not None:
-                with pytest.raises(ValueError, match="split over the 2 batch ranks"):
-                    transformer.init_cache(cfg, 3, 16)
-            else:
-                cache = transformer.init_cache(cfg, 3, 16)
-                assert cache[transformer.group_plans(cfg)[0].name]["s0"]["h"].shape[1] == 3
+            cache = transformer.init_cache(cfg, 3, 16)
+            assert cache.batch == 3
+            for key in ("h", "conv", "pos"):
+                assert cache[transformer.group_plans(cfg)[0].name]["s0"][key].shape[1] == 3, key
+                assert cache.specs[transformer.group_plans(cfg)[0].name]["s0"][key][1] is None, key
     finally:
         layers.disable_activation_sharding()

@@ -14,6 +14,11 @@ reference's.
   its arguments the parameter shards, the cache shards ('h', 'conv',
   'pos' by the reference's ``cache_pspec_for``, each leaf's bytes over
   the product of its axes' sizes) and the token rows;
+* the long_500k cells of h2o-danube-3-4b and jamba (batch 1, which the
+  16 data ranks do not divide: every rank holds the row) are ``ok``: their
+  arguments the parameter shards, the cache shards — the attention
+  slots split over every axis, 1.47 MB and 33.6 MB of K/V a device — and
+  the token;
 * the sequence-parallel cell (``--variant sp --set seq_shard=true``) is
   ``ok``, its region edges reduce-scatters;
 * the int8 train cell (``--variant int8 --set state_dtype=int8``) is
@@ -103,10 +108,12 @@ def test_param_bytes_per_device_equal_the_reference(arch, multi_pod, reference_p
 
 @pytest.fixture(scope="module")
 def cells(tmp_path_factory):
-    """A traced decode cell, an SSM cell, a seq_shard cell and an int8
-    train cell, written by ``main`` into one directory."""
+    """A traced decode cell, an SSM cell, the two long_500k cells, a
+    seq_shard cell and an int8 train cell, written by ``main`` into one
+    directory."""
     out = tmp_path_factory.mktemp("dryrun_torch")
     dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "decode_32k", "--out-dir", str(out)])
+    dryrun.main(["--arch", ",".join(LONG), "--shape", "long_500k", "--out-dir", str(out)])
     dryrun.main(["--arch", "mamba2-1.3b", "--shape", "decode_32k", "--out-dir", str(out)])
     dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "prefill_32k", "--variant", "sp", "--set",
                  "seq_shard=true", "--out-dir", str(out)])
@@ -183,6 +190,47 @@ def test_ssm_decode_cell_holds_its_cache_shards(cells):
         cache += t.numel() * plan.n * t.element_size() // denom
     token = shape.global_batch // 16 * 8  # this rank's int64 rows
     assert rec["memory_analysis"]["argument_size_in_bytes"] == rec["param_bytes_per_device"] + cache + token
+
+
+# the long_500k cells: arch -> the bytes of rank 0's K/V shards (layers × 524,288 slots — danube's
+# ring 4,096 — × KV heads × head dim × K and V × bf16, over the 256 devices of 16×16)
+LONG = {"h2o-danube-3-4b": 24 * 4096 * 8 * 120 * 2 * 2 // 256,
+        "jamba-v0.1-52b": 4 * 524288 * 8 * 128 * 2 * 2 // 256}
+
+
+def _cache_shard_bytes(cfg, shape, mesh) -> dict:
+    """{leaf name: the bytes of rank 0's shards of it over every layer}
+    under ``cache_pspec_for``, from the leaves' whole shapes."""
+    out: dict = {}
+    for plan in transformer.group_plans(cfg):
+        for mixer, _ffn in plan.sublayers:
+            window = cfg.sliding_window if mixer == "attn" else 0
+            one = transformer._layer_cache(cfg, mixer, shape.global_batch, shape.seq_len, window, device="meta")
+            for key, t in one.items():
+                denom = 1
+                for entry in meshlib.cache_pspec_for(key, (plan.n, *t.shape), mesh):
+                    denom *= mesh.axis_size(entry) if entry is not None else 1
+                out[key] = out.get(key, 0) + t.numel() * plan.n * t.element_size() // denom
+    return out
+
+
+@pytest.mark.parametrize("arch", list(LONG))
+def test_the_long_context_cells_hold_their_cache_shards(cells, arch):
+    """Batch 1 over 16 data ranks: every rank holds the row, the
+    attention caches' slots split over both axes; the cell's arguments are
+    the parameter shards, the cache shards and the token."""
+    from repro_torch.configs.shapes import SHAPES
+
+    rec = _read(cells, f"{arch}__long_500k__16x16.json")
+    assert "error" not in rec, rec.get("error")
+    assert rec["kernel_launches"] == 0 and rec["global_batch"] == 1
+    cfg, shape = configs.get_config(arch), SHAPES["long_500k"]
+    mesh = meshlib.dry_production_mesh(device="cpu")
+    assert meshlib.cache_pspec_for("k", (1, 1, 524288, cfg.n_kv_heads, cfg.head_dim), mesh)[2] == ("data", "model")
+    cache = _cache_shard_bytes(cfg, shape, mesh)
+    assert cache["k"] + cache["v"] == LONG[arch]
+    token = 8  # the one row, int64, on every rank
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == rec["param_bytes_per_device"] + sum(cache.values()) + token
 
 
 def test_the_seq_shard_cell_is_ok(cells):

@@ -22,6 +22,19 @@ divide, as the reference's placement of the expert buffer splits them),
 and for the SSM and hybrid families: mamba2 (its heads split over
 'model') and jamba (SSM, attention, MLP and MoE sublayers).
 
+A decode step at batch 1, which the data axis does not divide (the
+long_500k layout: every rank holds the row, the attention slots split
+over both axes), for h2o-danube and jamba: the port gathers FSDP's
+shards over 'data' and runs the row whole on every data rank, which is
+the reference's program with its weights whole over 'data'
+(``Variant(fsdp=False)``), held at the decode bound with and without
+FSDP.  Given FSDP's shards, the reference's XLA instead splits the
+replicated row's products over the sharded contraction dim and
+all-reduces the activations where the port gathers the weights (ROADMAP
+C.23): fewer FLOPs per device, so the long_500k dry cells' FLOPs are not
+the reference's.  That gap is held too, at its measured ratio
+(``FSDP_SPLIT``), so it cannot drift unseen.
+
 The module switches: qwen1.5-0.5b's train step under the reference's
 sequence parallelism (``seq_shard=True``), under each of its remat
 policies ('dots', 'none') and with int8 moments (``state_dtype='int8'``,
@@ -52,6 +65,11 @@ FAMILIES = ("qwen2-moe-a2.7b", "deepseek-v3-671b", "whisper-base", "llama-3.2-vi
             "jamba-v0.1-52b")
 SHAPES = {"train": (8, 64), "prefill": (8, 64), "decode": (8, 64)}
 BOUNDS = {"train": 0.15, "prefill": 0.05, "decode": 0.05}
+BATCH1 = ("h2o-danube-3-4b", "jamba-v0.1-52b")  # decode at batch 1 over 64 slots
+# the port's batch-1 decode FLOPs over the reference's lowering given FSDP's
+# shards (91,136 / 46,080 and 631,296 / 374,016 a device), held within SPLIT_TOL
+FSDP_SPLIT = {"h2o-danube-3-4b": 91136 / 46080, "jamba-v0.1-52b": 631296 / 374016}
+SPLIT_TOL = 0.01
 VARIANTS = {"sp": {"seq_shard": True}, "dots": {"remat_policy": "dots"}, "none": {"remat_policy": "none"},
             "int8": {"state_dtype": "int8"}}
 
@@ -67,6 +85,7 @@ REFERENCE = textwrap.dedent(
     from repro.launch import dryrun, mesh as meshlib
 
     archs, shapes, variants = sys.argv[1].split(","), json.loads(sys.argv[2]), json.loads(sys.argv[3])
+    batch1 = sys.argv[4].split(",")
     get = configs.get_config
     configs.get_config = lambda a: configs.reduce_config(get(a))
     meshlib.make_production_mesh = lambda multi_pod=False: meshlib.make_mesh((2, 2), ("data", "model"))
@@ -80,6 +99,11 @@ REFERENCE = textwrap.dedent(
     for name, sets in variants.items():  # the first arch's train step under each variant
         rec = dryrun.lower_cell(archs[0], "train", False, dryrun.Variant(name=name, **sets))
         out.setdefault("variants", {})[name] = rec["hlo_cost"]["flops"]
+    dryrun.SHAPES["decode_b1"] = ShapeSpec("decode_b1", shapes["decode"][1], 1, "decode")
+    for arch in batch1:  # tokens placed P(None) by the reference's own dry run
+        for fsdp in (True, False):
+            rec = dryrun.lower_cell(arch, "decode_b1", False, dryrun.Variant(fsdp=fsdp))
+            out.setdefault("batch1", {})[f"{arch}|{fsdp}"] = rec["hlo_cost"]["flops"]
     print("REF " + json.dumps(out))
     """
 )
@@ -123,7 +147,8 @@ def test_collectives_are_counted_by_kind():
 @pytest.fixture(scope="module")
 def reference_flops():
     res = subprocess.run([sys.executable, "-c", REFERENCE, ",".join((ARCH,) + FAMILIES), json.dumps(SHAPES),
-                          json.dumps(VARIANTS)], capture_output=True, text=True, cwd=ROOT, timeout=600)
+                          json.dumps(VARIANTS), ",".join(BATCH1)], capture_output=True, text=True, cwd=ROOT,
+                         timeout=600)
     line = next((x for x in res.stdout.splitlines() if x.startswith("REF ")), None)
     assert line is not None, res.stderr[-3000:]
     return json.loads(line[4:])
@@ -157,6 +182,27 @@ def test_flops_per_device_match_the_reference(kind, reference_flops):
 def test_families_flops_per_device_match_the_reference(arch, kind, reference_flops):
     got, want, gap = _flops_gap(arch, kind, reference_flops)
     assert gap <= BOUNDS[kind], (arch, kind, got, want, gap)
+
+
+@pytest.mark.parametrize("fsdp", [True, False], ids=["fsdp", "whole"])
+@pytest.mark.parametrize("arch", BATCH1)
+def test_batch_one_decode_flops_match_the_reference(arch, fsdp, reference_flops):
+    """A decode step at batch 1 over a 2×2 mesh, the row on every rank:
+    the port's, with FSDP's shards gathered or whole weights, against
+    the reference's lowering with whole weights over 'data' at the
+    decode bound, and against its lowering given FSDP's shards at the
+    measured ratio ``FSDP_SPLIT``."""
+    cfg = configs.reduce_config(configs.get_config(arch))
+    mesh = meshlib.dry_grid_mesh({"data": 2, "model": 2}, device="cpu")
+    shape = ShapeSpec("decode", SHAPES["decode"][1], 1, "decode")
+    got = dryrun.trace_program(cfg, shape, dryrun.Variant(fsdp=fsdp), mesh)["hlo_cost"]["flops"]
+    want = reference_flops["batch1"][f"{arch}|False"]
+    gap = abs(got - want) / want
+    split = reference_flops["batch1"][f"{arch}|True"]  # XLA's contraction split of FSDP's shards (C.23)
+    print(f"{arch} decode batch 1 fsdp={fsdp}: port {got:.0f} reference {want:.0f} gap {gap:.4f};"
+          f" the reference given FSDP's shards {split:.0f}, ratio {got / split:.4f}")
+    assert gap <= BOUNDS["decode"], (arch, got, want, gap)
+    assert abs(got / split / FSDP_SPLIT[arch] - 1) <= SPLIT_TOL, (arch, got, split, FSDP_SPLIT[arch])
 
 
 @pytest.mark.parametrize("name", list(VARIANTS))

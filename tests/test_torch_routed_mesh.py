@@ -278,6 +278,25 @@ def test_a_failing_rank_raises_with_its_traceback():
         meshlib.run_ranks(worker.fail_on_rank_one, 2, devices=["cpu"] * 2, timeout_s=60.0)
 
 
+def test_prestarted_ranks_take_the_call():
+    """``prestart``'s processes run the next call of the same world size,
+    backend and devices (a call of another world size starts its own); a
+    set no call took stops on ``release_prestarted``."""
+    try:
+        meshlib.prestart(2, devices=["cpu"] * 2)
+        meshlib.prestart(3, devices=["cpu"] * 3)
+        (two,), (three,) = (meshlib._PRESTARTED[meshlib._call_key(n, "gloo", ["cpu"] * n, None)] for n in (2, 3))
+        waiting = [p.pid for p in two[0]]
+        got = meshlib.run_ranks(worker.pid, 2, devices=["cpu"] * 2, timeout_s=60.0)
+        assert [r for r, _ in got] == [0, 1] and [p for _, p in got] == waiting
+        again = meshlib.run_ranks(worker.pid, 2, devices=["cpu"] * 2, timeout_s=60.0)
+        assert not set(p for _, p in again) & set(waiting)  # the set ran one call: new processes now
+        left = three[0]
+    finally:
+        meshlib.release_prestarted()
+    assert not meshlib._PRESTARTED and all(not p.is_alive() and p.exitcode == 0 for p in left)
+
+
 def test_ranks_default_to_the_cards_round_robin(monkeypatch):
     """Without ``devices`` every rank runs on a card (rank r on card
     r mod cards), never on the CPU."""

@@ -154,6 +154,13 @@ def hang(mesh):
         time.sleep(3600)
 
 
+def pid(mesh):
+    """(this rank, its process id)."""
+    import os
+
+    return mesh.rank, os.getpid()
+
+
 def fail_on_rank_one(mesh):
     if mesh.rank == 1:
         raise ValueError("rank one fails on purpose")

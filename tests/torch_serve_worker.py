@@ -37,7 +37,8 @@ def serve(mesh, arch: str, weights: dict | None, tokens: np.ndarray, n_decode: i
     sliding window; ``arch`` ending in ':naive' decodes MLA on the naive
     path, in ':gathered' serves from the shards gathered over the batch
     axes once, before the prefill, instead of on every call).  ``extra``: whisper's frames / the VLM's patches of the global
-    batch (numpy), split with the rows.  ``weights`` None draws the port's
+    batch (numpy), split with the rows.  Where the batch axes do not
+    divide the batch every rank takes every row (``layers.local_rows``).  ``weights`` None draws the port's
     float32 seed-0 weights.  Returns numpy logits per step, the cache
     leaves after prefill and at the end, and ``sharding.KINDS`` per
     phase."""
@@ -69,28 +70,26 @@ def serve(mesh, arch: str, weights: dict | None, tokens: np.ndarray, n_decode: i
         local = sharding.local_tree(full, place, mesh)
         if path == "gathered":
             local = sharding.gather_tree(local, place, mesh)
-        ba = meshlib.batch_axes(mesh)
-        share = tokens.shape[0] // mesh.axis_size(ba)
-        d = mesh.axis_index(ba)
-        rows = torch.from_numpy(tokens[d * share : (d + 1) * share]).long()
-        kw = {k: torch.from_numpy(v[d * share : (d + 1) * share]) for k, v in (extra or {}).items()}
+        lo, hi = layers.local_rows(tokens.shape[0])
+        rows = torch.from_numpy(tokens[lo:hi]).long()
+        kw = {k: torch.from_numpy(v[lo:hi]) for k, v in (extra or {}).items()}
         out = {"kinds": {}, "logits": []}
         with torch.no_grad():
             sharding.reset_kinds()
-            logits, cache = transformer.prefill(local, cfg, rows, max_seq, **kw)
+            logits, cache = transformer.prefill(local, cfg, rows, max_seq, batch=tokens.shape[0], **kw)
             out["kinds"]["prefill"] = sharding.kinds_snapshot()
             out["logits"].append(_np(logits))
             out["cache_prefill"] = {k: _np(v) for k, v in _leaves(cache).items()}
             for step in range(n_decode):
                 nxt = (np.arange(tokens.shape[0]) * 7 + step * 13) % cfg.vocab_size
-                tok = torch.from_numpy(nxt[d * share : (d + 1) * share]).long()
+                tok = torch.from_numpy(nxt[lo:hi]).long()
                 sharding.reset_kinds()
                 logits, cache = transformer.decode_step(local, cfg, tok, cache)
                 out["kinds"][f"decode{step}"] = sharding.kinds_snapshot()
                 out["logits"].append(_np(logits))
             out["cache"] = {k: _np(v) for k, v in _leaves(cache).items()}
             out["specs"] = {k: v for k, v in _leaves(getattr(cache, "specs", {})).items()}
-        out.update(rank=mesh.rank, coords=mesh.coords, rows=(d * share, (d + 1) * share))
+        out.update(rank=mesh.rank, coords=mesh.coords, rows=(lo, hi))
         return out
     finally:
         layers.disable_activation_sharding()
