@@ -7,7 +7,7 @@
 Phases, each printing one JSON line:
 
 1. environment — the card, ``torch.version.cuda``, nvcc's release, and the
-   seconds the kernel build took (one nvcc per source, all three in
+   seconds the kernel build took (one nvcc per source, all four in
    parallel), then each library's ``ptxas`` registers and spills;
 2. kernels — each hand-written kernel runs on the card at the shapes its
    path gives it at scale and is held against its plain PyTorch version on
@@ -48,12 +48,19 @@ Phases, each printing one JSON line:
    ``match_work``, ``count_work`` and ``xash_work`` count them), and for B.6
    the time of ``scaled_dot_product_attention`` on the same inputs
    (``library_ms``; the port never calls it); then the ``flash_grad`` line:
-   B.6 under autograd (the kernel's forward, ``flash_attention_backward``)
-   at qwen1.5-0.5b's training shape [8, 2048, 16, 64], MLA's d 192 / dv 128
-   and whisper's non-causal S 256 × T 1500, bf16 and f32, dq, dk and dv
-   against autograd through the plain version on float32 copies
-   (‖Δ‖/‖ref‖ <= 1e-2 / 1e-5), with the forward's, the backward's (bound:
-   ``flash_bwd_work``) and SDPA's forward + backward times;
+   B.6 under autograd (the forward kernel with its row log-sum-exp, then
+   the backward kernels of ``flash_attention_bwd.cu`` through
+   ``flash_attention_backward``) at qwen1.5-0.5b's training shape [8,
+   2048, 16, 64], MLA's d 192 / dv 128 and whisper's non-causal S 256 × T
+   1500, then at its edges (``FLASH_GRAD_EDGE``: a window, T = 1601, rows
+   that admit no key, fused-QKV views, d 100), bf16 and f32: dq, dk and dv
+   against the backward's plain version on the card and against autograd
+   through the plain forward, on float32 copies (‖Δ‖/‖ref‖ <= 1e-2 /
+   1e-5), finite, three calls bit-equal, one launch of each kernel per
+   autograd call, with the forward's, the backward's (bound:
+   ``flash_bwd_work``), the plain backward's and SDPA's backward and
+   forward + backward times; the backward's row of the ``kernels`` line
+   (its first shape, bf16; ``launches`` from the train path);
 3. main path — ``synthetic.make_corpus`` → ``MateSession.build`` (default
    ``DiscoveryConfig``: 128 bits, rank='quality', profile gate on, backend
    resolved on CUDA to 'fused-gather') → ``discover`` on ground-truth
@@ -144,7 +151,8 @@ Phases, each printing one JSON line:
    block's other remat policies (``transformer.REMAT_POLICY`` 'dots' and
    'none') from the conditioned draw, with that run's settings and
    batches: losses and gradient norms equal to its first 3 steps' within
-   1e-6, B.6 launches 2 / 1 per attention layer a step; ms per step,
+   1e-6, B.6 launches 2 / 1 per attention layer a step; in every step of
+   every run one backward launch per attention layer; ms per step,
    tokens/s, peak GB (per policy too), the gradient norms and the
    attention backward's share of the step;
 11b. train_mesh — ``launch.train``'s ``--mesh 2x2`` run (its rank body,
@@ -375,8 +383,20 @@ FLASH_NONCAUSAL_MEAN_REL = 1e-3
 # autograd through the plain version on float32 copies
 FLASH_GRAD = [(8, 2048, 2048, 16, 64, 64, True), (2, 2048, 2048, 16, 192, 128, True),
               (2, 256, 1500, 8, 64, 64, False)]
+# and its edges: (label, B, S, T, H, d, dv, causal, window, fused) — a
+# window; llama-3.2-vision's cross-attention (T = 1601, which no tile width
+# divides); a causal window over S > T, whose rows past T + window - 1 admit
+# no key (zero gradients there, no NaN); q, k, v as strided views of one
+# fused [B, S, 3, H, d] projection; a d the bf16 kernels pad (100)
+FLASH_GRAD_EDGE = [
+    ("window", 2, 2048, 2048, 16, 64, 64, True, 512, False),
+    ("cross", 2, 512, 1601, 32, 128, 128, False, 0, False),
+    ("rows without a key", 2, 512, 128, 8, 64, 64, True, 64, False),
+    ("fused-qkv views", 2, 2048, 2048, 16, 64, 64, True, 0, True),
+    ("d=100", 2, 1024, 1024, 8, 100, 100, True, 0, False),
+]
 FLASH_GRAD_DTYPES = ((torch.bfloat16, 1e-2), (torch.float32, 1e-5))
-GRAD_REPS = 3  # timed backward calls
+GRAD_REPS = 10  # timed backward calls
 # the discovery serving tier: a 512-bit session that degrades to 128 bits,
 # driven on a ManualClock by bursts of requests (their sizes sum to
 # SERVING_REQUESTS) drawn with a Zipf skew from the ground-truth and mixed
@@ -930,63 +950,108 @@ def flash_edge_phase(seed) -> None:
           "dynamic_smem_bytes_d192": {"dv<=64": flash_tc_smem(192, 64), "dv<=128": flash_tc_smem(192, 128)}})
 
 
-def flash_grad_phase(seed) -> None:
+def flash_grad_phase(seed) -> dict:
     """B.6 under autograd (``flash_attention`` through ``_FlashAttention``:
-    the kernel's forward, then ``flash_attention_backward``) at the
-    ``FLASH_GRAD`` shapes, in bf16 and f32: dq, dk and dv against torch
-    autograd through the plain version on float32 copies, by ‖Δ‖/‖ref‖.
-    CUDA-event times of the kernel's forward, the backward, the plain
-    version's forward + backward, and ``scaled_dot_product_attention``'s
-    forward + backward on the same inputs; the backward's bound from
-    ``flash_bwd_work``."""
+    the forward kernel with its row log-sum-exp, then the backward kernels,
+    ``flash_attention_backward``) at the ``FLASH_GRAD`` shapes and the
+    ``FLASH_GRAD_EDGE`` edges, in bf16 and f32.  Held, by ‖Δ‖/‖ref‖ within
+    the dtype's tolerance: dq, dk and dv against the plain version on the
+    card (``flash_attention_backward_plain`` on float32 copies of the same
+    inputs and residuals) and against torch autograd through the plain
+    forward; every gradient finite; one forward and one backward launch
+    per autograd call; three calls on the same inputs bit-equal; zero dq on
+    the rows that admit no key.  CUDA-event times of the forward, the
+    backward, the plain backward, and ``scaled_dot_product_attention``'s
+    backward alone and forward + backward on the same inputs; the
+    backward's bound from ``flash_bwd_work``.  Returns the backward's row
+    of the kernels line (the first shape, bf16)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_kernel as flk
 
     dev = torch.device("cuda")
-    checks = []
-    for b, s, t, h, d, dv, causal in FLASH_GRAD:
+    checks, row = [], None
+    shapes = [("causal" if c else "non-causal", b, s, t, h, d, dv, c, 0, False)
+              for b, s, t, h, d, dv, c in FLASH_GRAD] + FLASH_GRAD_EDGE
+    for label, b, s, t, h, d, dv, causal, window, fused in shapes:
         for dtype, tol in FLASH_GRAD_DTYPES:
             gen = torch.Generator(device=dev).manual_seed(seed + s + d)
-            q, k, v = (torch.randn(b, n, h, e, generator=gen, device=dev).to(dtype)
-                       for n, e in ((s, d), (t, d), (t, dv)))
+            if fused:  # q, k, v: strided views of one [B, S, 3, H, d] projection
+                qkv = torch.randn(b, s, 3, h, d, generator=gen, device=dev).to(dtype).requires_grad_(True)
+                leaves = qkv.unbind(2)
+            else:
+                leaves = [torch.randn(b, n, h, e, generator=gen, device=dev).to(dtype).requires_grad_(True)
+                          for n, e in ((s, d), (t, d), (t, dv))]
             do = torch.randn(b, s, h, dv, generator=gen, device=dev).to(dtype)
-            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-            before = flk.flash_attention.launches
-            flk.flash_attention(*leaves, causal=causal).backward(do)
-            if flk.flash_attention.launches != before + 1:
-                raise AssertionError("the autograd path did not launch B.6's forward")
-            got = [x.grad for x in leaves]
+            shape = f"[{b},S={s},T={t},{h},d={d},dv={dv}] {str(dtype)[6:]} {label} window={window}"
+            before = (flk.flash_attention.launches, flk.flash_attention_backward.launches)
+            flk.flash_attention(*leaves, causal=causal, window=window).backward(do)
+            launched = (flk.flash_attention.launches - before[0],
+                        flk.flash_attention_backward.launches - before[1])
+            got = list(qkv.grad.unbind(2)) if fused else [x.grad for x in leaves]
+            q, k, v = (x.detach() for x in leaves)
+            with torch.no_grad():
+                out, lse = flk._forward(q, k, v, causal, window, True)
+            call = lambda: flk.flash_attention_backward(q, k, v, out, lse, do, causal=causal, window=window)
+            again = [call(), call()]
+            bit_equal = all(torch.equal(a, g) for rep in again for a, g in zip(rep, got))
+            plain_call = lambda: flk.flash_attention_backward_plain(
+                q.float(), k.float(), v.float(), out.float(), lse, do.float(), causal=causal, window=window)
+            plain = plain_call()
             ref = [x.float().requires_grad_(True) for x in (q, k, v)]
-            flk.flash_attention_plain(*ref, causal=causal).backward(do.float())
-            rel = {name: float((g.float() - r.grad).norm() / r.grad.norm())
-                   for name, g, r in zip(("dq", "dk", "dv"), got, ref)}
-            if any(g.dtype != dtype for g in got) or not max(rel.values()) <= tol:
-                raise AssertionError(f"flash_attention backward [{b},{s},{t},{h},d={d},dv={dv}]"
-                                     f" {dtype}: {rel} against {tol}")
-            del leaves, got, ref
-
-            def plain_fwd_bwd():
-                xs = [x.float().requires_grad_(True) for x in (q, k, v)]
-                flk.flash_attention_plain(*xs, causal=causal).backward(do.float())
+            flk.flash_attention_plain(*ref, causal=causal, window=window).backward(do.float())
+            names = ("dq", "dk", "dv")
+            rel = {n: float((g.float() - p).norm() / p.norm()) for n, g, p in zip(names, got, plain)}
+            rel_autograd = {n: float((g.float() - r.grad).norm() / r.grad.norm())
+                            for n, g, r in zip(names, got, ref)}
+            err = max(float((g.float() - p).abs().max()) for g, p in zip(got, plain))
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            empty_rows = t + window - 1 if causal and window and s > t + window - 1 else None
+            zero_rows = None if empty_rows is None else bool((got[0][:, empty_rows:] == 0).all())
+            del ref, again
+            failed = [what for what, ok in (
+                ("dtype", all(g.dtype == dtype for g in got)), ("finite", finite), ("bit_equal", bit_equal),
+                ("launches", launched == (1, 1)), ("zero_rows", zero_rows is not False),
+                ("plain", max(rel.values()) <= tol), ("autograd", max(rel_autograd.values()) <= tol)) if not ok]
 
             qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
             dot = do.transpose(1, 2).contiguous()
+            mask = flk._admissible(s, t, causal, window, dev) if window or (causal and s != t) else None
             sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal).backward(dot)
-            nbytes, flops = flash_bwd_work(b, s, t, h, d, dv, 0, q.element_size(), causal)
+                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None)
+            sdpa_out = sdpa()
+            nbytes, flops = flash_bwd_work(b, s, t, h, d, dv, window, q.element_size(), causal)
             b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
-            checks.append({
-                "shape": f"[{b},S={s},T={t},{h},d={d},dv={dv}] {str(dtype)[6:]} "
-                         + ("causal" if causal else "non-causal"),
-                "rel_err": rel, "tolerance": tol,
-                "forward_ms": cuda_ms(lambda: flk.flash_attention(q, k, v, causal=causal), REPS),
-                "backward_ms": cuda_ms(lambda: flk.flash_attention_backward(q, k, v, do, causal=causal),
-                                       GRAD_REPS),
+            check = {
+                "shape": shape, "rel_err": rel, "rel_err_autograd": rel_autograd, "max_abs_err": err,
+                "tolerance": tol, "finite": finite, "bit_equal": bit_equal, "launches": launched,
+                "zero_rows_without_key": zero_rows,
+                "forward_ms": cuda_ms(lambda: flk.flash_attention(q, k, v, causal=causal, window=window), REPS),
+                "backward_ms": cuda_ms(call, GRAD_REPS),
                 "backward_bound_ms": b_ms, "backward_bound_by": b_by,
-                "plain_fwd_bwd_ms": cuda_ms(plain_fwd_bwd, 1),
-                "sdpa_fwd_bwd_ms": cuda_ms(sdpa, GRAD_REPS)})
-            del q, k, v, do, qt, kt, vt, dot
+                "plain_backward_ms": cuda_ms(plain_call, 1),
+                "sdpa_bwd_ms": cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True),
+                                       GRAD_REPS),
+                "sdpa_fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot), GRAD_REPS)}
+            checks.append(check)
+            if row is None:
+                row = {"name": "flash_attention_backward", "route": "cuda",
+                       "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                       "replaces": "src/repro/kernels/flash_kernel.py:101 (its backward, which the Pallas kernel"
+                                   " lacks: the reference differentiates src/repro/models/layers.py:234 _sdpa_flash)",
+                       "launches": 0, "max_abs_err": err, "max_abs_diff": err, "ms": check["backward_ms"],
+                       "plain_ms": check["plain_backward_ms"], "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": check["sdpa_bwd_ms"], "shape": shape}
+            if failed:
+                emit({"phase": "flash_grad", "checks": checks, "failed": failed})
+                raise AssertionError(f"flash_attention backward {shape}: {failed} ({check})")
+            del leaves, got, plain, q, k, v, out, lse, do, qt, kt, vt, dot, sdpa_out
+            if fused:
+                del qkv
             torch.cuda.empty_cache()
-    emit({"phase": "flash_grad", "checks": checks})
+    log = _build.build_log.get("flash_attention_bwd")
+    emit({"phase": "flash_grad", "gpu": nvidia_smi(), "checks": checks,
+          "ptxas": None if log is None else ptxas_entries(log, "_kernel")})
+    return row
 
 
 def kernel_phase(seed, corpus) -> tuple[dict[str, dict], list[dict]]:
@@ -1256,6 +1321,7 @@ def counters() -> dict:
         "filter_match": fk.filter_match,
         "filter_count": fk.filter_count,
         "flash_attention": flk.flash_attention,
+        "flash_attention_backward": flk.flash_attention_backward,
     }
     return wrappers
 
@@ -1353,7 +1419,7 @@ MAIN_PATH_KERNELS = ("filter_table_counts", "gather_filter_table_counts", "xash_
                      "filter_match")
 # the path whose run gives each kernel's ``launches`` in the kernels line
 HOME_PATH = {**{name: "main_path" for name in MAIN_PATH_KERNELS}, "filter_count": "ops_path",
-             "flash_attention": "serve"}
+             "flash_attention": "serve", "flash_attention_backward": "train"}
 
 
 def main_path_phase(corpus, truth, mixed, b2_shapes, b3_shapes, b4_shapes):
@@ -2840,13 +2906,17 @@ def train_phase(seed) -> dict[str, int]:
     total, steps, grad_check, bwd_events = collections.Counter(), [], {}, []
     make_train_step, backward = step_lib.make_train_step, flk.flash_attention_backward
 
-    def timed_backward(*args, **kwargs):
+    def timed_backward(q, k, v, out, lse, dout, *, causal=True, window=0):
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = backward(*args, **kwargs)
+        grads = backward(q, k, v, out, lse, dout, causal=causal, window=window)
         stop.record()
         bwd_events.append((start, stop))
-        return out
+        return grads
+
+    # the op counts on the name the module binds (``counters``, ``path_window``):
+    # the wrapper carries the count while installed
+    timed_backward.launches = backward.launches
 
     def instrumented(cfg_, tcfg, *mesh_args):
         inner = make_train_step(cfg_, tcfg, *mesh_args)
@@ -2858,6 +2928,7 @@ def train_phase(seed) -> dict[str, int]:
                 out = inner(params, opt_state, batch)
                 torch.cuda.synchronize()
                 launches = counters()["flash_attention"].launches
+                bwd_launches = counters()["flash_attention_backward"].launches
             ms = 1e3 * (time.perf_counter() - t)
             loss, norm = float(out[2]["loss"]), float(out[2]["grad_norm"])
             if not grad_check:  # after the first step: every leaf's gradient
@@ -2867,7 +2938,8 @@ def train_phase(seed) -> dict[str, int]:
                 bad = [p for p, ok in grad_check.items() if not ok]
                 if bad:
                     raise AssertionError(f"after step 1 these leaves have no finite nonzero gradient: {bad}")
-            steps.append({"ms": ms, "b6_launches": launches, "loss": loss, "grad_norm": norm,
+            steps.append({"ms": ms, "b6_launches": launches, "b6_bwd_launches": bwd_launches,
+                          "loss": loss, "grad_norm": norm,
                           "attn_bwd_ms": sum(a.elapsed_time(b) for a, b in bwd_events)})
             return out
 
@@ -2913,15 +2985,19 @@ def train_phase(seed) -> dict[str, int]:
                 gc.collect()
                 torch.cuda.empty_cache()
         finally:
+            backward.launches = timed_backward.launches
             step_lib.make_train_step, flk.flash_attention_backward = make_train_step, backward
         cond_args = train_launch.parse_args(common + ["--steps", str(TRAIN_FALL_STEPS)])
         policies = train_policies(cfg, cond_args, cond_dir, runs["conditioned"], total)
     full, resumed, cond = runs["uninterrupted"], runs["resumed"], runs["conditioned"]
 
-    launches = check_counts(total, ("flash_attention",), "train path")
+    launches = check_counts(total, ("flash_attention", "flash_attention_backward"), "train path")
     want_b6 = 2 * cfg.n_layers
     if any(st["b6_launches"] != want_b6 for st in steps):
         raise AssertionError(f"B.6 launches per step {[st['b6_launches'] for st in steps]}, expected {want_b6}")
+    if any(st["b6_bwd_launches"] != cfg.n_layers for st in steps):
+        raise AssertionError(f"B.6 backward launches per step {[st['b6_bwd_launches'] for st in steps]},"
+                             f" expected {cfg.n_layers}")
     losses = full["losses"]
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses + cond["losses"])):
         raise AssertionError(f"losses {losses}, conditioned {cond['losses']}")
@@ -2960,6 +3036,7 @@ def train_phase(seed) -> dict[str, int]:
           "attn_bwd_ms_per_step_median": sorted(st["attn_bwd_ms"] for st in steady)[len(steady) // 2],
           "attn_bwd_share": sum(st["attn_bwd_ms"] for st in steady) / sum(st["ms"] for st in steady),
           "b6_launches_per_step": sorted(set(st["b6_launches"] for st in steps)),
+          "b6_bwd_launches_per_step": sorted(set(st["b6_bwd_launches"] for st in steps)),
           "peak_gb": {name: run["peak_gb"] for name, run in runs.items()},
           "wall_s": {name: run["wall_s"] for name, run in runs.items()},
           "grads_finite_nonzero": len(grad_check), "deterministic_algorithms": False,
@@ -3004,7 +3081,8 @@ def train_policies(cfg, args, ckpt_dir: str, full: dict, total: collections.Coun
     for policy in TRAIN_POLICY_B6:
         params = CheckpointManager(ckpt_dir).restore(0, like)["params"]
         state = opt.init_state(params, tcfg.adamw)
-        rows = {"losses": [], "grad_norm": [], "ms_per_step": [], "b6_launches_per_step": []}
+        rows = {"losses": [], "grad_norm": [], "ms_per_step": [], "b6_launches_per_step": [],
+                "b6_bwd_launches_per_step": []}
         saved, transformer.REMAT_POLICY = transformer.REMAT_POLICY, policy
         try:
             train_step = step_lib.make_train_step(cfg, tcfg)
@@ -3016,6 +3094,7 @@ def train_policies(cfg, args, ckpt_dir: str, full: dict, total: collections.Coun
                     params, state, metrics = train_step(params, state, batch)
                     rows["losses"].append(float(metrics["loss"]))  # ends in a sync
                     rows["b6_launches_per_step"].append(counters()["flash_attention"].launches)
+                    rows["b6_bwd_launches_per_step"].append(counters()["flash_attention_backward"].launches)
                 rows["ms_per_step"].append(1e3 * (time.perf_counter() - t))
                 rows["grad_norm"].append(float(metrics["grad_norm"]))
             rows["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -3029,6 +3108,9 @@ def train_policies(cfg, args, ckpt_dir: str, full: dict, total: collections.Coun
         want = TRAIN_POLICY_B6[policy] * cfg.n_layers
         if rows["b6_launches_per_step"] != [want] * n:
             out["failed"].append(f"{policy}: B.6 launches per step {rows['b6_launches_per_step']}, expected {want}")
+        if rows["b6_bwd_launches_per_step"] != [cfg.n_layers] * n:
+            out["failed"].append(f"{policy}: B.6 backward launches per step {rows['b6_bwd_launches_per_step']},"
+                                 f" expected {cfg.n_layers}")
         out[policy] = rows
         del params, state, train_step
         gc.collect()
@@ -5035,7 +5117,7 @@ def _phases(args, dry: DryRuns, train_plan: "TrainMeshPlan") -> int:
     dry.wait()  # from here on, nothing timed shares the host or the card with them
     train_plan.get()
     rows, lane_prefixes = kernel_phase(args.seed, corpus)
-    flash_grad_phase(args.seed)
+    rows["flash_attention_backward"] = flash_grad_phase(args.seed)
     from repro_torch.core.session import DiscoveryConfig, MateSession
     from repro_torch.kernels import filter_kernel as fk
     from repro_torch.kernels import xash_kernel as xk
@@ -5099,7 +5181,7 @@ def _phases(args, dry: DryRuns, train_plan: "TrainMeshPlan") -> int:
 
 # the phases ``--only`` runs alone: each needs the kernel build and nothing
 # else (the mesh phases and the dry runs are run by ``main`` itself)
-ONLY_PHASES = {"train": train_phase, "train_mesh": None, "pipeline": pipeline_phase, "serve_mesh": None,
+ONLY_PHASES = {"flash_grad": flash_grad_phase, "train": train_phase, "train_mesh": None, "pipeline": pipeline_phase, "serve_mesh": None,
                "families_mesh": None, "long_mesh": None, "dryrun": None}
 
 

@@ -66,10 +66,23 @@ LIBRARIES = {
     "flash_attention": (
         "flash_attention.cu",
         {
-            # q, k, v, out, B, H, S, T, d, dv, scale_d, q strides (b, s, h),
-            # k strides, v strides, causal, window, is_bf16, stream
+            # q, k, v, out, lse (or null), B, H, S, T, d, dv, scale_d, q
+            # strides (b, s, h), k strides, v strides, causal, window,
+            # is_bf16, stream
             "flash_attention_launch": [
-                _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _P,
+            ],
+        },
+    ),
+    "flash_attention_bwd": (
+        "flash_attention_bwd.cu",
+        {
+            # q, k, v, out, dout, lse, lse2, delta (scratch), dq, dk, dv, B,
+            # H, S, T, d, dv, scale_d, q strides (b, s, h), k strides, v
+            # strides, causal, window, is_bf16, stream
+            "flash_attention_bwd_launch": [
+                _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                 _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _P,
             ],
         },
@@ -102,7 +115,7 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src, _ = LIBRARIES[name]
-    text = (_CSRC / src).read_bytes() + (_CSRC / "common.cuh").read_bytes()
+    text = (_CSRC / src).read_bytes() + b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

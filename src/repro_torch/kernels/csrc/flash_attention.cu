@@ -5,7 +5,10 @@
 // keys j < T with i - j >= 0 (causal) and i - j < window (window > 0); the
 // float32 online-softmax state (m, l, acc) of each query row never leaves
 // the block.  q, k, v, out are [B, S|T, H, d|dv] with free strides on the
-// first three dims (the wrapper passes them); out is contiguous.
+// first three dims (the wrapper passes them); out is contiguous.  Under
+// training each row's log-sum-exp is written too (float32 [B, H, S], from
+// the epilogue's m and l): the residual flash_attention_bwd.cu recomputes
+// the probabilities from.  Serving passes no lse and writes none.
 //
 // What bounds it on this card: operations.  At the serving shape
 // (B 4, S 2048, H 16, d 64, causal) the two products are ~34 GFLOP against
@@ -72,8 +75,11 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace repro;
 
 // ---------------------------------------------------------------------------
 // bfloat16: wgmma + TMA
@@ -84,157 +90,16 @@ constexpr int kWarpgroups = 2;
 constexpr int kTQ = kWgRows * kWarpgroups;  // query rows per block
 constexpr int kTK = 64;                 // keys per K/V tile
 constexpr int kTcThreads = 128 * kWarpgroups;
-constexpr int kBox = 64;                // elements per 128-byte swizzled row
 constexpr int kStages = 2;  // K/V ring: tile j + 1 is in flight while tile j is computed
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct TcParams {
   CUtensorMap tq, tk, tv;
   __nv_bfloat16* o;
+  float* lse;  // [B, H, S] or null
   int H, S, T, dv;
   int causal, window;
   float scale_log2;  // log2(e) / sqrt(d), d unpadded
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Spin until the barrier's phase `parity` completes.  A copy that never
-// lands would hang the card: past ~2^26 polls the kernel traps instead, and
-// the launch reports an error.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (long long polls = 0;; ++polls) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls > (1ll << 26)) __trap();
-  }
-}
-
-// 4-D TMA tile load (coordinates innermost first: d, h, t, b) into shared
-// memory, completing `bytes` on the barrier.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128B swizzle: start address, leading and
-// stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Pins accumulator registers after a wait so no read is hoisted above it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// D (+)= A·B, m64nNk16, bf16 in, f32 accumulators.  ss: A and B from shared
-// memory, both K-major.  rs: A from registers, B MN-major (transposed).
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_n64(d, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_n128(d, a, db);
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x, ~2 ulp; 0 for x = -inf or far below
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // DP: d rounded up to 64, 128 or 192; DVP: dv rounded up to 64 or 128 (the
 // shared-memory tile widths).  With d <= 128 and dv <= 64 the kernel fits
@@ -409,6 +274,12 @@ __global__ void __launch_bounds__(kTcThreads, DVP == 64 && DP <= 128 ? 2 : 1)
     t += __shfl_xor_sync(0xffffffffu, t, 1);
     t += __shfl_xor_sync(0xffffffffu, t, 2);
     den[e] = fmaxf(t, 1e-30f);
+    // the row's log-sum-exp of the scaled scores, natural log (the
+    // backward's residual): m is a raw score, l sums 2^((s - m) scale_log2)
+    const int i = e ? r_hi : r_lo;
+    if (p.lse != nullptr && (lane & 3) == 0 && i < p.S)
+      p.lse[((long long)b * p.H + h) * p.S + i] =
+          t > 0.f ? m[e] * (p.scale_log2 / kLog2e) + logf(t) : -INFINITY;
   }
   constexpr int kLdo = DVP + 8;  // staged row, elements: 16-byte aligned, skewed banks
   __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -428,45 +299,6 @@ __global__ void __launch_bounds__(kTcThreads, DVP == 64 && DP <= 128 ? 2 : 1)
     *reinterpret_cast<uint4*>(p.o + (((long long)b * p.S + i) * p.H + h) * p.dv + ch * 8) =
         *reinterpret_cast<const uint4*>(so + row * kLdo + ch * 8);
   }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so nothing links
-// against libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A [B, T, H, width] bf16 view (element strides sb, st, sh; the last dim
-// contiguous) as a 4-D tensor map read in boxes of 64 x 1 x 64 x 1 with the
-// 128B swizzle; elements past the view's ends read as zeros.
-bool make_map(CUtensorMap* map, const void* base, int width, int H, int T, int B,
-              long long sb, long long st, long long sh) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {kBox, 1, kTK, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DP, int DVP>
@@ -496,6 +328,7 @@ struct Params {
   const float* k;
   const float* v;
   float* o;
+  float* lse;  // [B, H, S] or null
   int B, H, S, T, d, dv;
   long long sqb, sqs, sqh, skb, sks, skh, svb, svs, svh;
   int causal, window;
@@ -617,6 +450,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
     const int row = q0 + ty * 4 + i;
     if (row >= p.S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (p.lse != nullptr && tx == 0)  // m is in scaled units here
+      p.lse[((long long)b * p.H + h) * p.S + row] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
     float* orow = p.o + (((long long)b * p.S + row) * p.H + h) * dv;
 #pragma unroll
     for (int g = 0; g < DVT / 64; ++g)
@@ -644,11 +479,13 @@ cudaError_t launch(const Params& p, cudaStream_t s) {
 
 // q: [B, S, H, d], k: [B, T, H, d], v: [B, T, H, dv] with the given strides
 // (in elements; the last dim contiguous); out: contiguous [B, S, H, dv].
-// Scores are scaled by 1/sqrt(scale_d): scale_d is d before the wrapper's
+// lse: null, or float32 [B, H, S] that receives each row's log-sum-exp of the
+// scaled scores (natural log; -inf for a row with no admissible key), the
+// residual the backward recomputes the probabilities from.  Scores are scaled by 1/sqrt(scale_d): scale_d is d before the wrapper's
 // zero padding (padding leaves q·k unchanged).  is_bf16 selects the
 // tensor-core kernel (__nv_bfloat16) over the float32 one.
 REPRO_API int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                     int B, int H, int S, int T, int d, int dv, int scale_d,
+                                     void* lse, int B, int H, int S, int T, int d, int dv, int scale_d,
                                      long long sqb, long long sqs, long long sqh,
                                      long long skb, long long sks, long long skh,
                                      long long svb, long long svs, long long svh,
@@ -668,6 +505,7 @@ REPRO_API int flash_attention_launch(const void* q, const void* k, const void* v
         !make_map(&p.tv, v, dv, H, T, B, svb, svs, svh))
       return (int)cudaErrorInvalidValue;
     p.o = static_cast<__nv_bfloat16*>(out);
+    p.lse = static_cast<float*>(lse);
     p.H = H, p.S = S, p.T = T, p.dv = dv, p.causal = causal, p.window = window;
     p.scale_log2 = kLog2e / sqrtf((float)scale_d);
     if (d <= 64) return (int)(dv <= 64 ? launch_tc<64, 64>(p, B, s) : launch_tc<64, 128>(p, B, s));
@@ -675,7 +513,7 @@ REPRO_API int flash_attention_launch(const void* q, const void* k, const void* v
     return (int)(dv <= 64 ? launch_tc<192, 64>(p, B, s) : launch_tc<192, 128>(p, B, s));
   }
   Params p{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-           static_cast<float*>(out), B, H, S, T, d, dv, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh,
-           causal, window, 1.0f / sqrtf((float)scale_d)};
+           static_cast<float*>(out), static_cast<float*>(lse), B, H, S, T, d, dv, sqb, sqs, sqh,
+           skb, sks, skh, svb, svs, svh, causal, window, 1.0f / sqrtf((float)scale_d)};
   return (int)(dv <= 64 ? launch<64>(p, s) : launch<128>(p, s));
 }

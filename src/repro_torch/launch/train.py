@@ -220,9 +220,9 @@ def _rank(mesh, argd: dict) -> dict:
     shapes: collections.Counter = collections.Counter()
     forward = flash_kernel._forward
 
-    def counted(q, k, v, causal, window):
+    def counted(q, k, v, *args):
         shapes[str(list(q.shape))] += 1
-        return forward(q, k, v, causal, window)
+        return forward(q, k, v, *args)
 
     flash_kernel.flash_attention.launches = 0
     flash_kernel._forward = counted

@@ -328,7 +328,7 @@ def test_path_window_counts_only_inside():
 
 def test_every_kernel_has_a_home_path():
     assert set(chip_smoke.HOME_PATH) == set(chip_smoke.counters())
-    assert set(chip_smoke.HOME_PATH.values()) == {"main_path", "ops_path", "serve"}
+    assert set(chip_smoke.HOME_PATH.values()) == {"main_path", "ops_path", "serve", "train"}
 
 
 @pytest.mark.parametrize("n_shards", [1, 3, 8])

@@ -353,7 +353,7 @@ def main() -> int:
             def flash(handle, window=window):
                 out = torch.empty_like(q)
                 _build.check(handle.flash_attention_launch(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s, s, d, d, d,
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, b, h, s, s, d, d, d,
                     *strides, 1, window, 1, stream()), "flash_attention")
                 return out
             want = flk.flash_attention_plain(q, k, v, causal=True, window=window)
