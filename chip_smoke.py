@@ -330,15 +330,21 @@ REPS = 10  # timed launches per kernel
 N_TRUTH = 4
 GROUP = 8
 # B.6 shapes, all causal: (B, S, T, H, d, dv, window, dtype, tolerance,
-# q/k/v as views of one fused [B, S, 3·H·d] projection)
+# q/k/v as views of one fused [B, S, 3·H·d] projection, the row
+# log-sum-exp written too as under autograd)
 FLASH_SHAPES = [
-    (4, 2048, 2048, 16, 64, 64, 0, torch.bfloat16, 2e-2, False),  # qwen1.5-0.5b prefill
-    (4, 2048, 2048, 16, 64, 64, 512, torch.bfloat16, 2e-2, False),
-    (2, 512, 512, 2, 128, 64, 0, torch.float32, 1e-5, False),
-    (4, 1000, 1000, 16, 64, 64, 0, torch.bfloat16, 2e-2, False),  # ragged
-    (4, 2048, 2048, 16, 64, 64, 0, torch.bfloat16, 2e-2, True),  # fused projection
-    (4, 2048, 2048, 16, 128, 64, 0, torch.bfloat16, 2e-2, False),
-    (4, 2048, 1000, 16, 64, 64, 0, torch.bfloat16, 2e-2, False),  # S != T
+    (4, 2048, 2048, 16, 64, 64, 0, torch.bfloat16, 2e-2, False, False),  # qwen1.5-0.5b prefill
+    (8, 2048, 2048, 16, 64, 64, 0, torch.bfloat16, 2e-2, False, True),  # its training forward
+    (4, 2048, 2048, 16, 64, 64, 512, torch.bfloat16, 2e-2, False, False),
+    (2, 512, 512, 2, 128, 64, 0, torch.float32, 1e-5, False, False),
+    (4, 1000, 1000, 16, 64, 64, 0, torch.bfloat16, 2e-2, False, False),  # ragged
+    (4, 2048, 2048, 16, 64, 64, 0, torch.bfloat16, 2e-2, True, False),  # fused projection
+    (4, 2048, 2048, 16, 128, 64, 0, torch.bfloat16, 2e-2, False, False),
+    (4, 2048, 1000, 16, 64, 64, 0, torch.bfloat16, 2e-2, False, False),  # S != T
+    # S = T an odd multiple of 64 and a window that is no multiple of 128:
+    # the last 128-row item's second warpgroup holds no row, the window's
+    # edges fall inside items
+    (4, 1088, 1088, 16, 64, 64, 192, torch.bfloat16, 2e-2, False, False),
 ]
 # B.2 shapes of the main path at scale, 128 bits: (label, keys, elig kind)
 GATHER_MAIN_SHAPES = [
@@ -884,9 +890,13 @@ def ptxas_entries(log: str, needle: str) -> dict[str, list[str]]:
 
 
 def flash_tc_smem(dp: int, dvp: int) -> int:
-    """Dynamic shared memory of one bf16 flash block (``launch_tc``): the
-    1024-byte alignment slack, Q, two K/V stages, the barriers and counters."""
-    return 1024 + 128 * dp * 2 + 2 * 64 * (dp + dvp) * 2 + 3 * 8 + 2 * 4
+    """Dynamic shared memory of one bf16 flash block (``TcTile::kSmem``): the
+    1024-byte alignment slack, two Q buffers of 128 rows, the ring of 64-key
+    K/V stages (4, or 3 where 4 do not fit in 227 KB) and the mbarriers (two
+    per Q buffer, two per stage)."""
+    def smem(stages):
+        return 1024 + 2 * 128 * dp * 2 + stages * 64 * (dp + dvp) * 2 + (4 + 2 * stages) * 8
+    return smem(4) if smem(4) <= 232448 else smem(3)
 
 
 def flash_edge_phase(seed) -> None:
@@ -1054,10 +1064,79 @@ def flash_grad_phase(seed) -> dict:
     return row
 
 
+def flash_forward_checks(seed, record) -> None:
+    """B.6 flash_attention at the serving path's prefill shape, its training
+    forward (with the row log-sum-exp), then the window, the f32 dv != d
+    shape and the bf16 edge shapes (``FLASH_SHAPES``), each held against the
+    plain version and timed beside SDPA on the same inputs; ``record`` takes
+    each row as ``kernel_phase``'s does."""
+    from repro_torch.kernels import flash_kernel as flk
+
+    dev = torch.device("cuda")
+    for b, s, t, h, d, dv, window, dtype, tol, fused, lse in FLASH_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        if fused:  # q, k, v: strided views of one [B, S, 3·H·d] projection
+            qkv = torch.randn(b, s, 3 * h * d, generator=gen, device=dev).to(dtype)
+            qkv = [qkv[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d)) for i in range(3)]
+        else:
+            qkv = [torch.randn(b, n, h, e, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+                   for n, e in ((s, d), (t, d), (t, dv))]
+        call = lambda: flk._forward(*qkv, True, window, lse)  # noqa: E731
+        if lse:  # the output and the row log-sum-exp, against the plain version's
+            (got, got_lse), (want, want_lse) = call(), flk.flash_attention_plain_lse(
+                *qkv, causal=True, window=window)
+            lse_err = float((got_lse - want_lse).abs().max().item())
+        else:
+            got, lse_err = flk.flash_attention(*qkv, causal=True, window=window), 0.0
+            want = flk.flash_attention_plain(*qkv, causal=True, window=window)
+        err = max(float((got.float() - want.float()).abs().max().item()), lse_err)
+        ms = cuda_ms(call, REPS)
+        plain_ms = cuda_ms(lambda: flk.flash_attention_plain(*qkv, causal=True, window=window), 1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in qkv)
+        if window:
+            mask = flk._admissible(s, t, True, window, dev)
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        else:
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        lib_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max().item())
+        library_ms = cuda_ms(sdpa, REPS)
+        nbytes, flops = flash_work(b, s, t, h, d, dv, window, qkv[0].element_size())
+        if lse:  # the row log-sum-exp, float32 [B, H, S], written once
+            nbytes += b * h * s * 4
+        rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+        record("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_kernel.py:101", err, tol, ms, plain_ms, nbytes, flops,
+               f"[{b},S={s},T={t},{h},d={d},dv={dv}] {str(dtype)[6:]} causal window={window}"
+               f"{' fused-qkv views' if fused else ''}{' with lse' if lse else ''}"
+               f" (sdpa max_abs_err {lib_err:.3g})",
+               rate, library_ms)
+        del qkv, got, want, qt, kt, vt
+    torch.cuda.empty_cache()
+
+
+def flash_phase(seed) -> None:
+    """B.6's forward alone (``--only flash``): ``flash_forward_checks`` then
+    ``flash_edge_phase``, its rows in a ``flash`` line."""
+    checks = []
+
+    def record(name, source, replaces, err, tol, ms, plain_ms, nbytes, nops, shape, ops_per_s, library_ms):
+        b_ms, b_by = bound(nbytes, nops, ops_per_s)
+        checks.append({"shape": shape, "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+                       "kernel_to_library": ms / library_ms})
+        if not err <= tol:
+            emit({"phase": "flash", "checks": checks})
+            raise AssertionError(f"{name} {shape}: kernel disagrees with its plain version "
+                                 f"(max_abs_err={err}, tolerance {tol})")
+
+    flash_forward_checks(seed, record)
+    emit({"phase": "flash", "gpu": nvidia_smi(), "checks": checks})
+    flash_edge_phase(seed)
+
+
 def kernel_phase(seed, corpus) -> tuple[dict[str, dict], list[dict]]:
     from repro_torch.core import encoding, xash
     from repro_torch.kernels import filter_kernel as fk
-    from repro_torch.kernels import flash_kernel as flk
     from repro_torch.kernels import xash_kernel as xk
 
     dev = torch.device("cuda")
@@ -1071,7 +1150,8 @@ def kernel_phase(seed, corpus) -> tuple[dict[str, dict], list[dict]]:
         b_ms, b_by = bound(nbytes, nops, ops_per_s)
         checks.append({"kernel": name, "shape": shape, "max_abs_err": err, "tolerance": tol,
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                       "library_ms": library_ms})
+                       "library_ms": library_ms,
+                       "kernel_to_library": None if library_ms is None else ms / library_ms})
         if not err <= tol:
             raise AssertionError(f"{name} {shape}: kernel disagrees with its plain version "
                                  f"(max_abs_err={err}, tolerance {tol})")
@@ -1083,39 +1163,7 @@ def kernel_phase(seed, corpus) -> tuple[dict[str, dict], list[dict]]:
                 "library_ms": library_ms, "shape": shape,
             }
 
-    # B.6 flash_attention at the serving path's prefill shape, then the
-    # window, the f32 dv != d shape and the bf16 edge shapes; SDPA on the same
-    # inputs as yardstick
-    for b, s, t, h, d, dv, window, dtype, tol, fused in FLASH_SHAPES:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        if fused:  # q, k, v: strided views of one [B, S, 3·H·d] projection
-            qkv = torch.randn(b, s, 3 * h * d, generator=gen, device=dev).to(dtype)
-            qkv = [qkv[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d)) for i in range(3)]
-        else:
-            qkv = [torch.randn(b, n, h, e, generator=gen, device=dev, dtype=torch.float32).to(dtype)
-                   for n, e in ((s, d), (t, d), (t, dv))]
-        got = flk.flash_attention(*qkv, causal=True, window=window)
-        want = flk.flash_attention_plain(*qkv, causal=True, window=window)
-        err = float((got.float() - want.float()).abs().max().item())
-        ms = cuda_ms(lambda: flk.flash_attention(*qkv, causal=True, window=window), REPS)
-        plain_ms = cuda_ms(lambda: flk.flash_attention_plain(*qkv, causal=True, window=window), 1)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in qkv)
-        if window:
-            mask = flk._admissible(s, t, True, window, dev)
-            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-        else:
-            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        lib_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max().item())
-        library_ms = cuda_ms(sdpa, REPS)
-        nbytes, flops = flash_work(b, s, t, h, d, dv, window, qkv[0].element_size())
-        rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
-        record("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-               "src/repro/kernels/flash_kernel.py:101", err, tol, ms, plain_ms, nbytes, flops,
-               f"[{b},S={s},T={t},{h},d={d},dv={dv}] {str(dtype)[6:]} causal window={window}"
-               f"{' fused-qkv views' if fused else ''} (sdpa max_abs_err {lib_err:.3g})",
-               rate, library_ms)
-        del qkv, got, want, qt, kt, vt
-    torch.cuda.empty_cache()
+    flash_forward_checks(seed, record)
     flash_edge_phase(seed)
 
     store16, rows, query16, elig, seg = make_filter_inputs(
@@ -5068,7 +5116,8 @@ def main() -> int:
         for name, log in _build.build_log.items():
             emit({"phase": "ptxas", "library": name,
                   "report": [ln.strip() for ln in log.splitlines()
-                             if "entry function" in ln or "registers" in ln or "spill" in ln],
+                             if "entry function" in ln or "registers" in ln or "spill" in ln
+                             or "serialized" in ln],
                   "sass_wgmma": sass_count(_build._lib_path(name), "HGMMA")})
         if dry is not None:
             dry.start_built()
@@ -5181,7 +5230,7 @@ def _phases(args, dry: DryRuns, train_plan: "TrainMeshPlan") -> int:
 
 # the phases ``--only`` runs alone: each needs the kernel build and nothing
 # else (the mesh phases and the dry runs are run by ``main`` itself)
-ONLY_PHASES = {"flash_grad": flash_grad_phase, "train": train_phase, "train_mesh": None, "pipeline": pipeline_phase, "serve_mesh": None,
+ONLY_PHASES = {"flash": flash_phase, "flash_grad": flash_grad_phase, "train": train_phase, "train_mesh": None, "pipeline": pipeline_phase, "serve_mesh": None,
                "families_mesh": None, "long_mesh": None, "dryrun": None}
 
 

@@ -265,7 +265,7 @@ __global__ void __launch_bounds__(kWg, 1) dkdv_tc_kernel(const __grid_constant__
       }
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(st);
     if constexpr (kDK) fence_regs(dpt);
 
@@ -319,7 +319,7 @@ __global__ void __launch_bounds__(kWg, 1) dkdv_tc_kernel(const __grid_constant__
       }
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_all(dk);
     fence_all(dv);
     __syncthreads();  // every warp is done with stage s: refill it
@@ -415,7 +415,7 @@ __global__ void __launch_bounds__(kWg, 1) dq_tc_kernel(const __grid_constant__ T
       wgmma_ss_n64(dp, smem_desc(do_base + o, 16, 1024), smem_desc(v_base + o, 16, 1024), kk > 0);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(sc);
     fence_regs(dp);
 
@@ -453,7 +453,7 @@ __global__ void __launch_bounds__(kWg, 1) dq_tc_kernel(const __grid_constant__ T
       for (int c = 0; c < DP / 64; ++c)
         wgmma_rs_n64(dq[c], sf[kk], smem_desc(k_base + c * kRows * 128 + kk * 16 * 128, kRows * 128, 1024));
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_all(dq);
     __syncthreads();
     if (tid == 0 && j + kStages < n_tiles) issue(j + kStages);

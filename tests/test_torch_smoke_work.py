@@ -266,11 +266,15 @@ def test_serving_stream_shape(seed):
 
 
 def test_flash_tc_smem_fits_a_block():
-    """B.6's bf16 block at d 192: Q 48 KB, two K stages of 24 KB, two V
-    stages; under the 227 KB a block may use."""
-    assert chip_smoke.flash_tc_smem(192, 128) == 1024 + 48 * 1024 + 2 * (24 + 16) * 1024 + 32
-    assert chip_smoke.flash_tc_smem(192, 64) == 1024 + 48 * 1024 + 2 * (24 + 8) * 1024 + 32
-    assert chip_smoke.flash_tc_smem(64, 64) == 1024 + 16 * 1024 + 2 * (8 + 8) * 1024 + 32
+    """B.6's bf16 block: two Q buffers of 128 rows, a ring of 64-key K/V
+    stages (4, 3 at d 192 / dv 128) and two mbarriers per Q buffer and per
+    stage; every instantiation under the 227 KB a block may use."""
+    bars = lambda stages: (4 + 2 * stages) * 8  # noqa: E731
+    assert chip_smoke.flash_tc_smem(192, 128) == 1024 + 2 * 48 * 1024 + 3 * (24 + 16) * 1024 + bars(3)
+    assert chip_smoke.flash_tc_smem(192, 64) == 1024 + 2 * 48 * 1024 + 4 * (24 + 8) * 1024 + bars(4)
+    assert chip_smoke.flash_tc_smem(128, 64) == 1024 + 2 * 32 * 1024 + 4 * (16 + 8) * 1024 + bars(4)
+    assert chip_smoke.flash_tc_smem(64, 64) == 1024 + 2 * 16 * 1024 + 4 * (8 + 8) * 1024 + bars(4)
+    assert chip_smoke.flash_tc_smem(64, 128) == 1024 + 2 * 16 * 1024 + 4 * (8 + 16) * 1024 + bars(4)
     assert max(chip_smoke.flash_tc_smem(dp, dvp) for dp in (64, 128, 192) for dvp in (64, 128)) <= 232448
 
 

@@ -7,9 +7,9 @@ the keys past T?
 Needs a CUDA card and ``nvcc``.  Runs kernel B.6 against its plain version
 at the smoke's ``FLASH_NONCAUSAL`` shapes, on the same inputs as its
 ``flash_edge`` phase, twice: on this checkout, then on a copy of it in a
-temporary directory whose bf16 edge-tile mask has lost its ``c < p.T``
-term, so that the TMA's zero-filled keys past T (score 0, V 0) enter the
-softmax.  Per shape and dtype it prints max_abs_err, mean |err| / mean
+temporary directory whose bf16 edge-tile mask has lost its bound at T
+(a non-causal row then admits every key of a tile), so that the TMA's
+zero-filled keys past T (score 0, V 0) enter the softmax.  Per shape and dtype it prints max_abs_err, mean |err| / mean
 |plain| and whether the smoke's tolerances (``FLASH_NONCAUSAL_DTYPES``,
 ``FLASH_NONCAUSAL_MEAN_REL``) hold.  One JSON line, then the card's name
 and power limit; exits 0 when every check holds on the checkout and every
@@ -28,8 +28,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 CU = Path("src/repro_torch/kernels/csrc/flash_attention.cu")
-SOUND_MASK = "return c < p.T && (!p.causal || diff >= 0)"
-PLANTED_MASK = "return (!p.causal || diff >= 0)"
+SOUND_MASK = "hi[e] = (p.causal ? min(p.T, r + 1) : p.T) - k0 - col;"
+PLANTED_MASK = "hi[e] = (p.causal ? r + 1 : 1 << 30) - k0 - col;"
 
 
 def readings(root: Path) -> list[dict]:

@@ -5,6 +5,7 @@ filter, ``csrc/filter_counts.cu``) and B.3 (XASH superkeys,
 ``csrc/xash_superkey.cu``).
 
     python3 tools/kernel_ablations.py [--only flash_attention filter_counts match_count xash_superkey]
+        [--baseline DIR]
 
 Builds each source as checked in, variants of it made by text substitution
 (every substitution must apply, or the script fails) and the former bodies
@@ -224,16 +225,25 @@ KEY_ATOMIC = """        if (KEYS)
 VARIANTS = {
     "flash_attention": {
         "as built": FLASH,
-        "P rounded to bf16 (no P_lo product)": _sub(
+        "P rounded once (no P_lo product)": _sub(
             FLASH, "        wgmma_rs<DVP>(o, p_lo[kk], dvd);\n", ""),
         "mask code on every tile": _sub(
-            FLASH, "      if (edge)\n        softmax(std::true_type{});\n      else\n"
-                   "        softmax(std::false_type{});\n", "      softmax(std::true_type{});\n"),
-        "one block per SM (no register bound)": _sub(
-            FLASH, "__launch_bounds__(kTcThreads, DVP == 64 && DP <= 128 ? 2 : 1)", "__launch_bounds__(kTcThreads)"),
-        "no softmax (the two products only)": _cut(
-            FLASH, "      float corr[2];\n      auto softmax", "#pragma unroll\n      for (int i = 0; i < kNo",
-            "      float corr[2] = {1.f, 1.f};\n"),
+            FLASH, "      if (edge)\n        body(std::true_type{});\n      else\n"
+                   "        body(std::false_type{});\n", "      body(std::true_type{});\n"),
+        "no ping-pong (named barriers removed)": _sub(_sub(
+            FLASH, "bar_sync(kTurnBar + cwg, kConsumers);", ""), "bar_arrive(kTurnBar + (cwg ^ 1), kConsumers);", ""),
+        "a 2-stage ring": _sub(
+            FLASH, "kStages = tc_smem(kQBytes, kKBytes + kVBytes, 4) <= kSmemLimit ? 4 : 3;", "kStages = 2;"),
+        "a block per work item (not persistent)": _sub(
+            FLASH, "const dim3 grid(min(p.n_items, sm_count()));", "const dim3 grid(p.n_items);"),
+        "128-key tiles at d <= 128 / dv 64 (Q in shared memory)": _sub(_sub(
+            FLASH, "static constexpr int kKT = 64;", "static constexpr int kKT = DP <= 128 && DVP == 64 ? 128 : 64;"),
+            "static constexpr bool kQInRegs = DVP == 64 && DP <= 128;", "static constexpr bool kQInRegs = false;"),
+        "Q in shared memory (S from two descriptors)": _sub(
+            FLASH, "static constexpr bool kQInRegs = DVP == 64 && DP <= 128;", "static constexpr bool kQInRegs = false;"),
+        "no softmax (the two products only)": _sub(
+            FLASH, "      if (edge)\n        body(std::true_type{});\n      else\n"
+                   "        body(std::false_type{});\n", "      corr[0] = corr[1] = 1.f;\n"),
     },
     "filter_counts": {
         "as built": COUNTS,
@@ -290,14 +300,20 @@ SECTIONS = {"flash_attention": "flash_attention", "filter_counts": "filter_count
             "match_count": "filter_counts", "xash_superkey": "xash_superkey"}
 
 
-def build(only) -> dict[str, dict[str, ctypes.CDLL]]:
+def build(only, baseline: Path | None = None) -> dict[str, dict[str, ctypes.CDLL]]:
+    """Builds every variant of each library in ``only`` (and, with
+    ``baseline``, that csrc directory's flash_attention.cu against its own
+    headers), all ``nvcc``s at once."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = []
     for lib in only:
-        for i, (name, text) in enumerate(VARIANTS[lib].items()):
+        variants = {name: (text, CSRC) for name, text in VARIANTS[lib].items()}
+        if lib == "flash_attention" and baseline is not None:
+            variants[f"baseline ({baseline})"] = ((baseline / "flash_attention.cu").read_text(), baseline)
+        for i, (name, (text, inc)) in enumerate(variants.items()):
             src, so = OUT / f"{lib}_{i}.cu", OUT / f"lib{lib}_{i}.so"
             src.write_text(text)
-            cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(CSRC), "-o", str(so), str(src)]
+            cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(inc), "-o", str(so), str(src)]
             procs.append((lib, name, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                           stderr=subprocess.STDOUT, text=True)))
     libs: dict[str, dict[str, ctypes.CDLL]] = {lib: {} for lib in only}
@@ -305,6 +321,11 @@ def build(only) -> dict[str, dict[str, ctypes.CDLL]]:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"{lib} / {name}: nvcc exit {proc.returncode}\n{log}")
+        if lib == "flash_attention":  # each bf16 kernel's registers and spills, and wgmma serialised
+            print(json.dumps({"ptxas": lib, "variant": name,
+                              "tc_kernels": chip_smoke.ptxas_entries(log, "flash_tc_kernel"),
+                              "serialized": [ln.strip() for ln in log.splitlines() if "serialized" in ln]}),
+                  flush=True)
         handle = ctypes.CDLL(str(so))
         for fn, argtypes in _build.LIBRARIES[lib][1].items():
             if not hasattr(handle, fn):  # B.5's former body has only its own entry point
@@ -336,30 +357,40 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", nargs="+", choices=list(SECTIONS), default=list(SECTIONS),
                     help="sections to time: B.6, B.2 + B.1, B.4 + B.5, B.3")
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="a csrc directory of another tree (e.g. the parent commit's, unpacked by git"
+                         " archive) whose flash_attention.cu is timed beside the variants")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ablations: no CUDA device", file=sys.stderr)
         return 2
-    libs = build(dict.fromkeys(SECTIONS[o] for o in args.only))
+    libs = build(dict.fromkeys(SECTIONS[o] for o in args.only), args.baseline)
     dev = torch.device("cuda")
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
     if "flash_attention" in args.only:
-        b, s, h, d = 4, 2048, 16, 64
-        gen = torch.Generator(device=dev).manual_seed(0)
-        q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
-        strides = [x for t in (q, k, v) for x in flk._strides(t, True)]
-        for window in (0, 512):
-            def flash(handle, window=window):
-                out = torch.empty_like(q)
+        # the serving prefill, its window, the training forward (with the row
+        # log-sum-exp), d 128 / dv 64 and MLA's d 192 / dv 128, all causal
+        for b, s, h, d, dv, window, with_lse in ((4, 2048, 16, 64, 64, 0, False), (4, 2048, 16, 64, 64, 512, False),
+                                                 (8, 2048, 16, 64, 64, 0, True), (4, 2048, 16, 128, 64, 0, False),
+                                                 (2, 2048, 16, 192, 128, 0, False)):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            q, k, v = (torch.randn(b, s, h, e, generator=gen, device=dev).to(torch.bfloat16) for e in (d, d, dv))
+            strides = [x for t in (q, k, v) for x in flk._strides(t, True)]
+            lse = torch.empty(b, h, s, device=dev) if with_lse else None
+
+            def flash(handle, q=q, k=k, v=v, strides=strides, lse=lse, window=window):
+                out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype, device=dev)
                 _build.check(handle.flash_attention_launch(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, b, h, s, s, d, d, d,
-                    *strides, 1, window, 1, stream()), "flash_attention")
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.ptr(lse), q.shape[0],
+                    q.shape[2], q.shape[1], k.shape[1], q.shape[3], v.shape[3], q.shape[3], *strides, 1, window, 1,
+                    stream()), "flash_attention")
                 return out
             want = flk.flash_attention_plain(q, k, v, causal=True, window=window)
-            print(json.dumps({"kernel": "flash_attention", "shape": f"[{b},{s},{h},{d}] bf16 causal window={window}",
+            shape = f"[{b},{s},{h},d={d},dv={dv}] bf16 causal window={window}{' with lse' if with_lse else ''}"
+            print(json.dumps({"kernel": "flash_attention", "shape": shape,
                               "variants": in_turns(libs["flash_attention"], flash, want)}), flush=True)
-        del q, k, v
+            del q, k, v, lse, want
 
     rng = np.random.default_rng(0)
     if "filter_counts" in args.only or "match_count" in args.only:
