@@ -59,8 +59,10 @@ Phases, each printing one JSON line:
    1e-5), finite, three calls bit-equal, one launch of each kernel per
    autograd call, with the forward's, the backward's (bound:
    ``flash_bwd_work``), the plain backward's and SDPA's backward and
-   forward + backward times; the backward's row of the ``kernels`` line
-   (its first shape, bf16; ``launches`` from the train path);
+   forward + backward times (``kernel_to_library``: the backward's over
+   SDPA's), the backward's ``ptxas`` report (and any "serialized" line);
+   the backward's row of the ``kernels`` line (its first shape, bf16;
+   ``launches`` from the train path);
 3. main path — ``synthetic.make_corpus`` → ``MateSession.build`` (default
    ``DiscoveryConfig``: 128 bits, rank='quality', profile gate on, backend
    resolved on CUDA to 'fused-gather') → ``discover`` on ground-truth
@@ -1042,6 +1044,7 @@ def flash_grad_phase(seed) -> dict:
                 "sdpa_bwd_ms": cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True),
                                        GRAD_REPS),
                 "sdpa_fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot), GRAD_REPS)}
+            check["kernel_to_library"] = check["backward_ms"] / check["sdpa_bwd_ms"]
             checks.append(check)
             if row is None:
                 row = {"name": "flash_attention_backward", "route": "cuda",
@@ -1060,7 +1063,8 @@ def flash_grad_phase(seed) -> dict:
             torch.cuda.empty_cache()
     log = _build.build_log.get("flash_attention_bwd")
     emit({"phase": "flash_grad", "gpu": nvidia_smi(), "checks": checks,
-          "ptxas": None if log is None else ptxas_entries(log, "_kernel")})
+          "ptxas": None if log is None else ptxas_entries(log, "_kernel"),
+          "serialized": None if log is None else [ln.strip() for ln in log.splitlines() if "serialized" in ln]})
     return row
 
 

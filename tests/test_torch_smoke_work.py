@@ -8,6 +8,7 @@ lanes touch.  Importing ``chip_smoke`` needs no GPU.
 """
 
 import importlib.util
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -276,6 +277,20 @@ def test_flash_tc_smem_fits_a_block():
     assert chip_smoke.flash_tc_smem(64, 64) == 1024 + 2 * 16 * 1024 + 4 * (8 + 8) * 1024 + bars(4)
     assert chip_smoke.flash_tc_smem(64, 128) == 1024 + 2 * 16 * 1024 + 4 * (8 + 16) * 1024 + bars(4)
     assert max(chip_smoke.flash_tc_smem(dp, dvp) for dp in (64, 128, 192) for dvp in (64, 128)) <= 232448
+
+
+def test_kernel_ablations_variants_apply(monkeypatch):
+    """``tools/kernel_ablations.py`` makes its variants by text substitution
+    at import, and one that no longer applies to the checked-in source
+    raises there; each variant must also change its source."""
+    monkeypatch.setattr(sys, "path", list(sys.path))  # the tool puts the repo's root and src first
+    spec = importlib.util.spec_from_file_location(
+        "kernel_ablations", Path(__file__).resolve().parents[1] / "tools" / "kernel_ablations.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    for lib, variants in tool.VARIANTS.items():
+        for name, text in variants.items():
+            assert name == "as built" or text != variants["as built"], (lib, name)
 
 
 def test_ptxas_entries_picks_the_named_kernels():

@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
 """Ablations of the port's redesigned kernels on one GPU: B.6 (bf16 flash
-attention, ``csrc/flash_attention.cu``), B.2, B.1, B.4 and B.5 (the row
-filter, ``csrc/filter_counts.cu``) and B.3 (XASH superkeys,
+attention, ``csrc/flash_attention.cu``, and its backward,
+``csrc/flash_attention_bwd.cu``), B.2, B.1, B.4 and B.5 (the row filter,
+``csrc/filter_counts.cu``) and B.3 (XASH superkeys,
 ``csrc/xash_superkey.cu``).
 
-    python3 tools/kernel_ablations.py [--only flash_attention filter_counts match_count xash_superkey]
-        [--baseline DIR]
+    python3 tools/kernel_ablations.py [--only flash_attention flash_attention_bwd filter_counts
+        match_count xash_superkey] [--baseline DIR]
 
 Builds each source as checked in, variants of it made by text substitution
 (every substitution must apply, or the script fails) and the former bodies
 of B.4 and B.5 (before their redesign), loads them with ctypes beside each
 other, and times each kernel's variants at the kernel phase's headline
-shapes of ``chip_smoke.py`` (and B.4/B.5 at the main and ops paths' shapes)
-with CUDA events, in turns (forward order, then reverse; two numbers per
-variant).  Each result is held against the kernel's plain version, except
-the "no softmax" skeleton and "no key counts", which compute something
-else.  Prints one JSON line per shape, then the card's
-name and power limit.  Needs a CUDA device and ``nvcc``.
+shapes of ``chip_smoke.py`` (B.4/B.5 also at the main and ops paths'
+shapes, the backward at the ``flash_grad`` phase's bf16 shapes) with CUDA
+events, in turns (forward order, then reverse; two numbers per variant).
+Each result is held against the kernel's plain version, except the "no
+softmax" skeleton, "no key counts" and the backward's one-pass variants,
+which compute something else.  ``--baseline DIR`` times that csrc
+directory's B.6 sources (another tree's, built against its own headers)
+beside the variants.  Prints each B.6 variant's ptxas registers, spills and
+"serialized" lines, one JSON line per shape, then the card's name and power
+limit.  Needs a CUDA device and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ def _sub(text: str, old: str, new: str) -> str:
 
 
 FLASH = (CSRC / "flash_attention.cu").read_text()
+FLASH_BWD = (CSRC / "flash_attention_bwd.cu").read_text()
 # B.4 before its redesign: one thread per output byte over a flat index
 OLD_MATCH = """#include "common.cuh"
 
@@ -245,6 +251,21 @@ VARIANTS = {
             FLASH, "      if (edge)\n        body(std::true_type{});\n      else\n"
                    "        body(std::false_type{});\n", "      corr[0] = corr[1] = 1.f;\n"),
     },
+    "flash_attention_bwd": {
+        "as built": FLASH_BWD,
+        "mask code on every tile": _sub(_sub(
+            FLASH_BWD, "    if (edge)\n      probs(std::true_type{});\n    else\n      probs(std::false_type{});\n",
+            "    probs(std::true_type{});\n"),
+            "    if (edge)\n      grads(std::true_type{});\n    else\n      grads(std::false_type{});\n",
+            "    grads(std::true_type{});\n"),
+        "a 4-stage ring": _sub(FLASH_BWD, "constexpr int kStages = 2;", "constexpr int kStages = 4;"),
+        "dK/dV pass only": _sub(
+            FLASH_BWD, "  kernel<<<dim3(B * p.H, (p.S + kRows - 1) / kRows), kWg, smem, s>>>(p);\n", ""),
+        "dQ pass only": _sub(_sub(
+            FLASH_BWD, "    err = launch_dkdv<DP, DVP, kBoth>(p, B, s);\n", "    err = cudaSuccess;\n"),
+            "    err = launch_dkdv<DP, DVP, kOnlyDK>(p, B, s);\n    if (err == cudaSuccess) err = launch_dkdv<DP, DVP, kOnlyDV>(p, B, s);\n",
+            "    err = cudaSuccess;\n"),
+    },
     "filter_counts": {
         "as built": COUNTS,
         "one row's elig in flight per warp": _sub(
@@ -296,20 +317,24 @@ B4_VARIANTS = ("as built", "B.4: staged through shared memory at q % 8 == 0 too"
 B5_VARIANTS = ("as built", "key counts: a shared atomic per hit", "no G-packing (32 threads per row at any q)",
                "512 bits: lanes 0-3 in place of the fold", "B.5: the one-row-per-thread body (PR 12)")
 # --only sections and the library whose variants each times
-SECTIONS = {"flash_attention": "flash_attention", "filter_counts": "filter_counts",
-            "match_count": "filter_counts", "xash_superkey": "xash_superkey"}
+SECTIONS = {"flash_attention": "flash_attention", "flash_attention_bwd": "flash_attention_bwd",
+            "filter_counts": "filter_counts", "match_count": "filter_counts", "xash_superkey": "xash_superkey"}
+# entry functions whose ptxas lines are printed, by library
+PTXAS = {"flash_attention": "flash_tc_kernel", "flash_attention_bwd": "tc_kernel"}
+# variants whose results are not held against the plain version
+UNCHECKED = ("no softmax", "wrong", "pass only")
 
 
 def build(only, baseline: Path | None = None) -> dict[str, dict[str, ctypes.CDLL]]:
     """Builds every variant of each library in ``only`` (and, with
-    ``baseline``, that csrc directory's flash_attention.cu against its own
+    ``baseline``, that csrc directory's B.6 sources against its own
     headers), all ``nvcc``s at once."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = []
     for lib in only:
         variants = {name: (text, CSRC) for name, text in VARIANTS[lib].items()}
-        if lib == "flash_attention" and baseline is not None:
-            variants[f"baseline ({baseline})"] = ((baseline / "flash_attention.cu").read_text(), baseline)
+        if lib in PTXAS and baseline is not None:
+            variants[f"baseline ({baseline})"] = ((baseline / f"{lib}.cu").read_text(), baseline)
         for i, (name, (text, inc)) in enumerate(variants.items()):
             src, so = OUT / f"{lib}_{i}.cu", OUT / f"lib{lib}_{i}.so"
             src.write_text(text)
@@ -321,9 +346,9 @@ def build(only, baseline: Path | None = None) -> dict[str, dict[str, ctypes.CDLL
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"{lib} / {name}: nvcc exit {proc.returncode}\n{log}")
-        if lib == "flash_attention":  # each bf16 kernel's registers and spills, and wgmma serialised
+        if lib in PTXAS:  # each bf16 kernel's registers and spills, and wgmma serialised
             print(json.dumps({"ptxas": lib, "variant": name,
-                              "tc_kernels": chip_smoke.ptxas_entries(log, "flash_tc_kernel"),
+                              "tc_kernels": chip_smoke.ptxas_entries(log, PTXAS[lib]),
                               "serialized": [ln.strip() for ln in log.splitlines() if "serialized" in ln]}),
                   flush=True)
         handle = ctypes.CDLL(str(so))
@@ -346,7 +371,7 @@ def in_turns(variants: dict, run, want) -> dict:
     for name in [*variants, *reversed(variants)]:
         got = run(variants[name])
         entry = res.setdefault(name, {"ms": []})
-        if "no softmax" not in name and "wrong" not in name:
+        if not any(u in name for u in UNCHECKED):
             entry["max_abs_err"] = max(float((g.float() - w.float()).abs().max())
                                        for g, w in zip(_tuple(got), _tuple(want)))
         entry["ms"].append(chip_smoke.cuda_ms(lambda: run(variants[name]), chip_smoke.REPS))
@@ -356,10 +381,11 @@ def in_turns(variants: dict, run, want) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", nargs="+", choices=list(SECTIONS), default=list(SECTIONS),
-                    help="sections to time: B.6, B.2 + B.1, B.4 + B.5, B.3")
+                    help="sections to time: B.6, B.6's backward, B.2 + B.1, B.4 + B.5, B.3")
     ap.add_argument("--baseline", type=Path, default=None,
                     help="a csrc directory of another tree (e.g. the parent commit's, unpacked by git"
-                         " archive) whose flash_attention.cu is timed beside the variants")
+                         " archive) whose flash_attention.cu and flash_attention_bwd.cu are timed beside"
+                         " the variants")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ablations: no CUDA device", file=sys.stderr)
@@ -391,6 +417,44 @@ def main() -> int:
             print(json.dumps({"kernel": "flash_attention", "shape": shape,
                               "variants": in_turns(libs["flash_attention"], flash, want)}), flush=True)
             del q, k, v, lse, want
+
+    if "flash_attention_bwd" in args.only:
+        # the flash_grad phase's bf16 shapes (training's, MLA's, whisper's
+        # cross-attention) and its window edge: the prep kernel and both
+        # passes, on the forward's output and row log-sum-exp
+        shapes = [(b, s, t, h, d, dv, c, 0) for b, s, t, h, d, dv, c in chip_smoke.FLASH_GRAD]
+        shapes += [e[1:9] for e in chip_smoke.FLASH_GRAD_EDGE if e[0] == "window"]
+        for b, s, t, h, d, dv, causal, window in shapes:
+            gen = torch.Generator(device=dev).manual_seed(0)
+            q, k, v = (torch.randn(b, n, h, e, generator=gen, device=dev).to(torch.bfloat16)
+                       for n, e in ((s, d), (t, d), (t, dv)))
+            do = torch.randn(b, s, h, dv, generator=gen, device=dev).to(torch.bfloat16)
+            with torch.no_grad():
+                out, lse = flk._forward(q, k, v, causal, window, True)
+            strides = [x for t_ in (q, k, v) for x in flk._strides(t_, True)]
+
+            def backward(handle, q=q, k=k, v=v, out=out, lse=lse, do=do, strides=strides, causal=causal,
+                         window=window):
+                b_, s_, h_, d_ = q.shape
+                scratch = torch.empty(2, b_ * h_ * (-(-s_ // 64) * 64), dtype=torch.float32, device=dev)
+                grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+                _build.check(handle.flash_attention_bwd_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                    scratch[0].data_ptr(), scratch[1].data_ptr(), *(g.data_ptr() for g in grads), b_, h_, s_,
+                    k.shape[1], d_, v.shape[3], d_, *strides, int(causal), window, 1, stream()),
+                    "flash_attention_backward")
+                return grads
+            want = flk.flash_attention_backward_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                                      do.float(), causal=causal, window=window)
+            shape = (f"[{b},S={s},T={t},{h},d={d},dv={dv}] bf16 {'causal' if causal else 'non-causal'}"
+                     f" window={window}")
+            nbytes, flops = chip_smoke.flash_bwd_work(b, s, t, h, d, dv, window, 2, causal)
+            b_ms, b_by = chip_smoke.bound(nbytes, flops, chip_smoke.BF16_FLOPS_PER_S)
+            print(json.dumps({"kernel": "flash_attention_backward", "shape": shape, "bound_ms": b_ms,
+                              "bound_by": b_by, "variants": in_turns(libs["flash_attention_bwd"], backward, want)}),
+                  flush=True)
+            del q, k, v, do, out, lse, want
+        torch.cuda.empty_cache()
 
     rng = np.random.default_rng(0)
     if "filter_counts" in args.only or "match_count" in args.only:
